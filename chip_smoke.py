@@ -9,24 +9,32 @@ raises and the script exits non-zero:
 1. ``env``     -- the card (name, power limit), torch/CUDA versions, TF32 setting.
 2. ``build``   -- compiles ``src/repro_torch/kernels/csrc/*.cu`` with nvcc
    (one process per source, all at once).
-3. ``kernels`` -- calls each kernel's wrapper at the shapes the serving path
-   gives it (plus one ragged fp32 case), holds the result against the plain
-   PyTorch version on the same inputs, and times kernel, plain version and the
-   one PyTorch library call that computes the same function (a yardstick; the
-   port never calls it) with CUDA events after warm-up.
+3. ``kernels`` -- calls each kernel's wrapper at the shapes the two model paths
+   give it (glm4-9b's serving, zamba2-2.7b's prefill; plus ragged, unaligned
+   and small cases), holds the result against the plain PyTorch version on
+   the same inputs, and times kernel, plain version and the one PyTorch
+   library call that computes the same function (a yardstick; the port never
+   calls it; none exists for the SSD scan) with CUDA events after warm-up.
 4. ``parity``  -- glm4-9b at full width, 4 layers: one padded prefill and a few
    decode steps, logits through the kernels against logits through the plain
    versions, in fp32 and in bf16.
 5. ``serve``   -- glm4-9b at full width and full depth (40 layers, bf16, random
    weights from a seed) serving 16 seeded requests through ``ServeEngine``;
    checks every result, the page allocator and the kernels' launch counts.
+6. ``zamba_parity`` -- zamba2-2.7b at full width, 12 layers: a 300-token
+   forward through the kernels against the plain versions in fp32 and bf16,
+   and the fp32 teacher-forced decode against the forward.
+7. ``zamba``   -- zamba2-2.7b at full width and full depth (54 layers, bf16,
+   random weights from a seed): one 32768-token forward, then 128 decode
+   steps at batch 8; checks the outputs and the exact launch counts.
 
-With ``--profile`` a sixth phase traces one decode step and one prefill with
-``torch.profiler`` (device-busy time against the host's wall clock).
+With ``--profile`` two further phases, after ``serve`` and after ``zamba``,
+trace a decode step and a prefill of each model with ``torch.profiler``
+(device-busy time against the host's wall clock).
 
-Then the ``kernels`` summary line (launches on the serving path, error, times
-and roofline bound per kernel), the card as ``nvidia-smi`` names it, and the
-verdict as the last line.  There is no CPU path: without a CUDA device the
+Then the ``kernels`` summary line (launches over both models' paths, error,
+times and roofline bound per kernel), the card as ``nvidia-smi`` names it,
+and the verdict as the last line.  There is no CPU path: without a CUDA device the
 script exits non-zero before printing anything.
 """
 
@@ -70,6 +78,14 @@ L2_BYTES = 50 * 2**20
 # rule, rtol = atol): bf16 results differ by one rounding of the output, which
 # grows with the value (2e-2); fp32 differs by the order of the sums (1e-4).
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# The SSD scan's final state (fp32) against its plain version: rtol = atol =
+# 1e-4, the reference's own test rule for S_final.
+SSD_STATE_TOL = 1e-4
+
+# zamba2-2.7b's prefill: the sequence of the reference's prefill_32k shape
+# (its batch of 32 cut to 1), and the shared attention's longest case timed.
+ZAMBA_SEQ = 32768
+ZAMBA_ATTN_SEQ = 4096
 
 
 def compare(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
@@ -222,10 +238,91 @@ def flash_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype: tor
     return case
 
 
-def kernels_phase(cfg, dev: torch.device) -> list[dict]:
+def ssd_case(b: int, H: int, s: int, P: int, N: int, chunk: int, dtype: torch.dtype,
+             gen: torch.Generator, iters: int, model_layout: bool,
+             out_dtype: torch.dtype | None = None) -> dict:
+    """``model_layout``: x held as (b, s, H, P) and passed as a transposed view,
+    B/C as (b, s, N) shared by the heads and passed as head-stride-0 views,
+    dt/loga as (b, s, H), as ``mamba2_fwd`` does."""
+    dev = gen.device
+
+    def rand(*shape, scale=1.0, to=dtype):
+        return (torch.randn(shape, device=dev, dtype=torch.float32, generator=gen) * scale).to(to)
+
+    if model_layout:
+        x = rand(b, s, H, P).transpose(1, 2)
+        B, C = (rand(b, s, N, scale=0.5)[:, None].expand(b, H, s, N) for _ in range(2))
+        dt = F.softplus(rand(b, s, H, to=torch.float32)).transpose(1, 2)
+        loga = -F.softplus(rand(b, s, H, to=torch.float32)).transpose(1, 2)
+    else:
+        x = rand(b, H, s, P)
+        B, C = (rand(b, H, s, N, scale=0.5) for _ in range(2))
+        dt = F.softplus(rand(b, H, s, to=torch.float32))
+        loga = -F.softplus(rand(b, H, s, to=torch.float32))
+    args = [(x, B, C, dt, loga)]
+    y, S = ops.ssd_chunk_scan(x, B, C, dt, loga, chunk, out_dtype)
+    torch.cuda.synchronize()
+    y_want, S_want = ref.ssd_chunk_scan_ref(x, B, C, dt, loga, chunk, out_dtype)
+    what = f"ssd_chunk_scan x{tuple(x.shape)} N {N} chunk {chunk} {dtype}"
+    err = compare(y, y_want, what)
+    s_err = (S - S_want).abs()
+    if S.dtype != torch.float32 or not bool((s_err <= SSD_STATE_TOL * (1 + S_want.abs())).all()):
+        raise AssertionError(f"{what}: S_final disagrees with the plain version, max abs err "
+                             f"{s_err.max().item()} (rtol = atol = {SSD_STATE_TOL})")
+    case = {
+        "kernel": "ssd_chunk_scan", "shape": [b, H, s, P, N], "chunk": min(chunk, s),
+        "layout": "model: x (b,s,H,P), B/C (b,s,N) head stride 0" if model_layout
+        else "(b,H,s,.) contiguous",
+        "dtype": str(dtype).removeprefix("torch."), "y_dtype": str(y.dtype).removeprefix("torch."),
+        "max_abs_err": err, "tol": TOL[y.dtype], "S_final_max_abs_err": s_err.max().item(),
+        "S_final_tol": SSD_STATE_TOL,
+    }
+    timings(
+        case,
+        kernel=(lambda *a: ops.ssd_chunk_scan(*a, chunk, out_dtype), args, iters),
+        plain=(lambda *a: ref.ssd_chunk_scan_ref(*a, chunk, out_dtype), args, max(1, iters // 3)),
+        library=None,   # no single PyTorch call computes the SSD chunk scan
+    )
+    cs = min(chunk, s)
+    flops = b * H * (s // cs) * 2 * cs * (cs * (N + P) + 2 * P * N)
+    # each input read once (B/C: their storage, shared by the heads), each output written once
+    nbytes = (x.numel() * dtype.itemsize + 2 * b * (1 if model_layout else H) * s * N * dtype.itemsize
+              + 2 * b * H * s * 4 + y.numel() * y.dtype.itemsize + S.numel() * 4)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    case["bound_ms"] = max(by_bytes, by_ops)
+    case["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    case["kernel_tflops"] = flops / case["kernel_ms"] / 1e9
+    return case
+
+
+def kernels_phase(cfg, zcfg, dev: torch.device) -> dict[str, dict]:
+    """Every kernel case; returns the case of each kernel at its main path's
+    heaviest shape (glm4-9b's prefill for rmsnorm and flash attention,
+    zamba2-2.7b's 32k prefill for the SSD scan)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     hd = cfg.resolved_head_dim
     bf16, fp32 = torch.bfloat16, torch.float32
+    zh, zhd = zcfg.n_heads, zcfg.resolved_head_dim
+    H, N = zcfg.ssm_heads, zcfg.ssm_state
+    P = zcfg.ssm_expand * zcfg.d_model // H
+    ssd_main = ssd_case(1, H, ZAMBA_SEQ, P, N, 128, bf16, gen, 3, True, fp32)
+    zamba_cases = [
+        ssd_main,
+        ssd_case(1, H, 128, P, N, 128, bf16, gen, 20, True, fp32),       # s == chunk
+        ssd_case(2, H, 1024, P, N, 128, bf16, gen, 10, True, fp32),      # b = 2
+        ssd_case(1, 8, 384, P, N, 128, fp32, gen, 10, True),
+        # the shapes of the reference's tests/test_kernels.py, y in x's dtype
+        *(ssd_case(b, h, s, p, n, c, dt, gen, 10, False)
+          for dt in (fp32, bf16)
+          for b, h, s, p, n, c in ((2, 2, 64, 16, 8, 16), (1, 4, 128, 32, 16, 32),
+                                   (2, 1, 32, 8, 8, 32))),
+        # zamba2's shared attention, hd = 80: tensor cores, then the CUDA-core kernel
+        flash_case(1, zh, zh, ZAMBA_ATTN_SEQ, ZAMBA_ATTN_SEQ, zhd, bf16, gen, 10, True),
+        flash_case(2, 8, 8, 300, 300, zhd, bf16, gen, 20, True),
+        flash_case(1, 4, 4, 150, 150, zhd, fp32, gen, 20, False),
+        flash_case(1, 4, 2, 130, 130, zhd, bf16, gen, 20, False, offset=1),
+    ]
     cases = [
         rmsnorm_case((1, 1024, cfg.d_model), bf16, gen, 200),    # prefill, largest bucket
         rmsnorm_case((8, 1, cfg.d_model), bf16, gen, 200),       # decode, 8 lanes
@@ -242,15 +339,29 @@ def kernels_phase(cfg, dev: torch.device) -> list[dict]:
         flash_case(1, 8, 2, 200, 200, 128, bf16, gen, 20, False, offset=1),
         flash_case(1, 4, 2, 100, 70, 64, bf16, gen, 20, False, causal=False),   # sq > skv
         flash_case(1, 4, 2, 100, 70, 32, fp32, gen, 20, False, causal=False),
+        rmsnorm_case((1, 1024, zcfg.d_model), bf16, gen, 200),   # zamba2-2.7b's width
     ]
-    emit({"phase": "kernels", "cases": cases})
-    return cases
+    emit({"phase": "kernels", "cases": cases + zamba_cases})
+    return {"rmsnorm": cases[0], "flash_attention": cases[4], "ssd_chunk_scan": ssd_main}
 
 
 # ------------------------------------------------------------------- parity
 def plain_kernels():
     """Route the model's kernel calls to the plain versions (comparison only)."""
-    return mock.patch.multiple(ops, rmsnorm=ref.rmsnorm_ref, flash_attention=ref.flash_attention_ref)
+    return mock.patch.multiple(ops, rmsnorm=ref.rmsnorm_ref, flash_attention=ref.flash_attention_ref,
+                               ssd_chunk_scan=ref.ssd_chunk_scan_ref)
+
+
+# leaves held in fp32 whatever the weights' dtype
+FP32_LEAVES = ("norm_scale", "A_log", "D", "dt_bias")
+
+
+def cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: v if k in FP32_LEAVES else cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cast(v, dtype) for v in tree]
+    return tree.to(dtype)
 
 
 def parity_phase(cfg, dev: torch.device) -> None:
@@ -267,13 +378,6 @@ def parity_phase(cfg, dev: torch.device) -> None:
     table[0, :n_blocks] = torch.arange(n_blocks, dtype=torch.int32, device=dev)
     active = torch.zeros(lanes, dtype=torch.bool, device=dev)
     active[0] = True
-
-    def cast(tree, dtype):
-        if isinstance(tree, dict):
-            return {k: v if k == "norm_scale" else cast(v, dtype) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [cast(v, dtype) for v in tree]
-        return tree.to(dtype)
 
     @torch.no_grad()
     def run(model, params) -> list[torch.Tensor]:
@@ -356,6 +460,7 @@ def serve_phase(cfg, dev: torch.device, n_layers: int):
     expected = {
         "rmsnorm": norms_per_forward * (stats.prefills + stats.decode_steps + 1 + n_buckets),
         "flash_attention": cfg.n_layers * (stats.prefills + n_buckets),
+        "ssd_chunk_scan": 0,
     }
     if counts != expected or stats.prefills != len(requests):
         raise AssertionError(f"launch counts {counts}, expected {expected}")
@@ -373,6 +478,143 @@ def serve_phase(cfg, dev: torch.device, n_layers: int):
         "peak_device_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     })
     return counts, model, params
+
+
+# -------------------------------------------------------------------- zamba
+def zamba_launches(cfg, forwards: int, decode_steps: int) -> dict[str, int]:
+    """Launches of ``forwards`` forwards and ``decode_steps`` decode steps: per
+    forward one SSD scan per Mamba2 layer and one flash attention per
+    application of the shared block; RMSNorm once per Mamba2 layer, twice per
+    shared block and once at the end, in both paths."""
+    units = cfg.n_layers // cfg.attn_every
+    return {"rmsnorm": (cfg.n_layers + 2 * units + 1) * (forwards + decode_steps),
+            "flash_attention": units * forwards, "ssd_chunk_scan": cfg.n_layers * forwards}
+
+
+def zamba_parity_phase(cfg, dev: torch.device, n_layers: int = 12, seq: int = 300) -> None:
+    """zamba2-2.7b at full width and ``n_layers`` layers: a ``seq``-token forward
+    (three chunks of 128, the last padded) through the kernels against the
+    plain versions, in fp32 and bf16; in fp32 also the teacher-forced decode
+    over the same tokens, which has no kernel, against the forward."""
+    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    master = build_model(cfg, ModelOptions("float32", "float32"), dev).init(gen)
+    tokens = torch.randint(0, cfg.vocab, (1, seq), device=dev, generator=gen)
+    report = {"phase": "zamba_parity", "n_layers": n_layers, "seq": seq, "chunk": 128}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        model = build_model(cfg, ModelOptions(name, name), dev)
+        params = cast(master, dtype)
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            through_kernels, _ = model.forward(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            with plain_kernels():
+                through_plain, _ = model.forward(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+        if counts != zamba_launches(cfg, 1, 0) or ops.launch_counts() != counts:
+            raise AssertionError(f"zamba_parity: the kernel run launched {counts}, expected "
+                                 f"{zamba_launches(cfg, 1, 0)}; the plain run must launch none "
+                                 f"({ops.launch_counts()})")
+        got, want = through_kernels[0, :, :cfg.vocab].float(), through_plain[0, :, :cfg.vocab].float()
+        diff = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        tol = 1e-3 if dtype == torch.float32 else 2e-2 * scale
+        finite = bool(torch.isfinite(got).all())
+        if not finite or not diff <= tol or through_kernels.shape != (1, seq, cfg.padded_vocab):
+            raise AssertionError(f"zamba_parity {name}: max abs logit diff {diff} > {tol} "
+                                 f"(finite={finite})")
+        report[name] = {"max_abs_logit_diff": diff, "tol": tol, "max_abs_logit": scale}
+        if dtype == torch.float32:
+            # fp32 sums in another order and the chunked scan against the
+            # recurrence: 1e-3 of the largest logit
+            with torch.no_grad():
+                cache = model.init_cache(1, seq)
+                steps = []
+                for t in range(seq):
+                    logits, cache = model.decode_step(params, cache, tokens[:, t: t + 1])
+                    steps.append(logits[0, 0, :cfg.vocab].float())
+                decoded = torch.stack(steps)
+            dec_diff = (decoded - got).abs().max().item()
+            dec_tol = 1e-3 * scale
+            if not dec_diff <= dec_tol or cache["index"] != seq:
+                raise AssertionError(f"zamba_parity: teacher-forced decode differs from the "
+                                     f"forward by {dec_diff} > {dec_tol}")
+            report["decode_vs_forward"] = {"max_abs_logit_diff": dec_diff, "tol": dec_tol}
+        del params, through_kernels, through_plain
+    emit(report)
+
+
+def zamba_phase(cfg, dev: torch.device):
+    """zamba2-2.7b at full width and depth, bf16, random weights: one forward
+    over ZAMBA_SEQ tokens, then decode_step at batch 8 from a fresh cache (64
+    teacher-forced prompt tokens, 64 greedy).  Returns the launch counts, the
+    model and its parameters."""
+    lanes, prompt_len, n_greedy = 8, 64, 64
+    model = build_model(cfg, ModelOptions("bfloat16", "bfloat16"), dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.randint(0, cfg.vocab, (1, ZAMBA_SEQ), device=dev, generator=gen)
+    prompt = torch.randint(0, cfg.vocab, (lanes, prompt_len), device=dev, generator=gen)
+    with torch.no_grad():
+        # warm-up outside the clocks and counts: a short forward and one step
+        model.forward(params, {"tokens": tokens[:, :256]})
+        model.decode_step(params, model.init_cache(lanes, 16), prompt[:, :1])
+        torch.cuda.synchronize()
+
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, _ = model.forward(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        fwd_counts = ops.launch_counts()
+        fwd_ok = logits.shape == (1, ZAMBA_SEQ, cfg.padded_vocab) and \
+            bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+        forward_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del logits
+
+        cache = model.init_cache(lanes, ZAMBA_SEQ)
+        kv_len = cache["kv"]["k"].shape[2]
+        ops.reset_launch_counts()
+        finite = torch.ones((), dtype=torch.bool, device=dev)
+        generated = []
+        t0 = time.perf_counter()
+        for t in range(prompt_len + n_greedy):
+            tok = prompt[:, t: t + 1] if t < prompt_len else generated[-1]
+            logits, cache = model.decode_step(params, cache, tok)
+            finite &= torch.isfinite(logits[..., :cfg.vocab]).all()
+            if t >= prompt_len - 1:
+                generated.append(logits[:, -1, :cfg.vocab].argmax(dim=-1, keepdim=True))
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        dec_counts = ops.launch_counts()
+    steps = prompt_len + n_greedy
+    out = torch.cat(generated[:n_greedy], dim=1).cpu()
+    if not fwd_ok or not bool(finite) or cache["index"] != steps or out.shape != (lanes, n_greedy) \
+            or not bool(((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"zamba: forward ok {fwd_ok}, decode logits finite {bool(finite)}, "
+                             f"index {cache['index']}/{steps}, tokens {tuple(out.shape)}")
+    if fwd_counts != zamba_launches(cfg, 1, 0) or dec_counts != zamba_launches(cfg, 0, steps):
+        raise AssertionError(f"zamba launch counts: forward {fwd_counts}, expected "
+                             f"{zamba_launches(cfg, 1, 0)}; decode {dec_counts}, expected "
+                             f"{zamba_launches(cfg, 0, steps)}")
+    emit({
+        "phase": "zamba", "model": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": cfg.param_count(), "dtype": "bfloat16", "init_s": init_s,
+        "forward": {"tokens": ZAMBA_SEQ, "batch": 1,
+                    "note": "prefill_32k's sequence, its batch cut from 32 to 1",
+                    "wall_s": forward_s, "tokens_per_s": ZAMBA_SEQ / forward_s,
+                    "peak_device_memory_gb": forward_peak_gb, "launches": fwd_counts},
+        "decode": {"lanes": lanes, "teacher_forced": prompt_len, "greedy": n_greedy,
+                   "kv_len": kv_len, "ms_per_step": decode_s * 1e3 / steps,
+                   "tokens_per_s": lanes * steps / decode_s, "launches": dec_counts},
+        "peak_device_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    })
+    return {k: fwd_counts[k] + dec_counts[k] for k in fwd_counts}, model, params
 
 
 # ------------------------------------------------------------------ profile
@@ -440,13 +682,35 @@ def profile_phase(model, params, dev: torch.device) -> None:
           "prefill_1024": _profiled(prefill, 2)})
 
 
+@torch.no_grad()
+def profile_zamba_phase(model, params, dev: torch.device) -> None:
+    """Where zamba2-2.7b's decode step (8 lanes, ring of 4096) and its
+    32768-token forward spend their time, as ``profile_phase`` does for glm4."""
+    lanes = 8
+    cache = model.init_cache(lanes, ZAMBA_SEQ)
+    tok = torch.ones((lanes, 1), dtype=torch.int32, device=dev)
+    tokens = torch.ones((1, ZAMBA_SEQ), dtype=torch.int32, device=dev)
+
+    def decode():
+        logits, _ = model.decode_step(params, cache, tok)
+        return logits[:, -1].argmax(dim=-1).cpu()
+
+    def forward():
+        logits, _ = model.forward(params, {"tokens": tokens})
+        return int(logits[0, -1].argmax())
+
+    emit({"phase": "profile_zamba", "n_layers": model.cfg.n_layers,
+          "decode_step_8_lanes_kv_4096": _profiled(decode, 5),
+          f"forward_{ZAMBA_SEQ}": _profiled(forward, 1)})
+
+
 # --------------------------------------------------------------------- main
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--layers", type=int, default=0,
                         help="depth of the serve phase (default: the model's own, 40)")
     parser.add_argument("--profile", action="store_true",
-                        help="also trace a decode step and a prefill with torch.profiler")
+                        help="also trace a decode step and a prefill of each model with torch.profiler")
     parser.add_argument("--ptxas-info", action="store_true",
                         help="print each kernel's registers and shared memory from the build")
     args = parser.parse_args()
@@ -466,19 +730,30 @@ def main() -> None:
           "sources": [os.path.relpath(s, ROOT) for s in _build.sources()],
           "flags": list(_build.NVCC_FLAGS)})
 
-    cfg = get_config("glm4-9b")
-    cases = kernels_phase(cfg, dev)
+    cfg, zcfg = get_config("glm4-9b"), get_config("zamba2-2.7b")
+    cases = kernels_phase(cfg, zcfg, dev)
     parity_phase(cfg, dev)
-    counts, model, params = serve_phase(cfg, dev, args.layers or cfg.n_layers)
+    serve_counts, model, params = serve_phase(cfg, dev, args.layers or cfg.n_layers)
     if args.profile:
         profile_phase(model, params, dev)
+    del model, params
+    torch.cuda.empty_cache()
+    zamba_parity_phase(zcfg, dev)
+    zamba_counts, model, params = zamba_phase(zcfg, dev)
+    if args.profile:
+        profile_zamba_phase(model, params, dev)
+    # every kernel ran on zamba2's paths; rmsnorm and flash attention on glm4's too
+    if min(zamba_counts.values()) <= 0 or min(serve_counts["rmsnorm"],
+                                              serve_counts["flash_attention"]) <= 0:
+        raise AssertionError(f"a main path never launched a kernel: serve {serve_counts}, "
+                             f"zamba {zamba_counts}")
 
-    def summary(name: str, case: dict, source: str, replaces: str) -> dict:
-        if counts[name] <= 0:
-            raise AssertionError(f"the serving path never launched {name}")
+    def summary(name: str, source: str, replaces: str) -> dict:
+        case = cases[name]
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": case["max_abs_err"],
+            "launches": serve_counts[name] + zamba_counts[name],
+            "max_abs_err": case["max_abs_err"],
             "ms": case["kernel_ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
             "shape": case.get("shape") or {"q": case["q"], "kv": case["kv"]},
@@ -486,10 +761,12 @@ def main() -> None:
         }
 
     emit({"kernels": [
-        summary("rmsnorm", cases[0], "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        summary("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:23"),
-        summary("flash_attention", cases[4], "src/repro_torch/kernels/csrc/flash_attention.cu",
+        summary("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention.py:69"),
+        summary("ssd_chunk_scan", "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+                "src/repro/kernels/ssd_chunk.py:61"),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

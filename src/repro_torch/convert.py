@@ -1,9 +1,9 @@
 """Parameter conversion from the reference's pytree to the port's.
 
 The reference stacks the layers on a leading axis (``jax.vmap`` over the layer
-keys); the port holds a list of per-layer dictionaries.  Apart from that the
-two layouts agree leaf for leaf: weights are ``(d_in, d_out)`` and applied as
-``x @ W``.  The caller hands the reference's parameters over as numpy arrays,
+keys; the Zamba2 hybrid on two, ``(n_units, attn_every, ...)``); the port holds
+a flat list of per-layer dictionaries.  Apart from that the two layouts agree
+leaf for leaf: weights are ``(d_in, d_out)`` and applied as ``x @ W``.  The caller hands the reference's parameters over as numpy arrays,
 so this module needs neither framework of the reference.
 """
 
@@ -19,10 +19,52 @@ def _leaf(a, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.tensor(np.asarray(a, dtype=np.float32), dtype=dtype, device=device)
 
 
+def _norm(p, i=None, device="cpu") -> dict:
+    scale = p["norm_scale"] if i is None else p["norm_scale"][i]
+    return {"norm_scale": _leaf(scale, torch.float32, device)}
+
+
+# Mamba2 leaves kept in fp32 whatever ``dtype`` is: the reference reads them as
+# fp32 at every use, and their values must survive exactly.
+_FP32_SSM = ("A_log", "D", "dt_bias")
+
+
+def _zamba_params(tree: dict, cfg: ArchConfig, dtype: torch.dtype, device) -> dict:
+    units = tree["units"]
+    n_units, per_unit = np.asarray(units["ssm"]["w_in"]).shape[:2]
+    if n_units * per_unit != cfg.n_layers or per_unit != cfg.attn_every:
+        raise ValueError(f"pytree has {n_units} units of {per_unit} layers, config {cfg.name} "
+                         f"has {cfg.n_layers} layers, a unit every {cfg.attn_every}")
+    shared = tree["shared"]
+    return {
+        "embed": {"tokens": _leaf(tree["embed"]["tokens"], dtype, device)},
+        "layers": [
+            {
+                "ssm": {n: _leaf(w[u][j], torch.float32 if n in _FP32_SSM else dtype, device)
+                        for n, w in units["ssm"].items()},
+                "norm": _norm(units["norm"], (u, j), device),
+            }
+            for u in range(n_units) for j in range(per_unit)
+        ],
+        "shared": {
+            "attn": {n: _leaf(w, dtype, device) for n, w in shared["attn"].items()},
+            "attn_norm": _norm(shared["attn_norm"], device=device),
+            "mlp": {n: _leaf(w, dtype, device) for n, w in shared["mlp"].items()},
+            "mlp_norm": _norm(shared["mlp_norm"], device=device),
+        },
+        "final_norm": _norm(tree["final_norm"], device=device),
+        "lm_head": _leaf(tree["lm_head"], dtype, device),
+    }
+
+
 def from_jax_params(tree: dict, cfg: ArchConfig, dtype: torch.dtype = torch.float32,
                     device: torch.device | str = "cpu") -> dict:
-    """``tree``: the reference ``DecoderLM.init`` pytree with numpy leaves
-    (dense family).  Weights are cast to ``dtype``; norm scales stay fp32."""
+    """``tree``: the reference ``DecoderLM.init`` (dense family) or
+    ``ZambaLM.init`` (hybrid) pytree with numpy leaves.  Weights are cast to
+    ``dtype``; norm scales, and the Mamba2 ``A_log``/``D``/``dt_bias``, stay
+    fp32."""
+    if "units" in tree:
+        return _zamba_params(tree, cfg, dtype, device)
     layers = tree["layers"]
     if "moe" in layers or "patch_proj" in tree:
         raise NotImplementedError("only the dense family is ported so far")
@@ -30,24 +72,20 @@ def from_jax_params(tree: dict, cfg: ArchConfig, dtype: torch.dtype = torch.floa
     if n_layers != cfg.n_layers:
         raise ValueError(f"pytree has {n_layers} layers, config {cfg.name} has {cfg.n_layers}")
 
-    def norm(p, i=None):
-        scale = p["norm_scale"] if i is None else p["norm_scale"][i]
-        return {"norm_scale": _leaf(scale, torch.float32, device)}
-
     params = {
         "embed": {"tokens": _leaf(tree["embed"]["tokens"], dtype, device)},
         "layers": [
             {
                 "attn": {n: _leaf(layers["attn"][n][i], dtype, device)
                          for n in ("wq", "wk", "wv", "wo")},
-                "attn_norm": norm(layers["attn_norm"], i),
-                "ffn_norm": norm(layers["ffn_norm"], i),
+                "attn_norm": _norm(layers["attn_norm"], i, device),
+                "ffn_norm": _norm(layers["ffn_norm"], i, device),
                 "mlp": {n: _leaf(layers["mlp"][n][i], dtype, device)
                         for n in ("w_gate", "w_in", "w_out")},
             }
             for i in range(n_layers)
         ],
-        "final_norm": norm(tree["final_norm"]),
+        "final_norm": _norm(tree["final_norm"], device=device),
     }
     if "lm_head" in tree:
         params["lm_head"] = _leaf(tree["lm_head"], dtype, device)

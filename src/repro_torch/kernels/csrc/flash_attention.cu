@@ -42,6 +42,13 @@
 // (elements) and hd contiguous, so the model's (b, s, h, hd) tensors go in as
 // transposed views without a copy.
 //
+// Head dims 16, 32, 64, 80 (zamba2's shared attention) and 128 are built.  At
+// 80, a width that is not a power of two, the padded rows still work out: the
+// tensor-core kernel's bf16 rows of 88 elements (176 bytes) keep `ldmatrix`
+// rows 16-byte aligned and put the 8 rows of a fragment load in 8 distinct
+// groups of 4 banks (176 / 4 = 44 words, 44 mod 32 = 12); the CUDA-core
+// kernel's fp32 rows of 84 floats (336 bytes) do the same for its float4 reads.
+//
 // Plain C interface; the kernel launches on the given stream, does not
 // synchronise and allocates nothing.
 
@@ -512,6 +519,8 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, voi
             return launch<T, 32>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, stream);
         case 64:
             return launch<T, 64>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, stream);
+        case 80:
+            return launch<T, 80>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, stream);
         case 128:
             return launch<T, 128>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, stream);
         default:
@@ -547,6 +556,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                 case 16: err = launch_tc<16>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, s); break;
                 case 32: err = launch_tc<32>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, s); break;
                 case 64: err = launch_tc<64>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, s); break;
+                case 80: err = launch_tc<80>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, s); break;
                 case 128: err = launch_tc<128>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, s); break;
                 default: break;
             }

@@ -1,5 +1,5 @@
-"""Foundational layers of the serving path: RMSNorm, RoPE, GQA attention
-(dense-cache decode, paged decode, paged prefill) and the SwiGLU MLP.
+"""Foundational layers: RMSNorm, RoPE, GQA attention (full-sequence prefill,
+dense-cache decode, paged decode, paged prefill) and the SwiGLU MLP.
 
 PyTorch counterpart of the reference's ``models/layers.py``, in the same
 functional style: parameters are plain dictionaries of tensors in the
@@ -136,6 +136,34 @@ def _project_qkv(params: dict, x: torch.Tensor, n_heads: int, n_kv_heads: int, h
     k = _split_heads(x @ params["wk"].to(cd), n_kv_heads, head_dim)
     v = _split_heads(x @ params["wv"].to(cd), n_kv_heads, head_dim)
     return q, k, v
+
+
+def attention_fwd(params: dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int,
+                  n_kv_heads: int, head_dim: int, rope_theta: float = 1e4, causal: bool = True,
+                  kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,
+                  use_rope: bool = True) -> torch.Tensor:
+    """Full-sequence attention (prefill).  x: (b, s, d); positions: (b, s) or
+    (s,); ``kv_override``: already projected (k, v), each (b, sk, K, hd), for
+    cross-attention (no RoPE then, as in the reference); ``use_rope=False`` for
+    absolute-position models.  The attention itself is the flash-attention
+    kernel on (b, h, s, hd) views of the (b, s, h, hd) tensors; the kernel
+    groups the query heads, so K/V are never repeated."""
+    b, s, _ = x.shape
+    cd = x.dtype
+    q = _split_heads(x @ params["wq"].to(cd), n_heads, head_dim)
+    if kv_override is None:
+        k = _split_heads(x @ params["wk"].to(cd), n_kv_heads, head_dim)
+        v = _split_heads(x @ params["wv"].to(cd), n_kv_heads, head_dim)
+        if use_rope:
+            q = apply_rope(q, positions, rope_theta)
+            k = apply_rope(k, positions, rope_theta)
+    else:
+        k, v = (t.to(cd) for t in kv_override)
+    out = ops.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal
+    )   # (b, H, s, hd), in q's memory layout
+    out = out.transpose(1, 2).reshape(b, s, n_heads * head_dim)
+    return out @ params["wo"].to(cd)
 
 
 # --------------------------------------------------------------- KV caching

@@ -97,12 +97,13 @@ class PagedKVCache:
     ``pages`` is the model's per-layer pool from
     :meth:`DecoderLM.init_paged_cache`, updated in place by the decode and
     prefill steps.  ``block_tables`` is a (max_batch, max_blocks) int32 array,
-    -1 meaning unallocated, copied to ``device`` each call (a few KB).
+    -1 meaning unallocated, copied to ``device`` each call (a few KB);
+    ``device`` defaults to the model's, where its pool lies.
     """
 
-    def __init__(self, model, config: PagedCacheConfig, device: torch.device | str = "cpu"):
+    def __init__(self, model, config: PagedCacheConfig, device: torch.device | str | None = None):
         self.config = config
-        self.device = torch.device(device)
+        self.device = torch.device(model.device if device is None else device)
         self.allocator = PageAllocator(config.n_pages)
         self.pages = model.init_paged_cache(config.n_pages, config.page_size)
         self.block_tables = np.full(

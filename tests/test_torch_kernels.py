@@ -3,7 +3,9 @@
 
 On the CPU ``repro_torch.kernels.ops`` takes the plain PyTorch versions; the
 CUDA kernels themselves are held against these plain versions on the card by
-``chip_smoke.py``.  Tolerances are the reference's: fp32 1e-5, bf16 2e-2.
+``chip_smoke.py``.  Tolerances are the reference's: fp32 1e-5, bf16 2e-2; for
+the SSD chunk scan its own test's: y at 1e-4 (fp32) or 2e-2 with atol 1e-4
+(bf16), S_final at 1e-4, since the chunk products sum over up to 128 terms.
 """
 
 import jax.numpy as jnp
@@ -15,6 +17,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as fa_pallas
 from repro.kernels.rmsnorm import rmsnorm as rms_pallas
+from repro.kernels.ssd_chunk import ssd_chunk_scan as ssd_pallas
 from repro_torch.kernels import ops, ref
 
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
@@ -26,6 +29,12 @@ FA_GRID = [
     (1, 2, 2, 32, 128, 32, 32, 64),    # cross-length (prefix cache)
 ]
 RMS_SHAPES = [(4, 128), (2, 16, 256), (512,), (3, 5, 7, 64)]
+SSD_SHAPES = [            # b, H, s, P, N, chunk: the reference's tests/test_kernels.py
+    (2, 2, 64, 16, 8, 16),
+    (1, 4, 128, 32, 16, 32),
+    (2, 1, 32, 8, 8, 32),   # single chunk
+]
+SSD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 1e-4)}
 
 
 def make(rng, shape, dtype):
@@ -141,6 +150,114 @@ class TestRMSNormRef:
         np.testing.assert_allclose(out.square().mean(-1).sqrt().numpy(), 1.0, rtol=1e-3)
 
 
+def ssd_inputs(rng, b, H, s, P, N, dtype):
+    """x, B, C in ``dtype`` (B/C scaled by 0.5), dt = softplus(n), loga =
+    -softplus(n) in fp32, as the reference's test draws them; each as
+    (jax array, torch tensor)."""
+    x = make(rng, (b, H, s, P), dtype)
+    B, C = (make(rng, (b, H, s, N), dtype) for _ in range(2))
+    B, C = ((jb * 0.5, tb * 0.5) for jb, tb in (B, C))
+    dt = np.logaddexp(rng.standard_normal((b, H, s)), 0.0).astype(np.float32)
+    loga = -np.logaddexp(rng.standard_normal((b, H, s)), 0.0).astype(np.float32)
+    return x, B, C, (jnp.asarray(dt), torch.from_numpy(dt)), (jnp.asarray(loga), torch.from_numpy(loga))
+
+
+class TestSSDChunkRef:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("b,H,s,P,N,chunk", SSD_SHAPES)
+    @pytest.mark.parametrize("fn", ["ref", "ops"])
+    def test_matches_pallas_interpret(self, fn, dtype, b, H, s, P, N, chunk):
+        args = ssd_inputs(np.random.default_rng(0), b, H, s, P, N, dtype)
+        y_want, S_want = ssd_pallas(*(j for j, _ in args), chunk=chunk, interpret=True)
+        scan = ref.ssd_chunk_scan_ref if fn == "ref" else ops.ssd_chunk_scan
+        y, S = scan(*(t for _, t in args), chunk=chunk)
+        assert y.dtype == args[0][1].dtype and y.shape == (b, H, s, P)
+        assert S.dtype == torch.float32 and S.shape == (b, H, P, N)
+        rtol, atol = SSD_TOL[dtype]
+        np.testing.assert_allclose(to_np(y), to_np(y_want), rtol=rtol, atol=atol)
+        np.testing.assert_allclose(to_np(S), to_np(S_want), rtol=1e-4, atol=1e-4)
+
+    def test_matches_the_time_step_recurrence(self):
+        """The chunked scan equals the per-timestep recurrence (ground truth),
+        as in the reference's ``test_matches_model_time_scan``."""
+        b, H, s, P, N = 1, 2, 24, 8, 4
+        x, B, C, dt, loga = (t.numpy() for _, t in ssd_inputs(np.random.default_rng(7),
+                                                               b, H, s, P, N, "float32"))
+        S = np.zeros((b, H, P, N), np.float32)
+        ys = np.zeros((b, H, s, P), np.float32)
+        for t in range(s):
+            S = np.exp(loga[:, :, t])[..., None, None] * S + dt[:, :, t][..., None, None] * \
+                np.einsum("bhp,bhn->bhpn", x[:, :, t], B[:, :, t])
+            ys[:, :, t] = np.einsum("bhpn,bhn->bhp", S, C[:, :, t])
+        y_got, S_got = ops.ssd_chunk_scan(*map(torch.from_numpy, (x, B, C, dt, loga)), chunk=8)
+        np.testing.assert_allclose(y_got.numpy(), ys, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(S_got.numpy(), S, rtol=1e-4, atol=1e-4)
+
+    def test_single_chunk_equals_ssd_chunk_ref_of_the_reference(self):
+        x, B, C, dt, loga = ssd_inputs(np.random.default_rng(3), 1, 1, 16, 8, 4, "float32")
+        S0 = np.random.default_rng(4).standard_normal((8, 4)).astype(np.float32)
+        y_want, S_want = jref.ssd_chunk_ref(x[0][0, 0], B[0][0, 0], C[0][0, 0], dt[0][0, 0],
+                                            loga[0][0, 0], jnp.asarray(S0))
+        y, S = ref.ssd_chunk_ref(x[1][0, 0], B[1][0, 0], C[1][0, 0], dt[1][0, 0], loga[1][0, 0],
+                                 torch.from_numpy(S0))
+        np.testing.assert_allclose(y.numpy(), np.asarray(y_want), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(S.numpy(), np.asarray(S_want), rtol=1e-5, atol=1e-5)
+
+    def test_model_layout_views_give_the_same_result(self):
+        """The model holds x as (b, s, H, P) and B/C as (b, s, N) shared by all
+        heads; they go in as a transposed view and head-stride-0 views."""
+        g = torch.Generator().manual_seed(5)
+        b, s, H, P, N = 2, 64, 3, 8, 4
+        x = torch.randn(b, s, H, P, generator=g)
+        B, C = torch.randn(b, s, N, generator=g), torch.randn(b, s, N, generator=g)
+        dt = torch.rand(b, s, H, generator=g)
+        loga = -torch.rand(b, s, H, generator=g)
+        Bv, Cv = B[:, None].expand(b, H, s, N), C[:, None].expand(b, H, s, N)
+        assert Bv.stride(1) == 0
+        got = ops.ssd_chunk_scan(x.transpose(1, 2), Bv, Cv, dt.transpose(1, 2),
+                                 loga.transpose(1, 2), chunk=16)
+        want = ops.ssd_chunk_scan(x.transpose(1, 2).contiguous(), Bv.contiguous(), Cv.contiguous(),
+                                  dt.transpose(1, 2).contiguous(), loga.transpose(1, 2).contiguous(),
+                                  chunk=16)
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, rtol=0, atol=0)
+
+    def test_output_dtype_can_be_asked_for(self):
+        """bf16 inputs, fp32 y (what mamba2_fwd asks for): the same numbers as
+        the bf16 default before its last rounding."""
+        args = [t for _, t in ssd_inputs(np.random.default_rng(6), 1, 2, 32, 8, 4, "bfloat16")]
+        y32, S32 = ops.ssd_chunk_scan(*args, chunk=16, out_dtype=torch.float32)
+        y16, S16 = ops.ssd_chunk_scan(*args, chunk=16)
+        assert (y32.dtype, y16.dtype) == (torch.float32, torch.bfloat16)
+        torch.testing.assert_close(y32.to(torch.bfloat16), y16, rtol=0, atol=0)
+        torch.testing.assert_close(S32, S16, rtol=0, atol=0)
+
+    @pytest.mark.parametrize("s,chunk", [(48, 32), (24, 16)])
+    def test_sequence_not_a_multiple_of_the_chunk_is_rejected(self, s, chunk):
+        x = torch.zeros(1, 2, s, 8)
+        B = torch.zeros(1, 2, s, 4)
+        dt = torch.zeros(1, 2, s)
+        with pytest.raises(ValueError, match="multiple of chunk"):
+            ops.ssd_chunk_scan(x, B, B, dt, dt, chunk=chunk)
+
+    def test_chunk_is_capped_at_the_sequence(self):
+        x, B, C, dt, loga = (t for _, t in ssd_inputs(np.random.default_rng(8), 1, 1, 24, 4, 4,
+                                                      "float32"))
+        y, S = ops.ssd_chunk_scan(x, B, C, dt, loga, chunk=128)
+        y1, S1 = ops.ssd_chunk_scan(x, B, C, dt, loga, chunk=24)
+        torch.testing.assert_close(y, y1, rtol=0, atol=0)
+        torch.testing.assert_close(S, S1, rtol=0, atol=0)
+
+    def test_bad_shapes_are_rejected(self):
+        x = torch.zeros(1, 2, 16, 8)
+        with pytest.raises(ValueError):
+            ops.ssd_chunk_scan(x, torch.zeros(1, 3, 16, 4), torch.zeros(1, 3, 16, 4),
+                               torch.zeros(1, 2, 16), torch.zeros(1, 2, 16))
+        with pytest.raises(ValueError):
+            ops.ssd_chunk_scan(x, torch.zeros(1, 2, 16, 4), torch.zeros(1, 2, 16, 4),
+                               torch.zeros(1, 2, 15), torch.zeros(1, 2, 16))
+
+
 class TestOpsDispatch:
     def test_cpu_tensor_takes_the_plain_version_and_launches_nothing(self):
         g = torch.Generator().manual_seed(0)
@@ -151,7 +268,7 @@ class TestOpsDispatch:
                                    rtol=0, atol=0)
         torch.testing.assert_close(ops.rmsnorm(x, scale, 1e-5), ref.rmsnorm_ref(x, scale, 1e-5),
                                    rtol=0, atol=0)
-        assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0}
+        assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "ssd_chunk_scan": 0}
 
     def test_causal_with_more_queries_than_keys_is_rejected(self):
         q = torch.zeros(1, 2, 8, 16)
@@ -167,12 +284,23 @@ class TestOpsDispatch:
         with pytest.raises(ValueError):
             ops.flash_attention(torch.zeros(q), torch.zeros(k), torch.zeros(k))
 
+    def test_launch_counts_name_every_kernel(self):
+        ops.reset_launch_counts()
+        assert set(ops.launch_counts()) == {"rmsnorm", "flash_attention", "ssd_chunk_scan"}
+        x, B = torch.zeros(1, 1, 8, 4), torch.zeros(1, 1, 8, 4)
+        ops.ssd_chunk_scan(x, B, B, torch.zeros(1, 1, 8), torch.zeros(1, 1, 8), chunk=4)
+        assert ops.launch_counts()["ssd_chunk_scan"] == 0   # CPU: the plain version
+
     def test_cuda_wrappers_refuse_cpu_tensors(self):
         """The kernel wrappers never compute on the CPU: they raise."""
         from repro_torch.kernels.flash_attention import flash_attention_cuda
         from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+        from repro_torch.kernels.ssd_chunk import ssd_chunk_scan_cuda
 
         with pytest.raises(ValueError, match="CUDA"):
             rmsnorm_cuda(torch.zeros(2, 8), torch.ones(8))
         with pytest.raises(ValueError, match="CUDA"):
             flash_attention_cuda(*(torch.zeros(1, 1, 4, 16) for _ in range(3)))
+        with pytest.raises(ValueError, match="CUDA"):
+            ssd_chunk_scan_cuda(torch.zeros(1, 1, 8, 4), torch.zeros(1, 1, 8, 4),
+                                torch.zeros(1, 1, 8, 4), torch.zeros(1, 1, 8), torch.zeros(1, 1, 8))

@@ -249,6 +249,15 @@ def test_engine_follows_the_models_device(tiny_model):
     assert engine.cache.pages["k"].shape[1] == CFG.n_pages + 1   # the spare page
 
 
+def test_paged_cache_defaults_to_the_models_device(tiny_model):
+    """Built without a device, the block tables go where the model's pool lies."""
+    _, model, _ = tiny_model
+    cache = PagedKVCache(model, CFG.cache_config())
+    assert cache.device == model.device
+    assert cache.device_block_tables().device == cache.pages["k"].device
+    assert cache.lane_table(0).device == cache.pages["v"].device
+
+
 def test_prefill_bucket_is_power_of_two():
     assert [CFG.prefill_bucket(n) for n in (1, 8, 9, 100, 1024)] == [8, 8, 16, 128, 1024]
 
@@ -361,7 +370,10 @@ class TestPageAllocator:
 
 
 class _FakeModel:
-    """Stands in for DecoderLM: the cache only needs init_paged_cache."""
+    """Stands in for DecoderLM: the cache only needs its device and
+    init_paged_cache."""
+
+    device = torch.device("cpu")
 
     def init_paged_cache(self, n_pages, page_size):
         return {"k": torch.zeros(2, n_pages + 1, page_size, 1, 4),
