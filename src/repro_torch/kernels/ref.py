@@ -38,15 +38,17 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torc
 
 
 def ssd_chunk_ref(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: torch.Tensor,
-                  loga: torch.Tensor, S0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                  loga: torch.Tensor, S0: torch.Tensor,
+                  cum_dtype: torch.dtype = torch.float64) -> tuple[torch.Tensor, torch.Tensor]:
     """One Mamba2 SSD chunk: x (..., cs, P), B/C (..., cs, N), dt/loga (..., cs),
     S0 (..., P, N) carried state; leading dims are batch dims (the reference
     takes a single (batch, head)).  Returns (y (..., cs, P), S1 (..., P, N)).
-    All fp32."""
+    All fp32 but the prefix sum of loga, taken in ``cum_dtype``."""
     cs = x.shape[-2]
     # fp64 prefix sum rounded once, as the CUDA kernel takes it: the gate
-    # amplifies cum's rounding, and fp32 sums in two orders would disagree
-    cum = torch.cumsum(loga.double(), dim=-1).float()       # (..., cs)
+    # amplifies cum's rounding, and fp32 sums in two orders would disagree.
+    # cum_dtype=float32 is the reference's own arithmetic.
+    cum = torch.cumsum(loga.to(cum_dtype), dim=-1).float()  # (..., cs)
     decay = cum[..., :, None] - cum[..., None, :]           # (..., t, u)
     tri = torch.ones(cs, cs, dtype=torch.bool, device=x.device).tril()
     gate = torch.where(tri, torch.exp(decay), 0.0)          # select: exp may be inf above
@@ -61,11 +63,13 @@ def ssd_chunk_ref(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: torch.T
 
 def ssd_chunk_scan_ref(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: torch.Tensor,
                        loga: torch.Tensor, chunk: int = 128,
-                       out_dtype: torch.dtype | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                       out_dtype: torch.dtype | None = None,
+                       cum_dtype: torch.dtype = torch.float64) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (b, H, s, P); B/C: (b, H, s, N); dt/loga: (b, H, s), s % min(chunk, s)
     == 0.  Every (batch, head) at once, chunks in order (the reference's
     ``ops.ssd_chunk_scan(impl="ref")``).  Returns (y (b, H, s, P) in
-    ``out_dtype`` or x.dtype, S_final (b, H, P, N) fp32)."""
+    ``out_dtype`` or x.dtype, S_final (b, H, P, N) fp32).  ``cum_dtype``: see
+    :func:`ssd_chunk_ref`."""
     b, H, s, P = x.shape
     N = B.shape[-1]
     cs = min(chunk, s)
@@ -74,6 +78,6 @@ def ssd_chunk_scan_ref(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: to
     for t0 in range(0, s, cs):
         part = slice(t0, t0 + cs)
         y_c, S = ssd_chunk_ref(x[:, :, part].float(), B[:, :, part].float(), C[:, :, part].float(),
-                               dt[:, :, part].float(), loga[:, :, part].float(), S)
+                               dt[:, :, part].float(), loga[:, :, part].float(), S, cum_dtype)
         y[:, :, part] = y_c
     return y, S

@@ -150,14 +150,13 @@ def attention_fwd(params: dict, x: torch.Tensor, positions: torch.Tensor, *, n_h
     groups the query heads, so K/V are never repeated."""
     b, s, _ = x.shape
     cd = x.dtype
-    q = _split_heads(x @ params["wq"].to(cd), n_heads, head_dim)
     if kv_override is None:
-        k = _split_heads(x @ params["wk"].to(cd), n_kv_heads, head_dim)
-        v = _split_heads(x @ params["wv"].to(cd), n_kv_heads, head_dim)
+        q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim)
         if use_rope:
             q = apply_rope(q, positions, rope_theta)
             k = apply_rope(k, positions, rope_theta)
     else:
+        q = _split_heads(x @ params["wq"].to(cd), n_heads, head_dim)
         k, v = (t.to(cd) for t in kv_override)
     out = ops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal

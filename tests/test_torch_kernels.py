@@ -203,6 +203,17 @@ class TestSSDChunkRef:
         np.testing.assert_allclose(y.numpy(), np.asarray(y_want), rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(S.numpy(), np.asarray(S_want), rtol=1e-5, atol=1e-5)
 
+    @pytest.mark.parametrize("b,H,s,P,N,chunk", SSD_SHAPES)
+    def test_fp32_prefix_sum_matches_pallas_interpret(self, b, H, s, P, N, chunk):
+        """``cum_dtype=float32`` is the reference's own arithmetic for the
+        prefix sum; at these sizes it agrees with the Pallas kernel as tightly
+        as the default fp64 sum does (rtol = atol = 1e-4)."""
+        args = ssd_inputs(np.random.default_rng(8), b, H, s, P, N, "float32")
+        y_want, S_want = ssd_pallas(*(j for j, _ in args), chunk=chunk, interpret=True)
+        y, S = ref.ssd_chunk_scan_ref(*(t for _, t in args), chunk=chunk, cum_dtype=torch.float32)
+        np.testing.assert_allclose(y.numpy(), np.asarray(y_want), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(S.numpy(), np.asarray(S_want), rtol=1e-4, atol=1e-4)
+
     def test_model_layout_views_give_the_same_result(self):
         """The model holds x as (b, s, H, P) and B/C as (b, s, N) shared by all
         heads; they go in as a transposed view and head-stride-0 views."""
