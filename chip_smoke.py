@@ -46,6 +46,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -59,6 +60,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as _fa  # noqa: E402
+from repro_torch.kernels import rmsnorm as _rms  # noqa: E402
 from repro_torch.models import ModelOptions, build_model  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     EngineConfig,
@@ -151,6 +154,33 @@ def timings(case: dict, **fns_and_args) -> None:
             case[f"{name}_ms"], case[f"{name}_eager_ms"] = time_ms(*spec)
 
 
+def ptxas_report(outputs: dict[str, str]) -> list[dict]:
+    """Registers, spill bytes and static shared memory of every kernel, read
+    from ``nvcc -Xptxas -v``; template arguments shown as in the mangled name
+    (numbers, ``bf16``, ``f32``)."""
+    rows = []
+    for stem, text in outputs.items():
+        for entry in text.split("Compiling entry function '")[1:]:
+            mangled = entry.split("'", 1)[0]
+            m = re.search(r"\d+([a-z_]+_kernel)I(.*?)EEv", mangled)
+            args = ""
+            if m:
+                args = re.sub(r"Li(\d+)E", r"\1,", m.group(2))
+                args = args.replace("13__nv_bfloat16", "bf16,").replace("S1_", "bf16,")
+                args = re.sub(r"(?<![\w])f(?=\d|,|$)", "f32,", args).rstrip(",")
+            used = re.search(r"Used (\d+) registers", entry)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+            smem = re.search(r"(\d+) bytes smem", entry)
+            rows.append({
+                "source": stem, "kernel": f"{m.group(1)}<{args}>" if m else mangled,
+                "registers": int(used.group(1)) if used else None,
+                "spill_store_bytes": int(spill.group(1)) if spill else None,
+                "spill_load_bytes": int(spill.group(2)) if spill else None,
+                "static_smem_bytes": int(smem.group(1)) if smem else 0,
+            })
+    return rows
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -175,9 +205,19 @@ def rmsnorm_case(shape: tuple[int, ...], dtype: torch.dtype, gen: torch.Generato
     torch.cuda.synchronize()
     want = ref.rmsnorm_ref(x, scale, 1e-5)
     err = compare(got, want, f"rmsnorm {shape} {dtype}")
+    if err != 0.0:   # both take the statistics in the same correctly rounded steps
+        raise AssertionError(f"rmsnorm {shape} {dtype}: kernel and plain version differ by {err}, "
+                             "not bit for bit")
+    # bf16 rows of a width divisible by 8 (16-byte vectors) are held in
+    # registers when there are enough to fill the card; all else (fp32, ragged
+    # widths, decode's few rows) takes the block-per-row kernel
+    route = _rms.rmsnorm_plan(x, scale, got).route
+    many_rows = rows >= _rms.N_SM
+    if route != ("registers" if dtype == torch.bfloat16 and d % 8 == 0 and many_rows else "block"):
+        raise AssertionError(f"rmsnorm {shape} {dtype} took the {route!r} route")
     case = {
         "kernel": "rmsnorm", "shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
-        "max_abs_err": err, "tol": TOL[dtype],
+        "route": route, "max_abs_err": err, "tol": TOL[dtype],
     }
     timings(
         case,
@@ -228,10 +268,16 @@ def flash_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype: tor
     torch.cuda.synchronize()
     want = plain(q, k, v, causal=causal)
     err = compare(got, want, f"flash_attention q{tuple(q.shape)} kv{tuple(k.shape)} {dtype}")
+    # aligned bf16 runs on wgmma/TMA, fp32 and offset bf16 on the CUDA cores
+    plan = _fa.flash_plan(q, k, v, got)
+    if plan.route != ("wgmma" if dtype == torch.bfloat16 and offset == 0 else "cuda_cores"):
+        raise AssertionError(f"flash_attention q{tuple(q.shape)} {dtype} offset {offset} took "
+                             f"the {plan.route!r} route")
     args = [(q, k, v)]
     case = {
         "kernel": "flash_attention", "q": list(q.shape), "kv": list(k.shape),
         "layout": "(b,s,h,hd) strided" if model_layout else "(b,h,s,hd) contiguous",
+        "route": plan.route, "block_q": plan.bm, "smem_bytes": plan.smem_bytes,
         "rows_16_byte_aligned": q.data_ptr() % 16 == 0, "causal": causal, "q_scale": q_scale,
         "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err, "tol": TOL[dtype],
         "max_abs_plain": want.abs().max().item(),
@@ -386,10 +432,14 @@ def kernels_phase(cfg, zcfg, dev: torch.device) -> dict[str, dict]:
 
 
 # ------------------------------------------------------------------- parity
-def plain_kernels():
-    """Route the model's kernel calls to the plain versions (comparison only)."""
-    return mock.patch.multiple(ops, rmsnorm=ref.rmsnorm_ref, flash_attention=ref.flash_attention_ref,
-                               ssd_chunk_scan=ref.ssd_chunk_scan_ref)
+PLAIN = {"rmsnorm": ref.rmsnorm_ref, "flash_attention": ref.flash_attention_ref,
+         "ssd_chunk_scan": ref.ssd_chunk_scan_ref}
+
+
+def plain_kernels(keep: str | None = None):
+    """Route the model's kernel calls, all but ``keep``'s, to the plain
+    versions (comparison only)."""
+    return mock.patch.multiple(ops, **{name: fn for name, fn in PLAIN.items() if name != keep})
 
 
 # leaves held in fp32 whatever the weights' dtype
@@ -571,10 +621,20 @@ def _zamba_parity_seed(cfg, dev: torch.device, seq: int, seed: int, decode: bool
         scale = want.abs().max().item()
         tol = 1e-3 if dtype == torch.float32 else 2e-2 * scale
         finite = bool(torch.isfinite(got).all())
+        report[name] = {"max_abs_logit_diff": diff, "tol": tol, "max_abs_logit": scale}
+        if dtype == torch.bfloat16:
+            # a reading, not a check: each kernel alone, the others plain.  A
+            # 12-layer bf16 model amplifies a few flipped roundings to percents
+            # of its largest logit; this shows whose roundings they are.
+            alone = report[name]["each_kernel_alone"] = {}
+            with torch.no_grad():
+                for kernel in PLAIN:
+                    with plain_kernels(keep=kernel):
+                        logits, _ = model.forward(params, {"tokens": tokens})
+                    alone[kernel] = (logits[0, :, :cfg.vocab].float() - want).abs().max().item()
         if not finite or not diff <= tol or through_kernels.shape != (1, seq, cfg.padded_vocab):
             raise AssertionError(f"zamba_parity {name}, seed {seed}: max abs logit diff {diff} "
-                                 f"> {tol} (finite={finite})")
-        report[name] = {"max_abs_logit_diff": diff, "tol": tol, "max_abs_logit": scale}
+                                 f"> {tol} (finite={finite}); {report[name]}")
         if dtype == torch.float32 and decode:
             # fp32 sums in another order and the chunked scan against the
             # recurrence: 1e-3 of the largest logit
@@ -776,9 +836,15 @@ def main() -> None:
           "python": sys.version.split()[0], "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
     _build.build_all(("-Xptxas", "-v") if args.ptxas_info else ())
-    emit({"phase": "build", "seconds": _build.build_seconds,
-          "sources": [os.path.relpath(s, ROOT) for s in _build.sources()],
-          "flags": list(_build.NVCC_FLAGS)})
+    build = {"phase": "build", "seconds": _build.build_seconds,
+             "sources": [os.path.relpath(s, ROOT) for s in _build.sources()],
+             "flags": list(_build.NVCC_FLAGS)}
+    if args.ptxas_info:
+        build["ptxas"] = ptxas_report(_build.compiler_output)
+    emit(build)
+    ignored = [stem for stem, text in _build.compiler_output.items() if "C7508" in text]
+    if ignored:   # setmaxnreg ignored: the consumers would run on the producer's registers
+        raise AssertionError(f"ptxas ignored setmaxnreg (C7508) in {ignored}")
 
     cfg, zcfg = get_config("glm4-9b"), get_config("zamba2-2.7b")
     cases = kernels_phase(cfg, zcfg, dev)
@@ -802,7 +868,8 @@ def main() -> None:
     def summary(name: str, source: str, replaces: str) -> dict:
         case = cases[name]
         return {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "name": name, "route": "cuda", "plan_route": case.get("route", "cuda_cores"),
+            "source": source, "replaces": replaces,
             "launches": serve_counts[name] + zamba_counts[name],
             "max_abs_err": case["max_abs_err"],
             "ms": case["kernel_ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.transformer import resolve_device
 
 
 def _leaf(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -35,6 +36,7 @@ def _zamba_params(tree: dict, cfg: ArchConfig, dtype: torch.dtype, device) -> di
     if n_units * per_unit != cfg.n_layers or per_unit != cfg.attn_every:
         raise ValueError(f"pytree has {n_units} units of {per_unit} layers, config {cfg.name} "
                          f"has {cfg.n_layers} layers, a unit every {cfg.attn_every}")
+    device = resolve_device(device)
     shared = tree["shared"]
     return {
         "embed": {"tokens": _leaf(tree["embed"]["tokens"], dtype, device)},
@@ -58,11 +60,12 @@ def _zamba_params(tree: dict, cfg: ArchConfig, dtype: torch.dtype, device) -> di
 
 
 def from_jax_params(tree: dict, cfg: ArchConfig, dtype: torch.dtype = torch.float32,
-                    device: torch.device | str = "cpu") -> dict:
+                    device: torch.device | str = "cuda") -> dict:
     """``tree``: the reference ``DecoderLM.init`` (dense family) or
     ``ZambaLM.init`` (hybrid) pytree with numpy leaves.  Weights are cast to
     ``dtype``; norm scales, and the Mamba2 ``A_log``/``D``/``dt_bias``, stay
-    fp32."""
+    fp32.  The tensors go to ``device``, the card unless the caller asks for
+    the CPU; once the tree is checked, a missing card raises."""
     if "units" in tree:
         return _zamba_params(tree, cfg, dtype, device)
     layers = tree["layers"]
@@ -71,6 +74,7 @@ def from_jax_params(tree: dict, cfg: ArchConfig, dtype: torch.dtype = torch.floa
     n_layers = np.asarray(layers["attn"]["wq"]).shape[0]
     if n_layers != cfg.n_layers:
         raise ValueError(f"pytree has {n_layers} layers, config {cfg.name} has {cfg.n_layers}")
+    device = resolve_device(device)
 
     params = {
         "embed": {"tokens": _leaf(tree["embed"]["tokens"], dtype, device)},

@@ -29,6 +29,7 @@ NVCC_FLAGS = (
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds = 0.0  # wall time this process spent in nvcc (0 if cached)
+compiler_output: dict[str, str] = {}  # what nvcc printed, by source stem, for this process's builds
 
 
 def sources() -> list[Path]:
@@ -81,8 +82,7 @@ def build_all(extra_flags: tuple[str, ...] = ()) -> Path:
             failures.append(f"$ {' '.join(cmd)}\n{output}")
             tmp.unlink(missing_ok=True)
         else:
-            if output.strip():
-                print(output.strip())
+            compiler_output[src.stem] = output
             os.replace(tmp, out_dir / f"lib{src.stem}.so")
     build_seconds += time.perf_counter() - t0
     if failures:

@@ -8,53 +8,71 @@
 //
 // What differs from the TPU kernel's shape.  There the grid's fourth axis
 // walks the kv blocks in order and carries (m, l, acc) in scratch memory.
-// Here blocks run in no order, so one block owns a tile of BM = 64 query rows
-// of one (batch, q-head) and loops over the kv tiles itself; the loop stops at
-// the tile's causal limit, so fully masked kv tiles cost nothing.  Heavy
-// (late) query tiles are scheduled first to shorten the tail.
+// Here blocks run in no order, so one block owns a tile of query rows of one
+// (batch, q-head) and loops over the kv tiles itself; the loop stops at the
+// tile's causal limit, so fully masked kv tiles cost nothing.  Heavy (late)
+// query tiles are scheduled first to shorten the tail.
 //
-// What bounds it on this card: operations.  At the prefill shapes the bytes of
-// q, k, v and o are a few MB while the products need GFLOPs, so what matters
-// is which arithmetic units do the two products.  There are two kernels and
-// the launcher picks between them from what it can see of the inputs:
+// What bounds it on this card: operations (989 TFLOP/s in bf16 on the tensor
+// cores).  At the prefill shapes the bytes of q, k, v and o are a few MB while
+// the products need GFLOPs.  The launch plan (route, tiles, grid, shared
+// memory, tensor maps) is computed in Python (kernels/flash_attention.py,
+// `flash_plan`); this file validates it, encodes the tensor maps and launches.
+// Two routes:
 //
-//  * flash_fwd_tc_kernel -- bf16 inputs whose rows are 16-byte aligned (the
-//    serving path).  Both products run on the tensor cores through
-//    `mma.sync.m16n8k16` (bf16 operands, fp32 accumulators): 4 warps, each
-//    owning 16 query rows; q fragments stay in registers; K and V tiles are
-//    staged in shared memory as bf16 with rows padded by 16 bytes, so the
-//    fragment loads (32-bit loads for K, `ldmatrix.trans` for V) are free of
-//    bank conflicts; the scores never leave registers: the accumulator
-//    fragment of q k^T is, after the softmax, the A fragment of p v.  p is
-//    rounded to bf16 for that product (the model's own attention casts the
-//    probabilities to the compute type before p v as well); m, l and the
-//    output accumulator stay fp32.  It is not pipelined (no cp.async/TMA, no
-//    wgmma): loads and math of a block alternate, other blocks on the SM
-//    cover for it.  That, and the softmax on the CUDA cores, is what keeps it
-//    below the 989 TFLOP/s bound.
+//  * flash_fwd_wgmma_kernel -- bf16 inputs whose rows are 16-byte aligned (the
+//    serving and prefill paths).  Built the way Hopper reaches its tensor-core
+//    rate:
+//      - `wgmma` for both products: S = Q K^T with Q and K in shared memory
+//        (K-major), O += P V with P in registers (the S accumulator rounded to
+//        bf16 in place: its fragment layout is the A operand's) and V in
+//        shared memory read MN-major (`tnspB`).  m, l and O stay fp32.
+//      - TMA loads into a ring of WG_STAGES = 3 K/V stages with a "full" and
+//        an "empty" mbarrier each; Q is loaded once per block.
+//      - Warp specialisation: a block is BM = 128 query rows served by two
+//        consumer warpgroups of 64 rows, plus one producer warpgroup whose
+//        first thread issues every TMA load; `setmaxnreg` moves registers from
+//        the producer (40) to the consumers (232).  Inside a warpgroup, tile
+//        t's softmax runs while tile t - 1's P V is on the tensor cores; the
+//        two warpgroups take turns to issue their products (ping-pong), so
+//        one's softmax overlaps the other's products.  Where S, P and O do
+//        not fit the registers together (hd 128, two warpgroups: ptxas
+//        serialises the products, C7512) the tiles run one after the other.
+//        A BM = 64 variant (one consumer warpgroup) serves grids too small
+//        to fill the card.  Blocks walk the heads fastest and the query tiles
+//        from the heaviest down, so every head's heavy tiles go first.
+//      - Tensor maps are 4-D, dims (hd, s, h, b) with each tensor's own byte
+//        strides, so the model's (b, s, h, hd) tensors go in as transposed
+//        views and a box that runs past s is zero-filled inside its own head
+//        (zero-filled keys are masked to -inf in the scores).  The head dim is
+//        loaded in slabs of at most 64 columns, each with the widest swizzle
+//        its row allows (16 -> 32 B, 32 -> 64 B, 64 -> 128 B): hd 80 = 64 + 16,
+//        hd 128 = 64 + 64; Q K^T runs one k-step per 16 columns of a slab and
+//        P V one product per slab, so no column of hd 80 is padded.
+//      - Only the tiles that cross the causal diagonal, and the ragged last
+//        tile, are masked.
+//    `cuTensorMapEncodeTiled` is a driver function; it is reached at run time
+//    through `cudaGetDriverEntryPoint(ByVersion)`, so nothing links libcuda.
 //  * flash_fwd_kernel -- everything else (fp32 inputs, unaligned bf16).  The
 //    products run in fp32 on the CUDA cores from fp32 shared-memory tiles,
 //    with a 4-row micro-tile per thread and 16-byte shared-memory reads along
 //    the contraction, padded against bank conflicts; p stays fp32 like the
-//    TPU kernel.  It cannot pass the card's 67 TFLOP/s fp32 rate.
+//    TPU kernel.  It cannot pass the card's 67 TFLOP/s fp32 rate.  Its fp32
+//    rows of hd + 4 floats (84 at hd 80) keep float4 reads aligned and put 8
+//    rows in 8 distinct bank groups.
 //
 // Layout: logical (b, h, s, hd) with the strides of b, h and s passed in
-// (elements) and hd contiguous, so the model's (b, s, h, hd) tensors go in as
-// transposed views without a copy.
-//
-// Head dims 16, 32, 64, 80 (zamba2's shared attention) and 128 are built.  At
-// 80, a width that is not a power of two, the padded rows still work out: the
-// tensor-core kernel's bf16 rows of 88 elements (176 bytes) keep `ldmatrix`
-// rows 16-byte aligned and put the 8 rows of a fragment load in 8 distinct
-// groups of 4 banks (176 / 4 = 44 words, 44 mod 32 = 12); the CUDA-core
-// kernel's fp32 rows of 84 floats (336 bytes) do the same for its float4 reads.
+// (elements) and hd contiguous.  Head dims 16, 32, 64, 80 (zamba2's shared
+// attention) and 128 are built.
 //
 // Plain C interface; the kernel launches on the given stream, does not
 // synchronise and allocates nothing.
 
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is reached at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -245,37 +263,230 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16 on the tensor cores: wgmma, TMA, warp specialisation
 // ---------------------------------------------------------------------------
 
-constexpr int TC_BM = 64;        // query rows per block: 16 per warp
-constexpr int TC_BN = 64;        // keys per tile
-constexpr int TC_THREADS = 128;
+constexpr int WG_BN = 128;       // keys per K/V tile
+constexpr int WG_STAGES = 3;     // K/V tiles in flight
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int HD>
-struct TcSmem {
-    static constexpr int LD = HD + 8;   // row stride in bf16: 16 bytes of padding
-    static constexpr size_t bytes = sizeof(__nv_bfloat16) * (TC_BM + 2 * TC_BN) * LD;
+// The head dim in slabs of at most 64 columns (see the note at the top).
+template <int HD> struct Slabs;
+template <> struct Slabs<16> { static constexpr int W0 = 16, W1 = 0; };
+template <> struct Slabs<32> { static constexpr int W0 = 32, W1 = 0; };
+template <> struct Slabs<64> { static constexpr int W0 = 64, W1 = 0; };
+template <> struct Slabs<80> { static constexpr int W0 = 64, W1 = 16; };
+template <> struct Slabs<128> { static constexpr int W0 = 64, W1 = 64; };
+
+// Shared memory in bytes from a 1024-byte-aligned base (the 128-byte swizzle
+// repeats every 1024 bytes): Q (BM rows; slab 0, then slab 1), then WG_STAGES
+// stages of [K slab 0, K slab 1, V slab 0, V slab 1].  A slab of width w holds
+// rows of 2w bytes, as TMA writes them.
+template <int HD, int NCWG>
+struct WgLayout {
+    static constexpr int BM = 64 * NCWG;
+    static constexpr int W0 = Slabs<HD>::W0, W1 = Slabs<HD>::W1;
+    static constexpr int Q1 = BM * W0 * 2;
+    static constexpr int KV = BM * HD * 2;
+    static constexpr int K1 = WG_BN * W0 * 2;
+    static constexpr int V0 = WG_BN * HD * 2;
+    static constexpr int V1 = V0 + WG_BN * W0 * 2;
+    static constexpr int STAGE = 2 * WG_BN * HD * 2;
+    static constexpr int smem = 1024 + KV + WG_STAGES * STAGE;   // 1024: room to align the base
+    static constexpr int threads = 128 * (NCWG + 1);
+    // Overlapping tile t's softmax with tile t - 1's P V keeps S, P and O live
+    // at once (96 + HD / 2 registers a thread).  At hd 128 with two consumer
+    // warpgroups ptxas then serialises the products (C7512, too few
+    // registers), so that kernel runs the tiles one after the other.
+    static constexpr bool overlap = HD <= 80 || NCWG == 1;
 };
 
-// D += A * B for one m16n8k16 tile; A row-major (4 regs), B column-major (2 regs).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+struct TmaMaps {
+    CUtensorMap q[2], k[2], v[2];   // one per slab
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Four transposed 8x8 bf16 matrices from shared memory; lane l supplies the
-// address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* row) {
-    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Returns once the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+    } while (!done);
+}
+
+// One box of a 4-D tensor map into shared memory; completion is counted in
+// bytes on `bar`.  Coordinates (column, row, head, batch), innermost first.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (in 16-byte units) and the swizzle of a slab of width w bf16
+// (mode 1 / 2 / 3 = 128 / 64 / 32 bytes, the whole row of the slab).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, int w) {
+    const uint64_t mode = w == 64 ? 1 : w == 32 ? 2 : 3;
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+           (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+           (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
+}
+
+// K-major operand (Q, K: rows of the product, head dim contiguous): 8-row
+// groups 16w bytes apart; a k-step of 16 columns advances the start by 32
+// bytes inside the swizzled row (the leading offset is unused).
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr, int w) {
+    return smem_desc(addr, 16, 16 * w, w);
+}
+
+// MN-major operand (V as B of P V: keys along the contraction, head dim
+// contiguous): 8-key groups 16w bytes apart; the slab is one swizzle atom wide,
+// so the leading offset (between atoms) is unused.
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr, int w) {
+    return smem_desc(addr, 16 * w * 8, 16 * w, w);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of registers that an
+// asynchronous product owns across the fence, commit and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// D (64 x 128, fp32) {+}= A (64 x 16) * B (16 x 128); A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{" 
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, bf16 in registers) * B (16 x 64); B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{" 
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 32, fp32) += A (64 x 16, bf16 in registers) * B (16 x 32); B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t* a, uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{" 
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 16, fp32) += A (64 x 16, bf16 in registers) * B (16 x 16); B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t* a, uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{" 
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, uint64_t desc_b) {
+    if constexpr (N == 64) {
+        wgmma_rs_n64(d, a, desc_b);
+    } else if constexpr (N == 32) {
+        wgmma_rs_n32(d, a, desc_b);
+    } else {
+        static_assert(N == 16, "slab widths are 16, 32 or 64");
+        wgmma_rs_n16(d, a, desc_b);
+    }
+}
+
+// Named barriers over the 256 threads of the two consumer warpgroups.
+__device__ __forceinline__ void named_sync(int id) {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -283,200 +494,430 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// ROWS x HD bf16 from global rows [row0, row0 + ROWS) into a padded
-// shared-memory tile with 16-byte copies; rows >= limit are zero-filled.
-template <int HD, int ROWS>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           long long row_stride, int row0, int limit, int tid) {
-    constexpr int CH = HD / 8;   // 16-byte chunks per row
-    for (int idx = tid; idx < ROWS * CH; idx += TC_THREADS) {
-        const int r = idx / CH, c = idx % CH;
-        const int row = row0 + r;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (row < limit) val = *reinterpret_cast<const uint4*>(src + row * row_stride + c * 8);
-        *reinterpret_cast<uint4*>(dst + r * TcSmem<HD>::LD + c * 8) = val;
-    }
-}
+// Accumulator fragments (S and O) of a warpgroup: thread `lane` of warp w
+// holds, for each 8-column chunk c, elements 4c + e at row w * 16 + lane / 4
+// + 8 (e >> 1) and column 8c + 2 (lane % 4) + (e & 1).
+template <int HD, int NCWG>
+__global__ void __launch_bounds__(WgLayout<HD, NCWG>::threads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ TmaMaps maps, __nv_bfloat16* __restrict__ o,
+                       Strides os, int group, int sq, int skv, int n_q_tiles, float scale2,
+                       int causal) {
+    using L = WgLayout<HD, NCWG>;
+    constexpr int BM = L::BM, W0 = L::W0, W1 = L::W1;
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    __shared__ __align__(8) uint64_t bars[1 + 2 * WG_STAGES];   // Q, K/V full[], K/V empty[]
 
-template <int HD>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                    Strides qs, Strides ks, Strides vs, Strides os, int group, int sq, int skv,
-                    int n_q_tiles, float sm_scale, int causal) {
-    constexpr int LD = TcSmem<HD>::LD;
-    constexpr int KSTEPS = HD / 16;     // k-steps of q k^T
-    constexpr int NT_S = TC_BN / 8;     // 8-key tiles of the scores
-    constexpr int NT_O = HD / 8;        // 8-column tiles of the output
-
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-    __nv_bfloat16* Ks = Qs + TC_BM * LD;
-    __nv_bfloat16* Vs = Ks + TC_BN * LD;
-
+    const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    const uint32_t q_bar = smem_u32(&bars[0]);
+    const uint32_t full0 = smem_u32(&bars[1]);
+    const uint32_t empty0 = smem_u32(&bars[1 + WG_STAGES]);
     const int tid = threadIdx.x;
-    const int warp = tid / 32, lane = tid % 32;
-    const int g = lane / 4, t = lane % 4;   // fragment coordinates: row group, column pair
-    const int q_tile = n_q_tiles - 1 - static_cast<int>(blockIdx.x);
-    const int h = blockIdx.y, b = blockIdx.z;
-    const int hk = h / group;
-    const int q0 = q_tile * TC_BM;
-    const int off = skv - sq;
+    // Blocks start in order of their linear index: walk the heads fastest and
+    // the query tiles from the last (heaviest under the causal mask) down, so
+    // the heaviest tiles of every head go first and the light ones fill the tail.
+    const int hq = static_cast<int>(gridDim.y);
+    const int lin = static_cast<int>(blockIdx.x + gridDim.x * blockIdx.y);
+    const int q_tile = n_q_tiles - 1 - lin / hq;
+    const int h = lin % hq, b = blockIdx.z;
+    const int q0 = q_tile * BM;
+    const int off = skv - sq;   // causal offset: query i sees keys <= i + off
+    const int kv_end = causal ? min(skv, min(q0 + BM, sq) + off) : skv;
+    const int n_tiles = (kv_end + WG_BN - 1) / WG_BN;
 
-    const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-    const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
-    const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
-    __nv_bfloat16* ob = o + b * os.b + h * os.h;
-
-    stage_tile<HD, TC_BM>(Qs, qb, qs.s, q0, sq, tid);
+    if (tid == 0) {
+        mbar_init(q_bar, 1);
+        for (int s = 0; s < WG_STAGES; ++s) {
+            mbar_init(full0 + 8 * s, 1);
+            mbar_init(empty0 + 8 * s, 128 * NCWG);   // every consumer thread releases a stage
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
     __syncthreads();
 
-    // this warp's 16 query rows as A fragments, kept in registers throughout
-    const int qr = warp * 16 + g;   // the thread's rows in the tile: qr and qr + 8
-    uint32_t qf[KSTEPS][4];
-#pragma unroll
-    for (int s = 0; s < KSTEPS; ++s) {
-        qf[s][0] = *reinterpret_cast<const uint32_t*>(&Qs[qr * LD + s * 16 + 2 * t]);
-        qf[s][1] = *reinterpret_cast<const uint32_t*>(&Qs[(qr + 8) * LD + s * 16 + 2 * t]);
-        qf[s][2] = *reinterpret_cast<const uint32_t*>(&Qs[qr * LD + s * 16 + 8 + 2 * t]);
-        qf[s][3] = *reinterpret_cast<const uint32_t*>(&Qs[(qr + 8) * LD + s * 16 + 8 + 2 * t]);
-    }
-
-    float oacc[NT_O][4];
-#pragma unroll
-    for (int n = 0; n < NT_O; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
-    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // m in units of log2
-    const float scale2 = sm_scale * LOG2E;
-
-    int kv_end = skv;
-    if (causal) {
-        const int last_q = min(q0 + TC_BM, sq) - 1;
-        kv_end = min(skv, last_q + off + 1);
-    }
-    const int n_tiles = (kv_end + TC_BN - 1) / TC_BN;
-
-    for (int tile = 0; tile < n_tiles; ++tile) {
-        const int k0 = tile * TC_BN;
-        __syncthreads();   // every warp is done with the previous K and V tiles
-        stage_tile<HD, TC_BN>(Ks, kb, ks.s, k0, skv, tid);
-        stage_tile<HD, TC_BN>(Vs, vb, vs.s, k0, skv, tid);
-        __syncthreads();
-
-        // scores: 16 rows x 64 keys per warp
-        float s[NT_S][4];
-#pragma unroll
-        for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-            for (int ks_ = 0; ks_ < KSTEPS; ++ks_) {
-                const __nv_bfloat16* kp = &Ks[(j * 8 + g) * LD + ks_ * 16 + 2 * t];
-                mma_bf16(s[j], qf[ks_], *reinterpret_cast<const uint32_t*>(kp),
-                         *reinterpret_cast<const uint32_t*>(kp + 8));
+    // One if/else for the whole kernel: `setmaxnreg` is ignored where the
+    // roles' paths meet again.
+    if (tid >= 128 * NCWG) {
+        // ---- producer warpgroup: its first thread issues every TMA load ----
+        if constexpr (NCWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+        if (tid == 128 * NCWG) {
+            const int hk = h / group;
+            mbar_expect_tx(q_bar, BM * HD * 2);
+            tma_load_4d(base, &maps.q[0], q_bar, 0, q0, h, b);
+            if constexpr (W1 > 0) tma_load_4d(base + L::Q1, &maps.q[1], q_bar, W0, q0, h, b);
+            for (int t = 0; t < n_tiles; ++t) {
+                const int s = t % WG_STAGES;
+                if (t >= WG_STAGES) mbar_wait(empty0 + 8 * s, (t / WG_STAGES - 1) & 1);
+                const uint32_t full = full0 + 8 * s;
+                const uint32_t st = base + L::KV + s * L::STAGE;
+                const int k0 = t * WG_BN;
+                mbar_expect_tx(full, L::STAGE);
+                tma_load_4d(st, &maps.k[0], full, 0, k0, hk, b);
+                if constexpr (W1 > 0) tma_load_4d(st + L::K1, &maps.k[1], full, W0, k0, hk, b);
+                tma_load_4d(st + L::V0, &maps.v[0], full, 0, k0, hk, b);
+                if constexpr (W1 > 0) tma_load_4d(st + L::V1, &maps.v[1], full, W0, k0, hk, b);
             }
         }
+    } else {
+        // ---- consumer warpgroups: 64 query rows each ----
+        if constexpr (NCWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+        const int wg = tid / 128;
+        const int warp = (tid % 128) / 32, lane = tid % 32;
+        const int row0 = warp * 16 + lane / 4;   // this thread's rows: row0, row0 + 8
+        const int col = 2 * (lane % 4);          // its first column in each 8-column chunk
+        const int qw0 = q0 + 64 * wg;
+        int n_mine = 0;                          // kv tiles this warpgroup's rows see
+        if (qw0 < sq) {
+            const int end = causal ? min(skv, min(qw0 + 64, sq) + off) : skv;
+            n_mine = (end + WG_BN - 1) / WG_BN;
+        }
+        const uint32_t qa0 = base + 64 * wg * W0 * 2;
+        const uint32_t qa1 = base + L::Q1 + 64 * wg * W1 * 2;
 
-        // mask, scale (into log2 units) and online softmax; a row's 16 values
-        // per thread sit in elements {0,1} (row qr) or {2,3} (row qr + 8), and
-        // the row is shared by the 4 lanes of a quad
+        float s[WG_BN / 2];
+        uint32_t p[WG_BN / 4];
+        float o_lo[W0 / 2];
+        float o_hi[W1 > 0 ? W1 / 2 : 1];
+#pragma unroll
+        for (int i = 0; i < WG_BN / 2; ++i) s[i] = 0.f;
+#pragma unroll
+        for (int i = 0; i < W0 / 2; ++i) o_lo[i] = 0.f;
+#pragma unroll
+        for (int i = 0; i < (W1 > 0 ? W1 / 2 : 1); ++i) o_hi[i] = 0.f;
+        float m[2] = {NEG_INF, NEG_INF};   // running max of the raw scores
+        float l[2] = {0.f, 0.f};           // this thread's part of the running sum
+
+        // S = Q K^T for the tile in `stage`, one k-step per 16 columns of each slab
+        auto issue_qk = [&](int stage) {
+            const uint32_t st = base + L::KV + stage * L::STAGE;
+#pragma unroll
+            for (int kk = 0; kk < W0 / 16; ++kk)
+                wgmma_ss_n128(s, desc_k_major(qa0 + 32 * kk, W0), desc_k_major(st + 32 * kk, W0),
+                              kk > 0);
+            if constexpr (W1 > 0) {
+#pragma unroll
+                for (int kk = 0; kk < W1 / 16; ++kk)
+                    wgmma_ss_n128(s, desc_k_major(qa1 + 32 * kk, W1),
+                                  desc_k_major(st + L::K1 + 32 * kk, W1), 1);
+            }
+            wgmma_commit();
+        };
+        // O += P V for the tile in `stage`, one product per slab and 16 keys
+        auto issue_pv = [&](int stage) {
+            const uint32_t st = base + L::KV + stage * L::STAGE;
+#pragma unroll
+            for (int kk = 0; kk < WG_BN / 16; ++kk) {
+                wgmma_rs<W0>(o_lo, p + 4 * kk, desc_mn_major(st + L::V0 + kk * 16 * W0 * 2, W0));
+                if constexpr (W1 > 0)
+                    wgmma_rs<W1>(o_hi, p + 4 * kk, desc_mn_major(st + L::V1 + kk * 16 * W1 * 2, W1));
+            }
+            wgmma_commit();
+        };
+        // Mask tile t where it crosses the diagonal or the end of the keys, then
+        // the online softmax in log2 units: s becomes p, l and m are updated and
+        // corr is the factor by which O must be rescaled.  A row is shared by the
+        // 4 lanes of a quad.
+        float corr[2];
+        auto softmax = [&](int t) {
+            const int k0 = t * WG_BN;
+            if (k0 + WG_BN > skv || (causal && k0 + WG_BN - 1 > qw0 + off)) {
+#pragma unroll
+                for (int c = 0; c < WG_BN / 8; ++c)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int k_pos = k0 + 8 * c + col + (e & 1);
+                        const int q_pos = qw0 + row0 + 8 * (e >> 1);
+                        if (k_pos >= skv || (causal && q_pos + off < k_pos)) s[4 * c + e] = NEG_INF;
+                    }
+            }
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                float mx = m[r];
+#pragma unroll
+                for (int c = 0; c < WG_BN / 8; ++c)
+                    mx = fmaxf(mx, fmaxf(s[4 * c + 2 * r], s[4 * c + 2 * r + 1]));
+                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+                corr[r] = exp2f((m[r] - mx) * scale2);
+                const float ms = mx * scale2;
+                float sum = 0.f;
+#pragma unroll
+                for (int c = 0; c < WG_BN / 8; ++c)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const float pe = exp2f(fmaf(s[4 * c + 2 * r + e], scale2, -ms));
+                        s[4 * c + 2 * r + e] = pe;
+                        sum += pe;
+                    }
+                l[r] = l[r] * corr[r] + sum;
+                m[r] = mx;
+            }
+        };
+        // O *= corr, then P = bf16(s): two neighbouring 8-key chunks are one
+        // k16 A fragment
+        auto rescale_and_pack = [&]() {
+#pragma unroll
+            for (int i = 0; i < W0 / 2; ++i) o_lo[i] *= corr[(i >> 1) & 1];
+            if constexpr (W1 > 0) {
+#pragma unroll
+                for (int i = 0; i < W1 / 2; ++i) o_hi[i] *= corr[(i >> 1) & 1];
+            }
+#pragma unroll
+            for (int kk = 0; kk < WG_BN / 16; ++kk) {
+                p[4 * kk + 0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+                p[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+                p[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+                p[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+            }
+        };
+        auto wait_full = [&](int t) {
+            mbar_wait(full0 + 8 * (t % WG_STAGES), (t / WG_STAGES) & 1);
+        };
+        auto release = [&](int t) { mbar_arrive(empty0 + 8 * (t % WG_STAGES)); };
+
+        // Ping-pong: the two consumer warpgroups take turns to issue their
+        // products (named barriers 1 and 2), so one's products run on the
+        // tensor cores while the other's softmax runs on the CUDA cores.  Each
+        // warpgroup takes n_tiles + 1 turns; warpgroup 0 takes the first, and
+        // warpgroup 1 skips its last hand-over, which nobody waits for.
+        constexpr bool ping_pong = NCWG == 2 && L::overlap;
+        int turns_left = n_tiles + 1;
+        auto begin_turn = [&]() {
+            if constexpr (ping_pong) named_sync(1 + wg);
+        };
+        auto end_turn = [&]() {
+            if constexpr (ping_pong) {
+                if (wg == 0 || --turns_left > 0) named_arrive(2 - wg);
+            }
+        };
+        if constexpr (ping_pong) {
+            if (wg == 1) named_arrive(1);
+        }
+        mbar_wait(q_bar, 0);
+        if constexpr (L::overlap) {
+            // Tile t's softmax runs while tile t - 1's P V is on the tensor cores.
+            if (n_mine == 0) {
+                begin_turn();
+                end_turn();
+            } else {
+                wait_full(0);
+                begin_turn();
+                wgmma_fence();
+                issue_qk(0);
+                end_turn();
+                wgmma_wait<0>();
+                fence_regs(s);
+                softmax(0);
+                rescale_and_pack();
+                for (int t = 1; t < n_mine; ++t) {
+                    wait_full(t);
+                    fence_regs(p);
+                    fence_regs(o_lo);
+                    fence_regs(o_hi);
+                    begin_turn();
+                    wgmma_fence();
+                    issue_qk(t % WG_STAGES);
+                    issue_pv((t - 1) % WG_STAGES);
+                    end_turn();
+                    wgmma_wait<1>();   // S of tile t is ready, P V of tile t - 1 may still run
+                    fence_regs(s);
+                    softmax(t);
+                    wgmma_wait<0>();
+                    fence_regs(o_lo);
+                    fence_regs(o_hi);
+                    release(t - 1);
+                    rescale_and_pack();
+                }
+                fence_regs(p);
+                fence_regs(o_lo);
+                fence_regs(o_hi);
+                begin_turn();
+                wgmma_fence();
+                issue_pv((n_mine - 1) % WG_STAGES);
+                end_turn();
+                wgmma_wait<0>();
+                fence_regs(o_lo);
+                fence_regs(o_hi);
+                release(n_mine - 1);
+            }
+        } else {
+            // One tile at a time: Q K^T, softmax, P V.
+            for (int t = 0; t < n_mine; ++t) {
+                wait_full(t);
+                wgmma_fence();
+                issue_qk(t % WG_STAGES);
+                wgmma_wait<0>();
+                fence_regs(s);
+                softmax(t);
+                rescale_and_pack();
+                fence_regs(p);
+                fence_regs(o_lo);
+                fence_regs(o_hi);
+                wgmma_fence();
+                issue_pv(t % WG_STAGES);
+                wgmma_wait<0>();
+                fence_regs(o_lo);
+                fence_regs(o_hi);
+                release(t);
+            }
+        }
+        // the block's later tiles, which this warpgroup's rows do not see
+        for (int t = n_mine; t < n_tiles; ++t) {
+            wait_full(t);
+            if constexpr (L::overlap) {
+                begin_turn();
+                end_turn();
+            }
+            release(t);
+        }
+
+        __nv_bfloat16* out = o + b * os.b + h * os.h;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-            const int q_pos = q0 + qr + 8 * r;
-            float mx = NEG_INF;
+            float lt = l[r];
+            lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+            lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+            const float inv = 1.f / fmaxf(lt, 1e-30f);
+            const int row = qw0 + row0 + 8 * r;
+            if (row < sq) {
+                __nv_bfloat16* orow = out + row * os.s + col;
 #pragma unroll
-            for (int j = 0; j < NT_S; ++j)
+                for (int c = 0; c < W0 / 8; ++c)
+                    *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
+                        __floats2bfloat162_rn(o_lo[4 * c + 2 * r] * inv, o_lo[4 * c + 2 * r + 1] * inv);
+                if constexpr (W1 > 0) {
 #pragma unroll
-                for (int c = 0; c < 2; ++c) {
-                    const int k_pos = k0 + j * 8 + 2 * t + c;
-                    const bool valid = k_pos < skv && (!causal || q_pos + off >= k_pos);
-                    const float val = valid ? s[j][2 * r + c] * scale2 : NEG_INF;
-                    s[j][2 * r + c] = val;
-                    mx = fmaxf(mx, val);
+                    for (int c = 0; c < W1 / 8; ++c)
+                        *reinterpret_cast<__nv_bfloat162*>(orow + W0 + 8 * c) = __floats2bfloat162_rn(
+                            o_hi[4 * c + 2 * r] * inv, o_hi[4 * c + 2 * r + 1] * inv);
                 }
-            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-            const float m_new = fmaxf(m[r], mx);
-            const float corr = exp2f(m[r] - m_new);
-            float row_sum = 0.f;
-#pragma unroll
-            for (int j = 0; j < NT_S; ++j)
-#pragma unroll
-                for (int c = 0; c < 2; ++c) {
-                    const float p = exp2f(s[j][2 * r + c] - m_new);
-                    s[j][2 * r + c] = p;
-                    row_sum += p;
-                }
-            row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 1);
-            row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 2);
-            l[r] = l[r] * corr + row_sum;
-            m[r] = m_new;
-#pragma unroll
-            for (int n = 0; n < NT_O; ++n) {
-                oacc[n][2 * r] *= corr;
-                oacc[n][2 * r + 1] *= corr;
-            }
-        }
-
-        // acc += P V: two neighbouring score tiles are one A fragment
-#pragma unroll
-        for (int kk = 0; kk < TC_BN / 16; ++kk) {
-            uint32_t pa[4];
-            pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-            pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-            pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-            pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-            // lane -> row of V (a key) and which of the four 8x8 matrices:
-            // keys +0/+8 (lane / 8 odd), output columns +0/+8 (lane >= 16)
-            const __nv_bfloat16* vrow =
-                &Vs[(kk * 16 + (lane % 8) + 8 * ((lane / 8) & 1)) * LD + 8 * (lane / 16)];
-#pragma unroll
-            for (int np = 0; np < NT_O / 2; ++np) {
-                uint32_t vf[4];
-                ldmatrix_x4_trans(vf, vrow + np * 16);
-                mma_bf16(oacc[2 * np], pa, vf[0], vf[1]);
-                mma_bf16(oacc[2 * np + 1], pa, vf[2], vf[3]);
-            }
-        }
-    }
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int row = q0 + qr + 8 * r;
-        if (row < sq) {
-            const float denom = fmaxf(l[r], 1e-30f);
-#pragma unroll
-            for (int n = 0; n < NT_O; ++n) {
-                const __nv_bfloat162 pair =
-                    __floats2bfloat162_rn(oacc[n][2 * r] / denom, oacc[n][2 * r + 1] / denom);
-                *reinterpret_cast<__nv_bfloat162*>(&ob[row * os.s + n * 8 + 2 * t]) = pair;
             }
         }
     }
 }
 
-template <int HD>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, Strides qs,
-                      Strides ks, Strides vs, Strides os, int b, int hq, int hkv, int sq,
-                      int skv, float sm_scale, int causal, cudaStream_t stream) {
-    auto kernel = flash_fwd_tc_kernel<HD>;
-    constexpr size_t smem = TcSmem<HD>::bytes;
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-        if (err != cudaSuccess) return err;
+// ---------------------------------------------------------------------------
+// Host side: the launch plan, tensor maps, launches
+// ---------------------------------------------------------------------------
+
+// The launch plan (kernels/flash_attention.py, `FlashPlan.as_array`), int64:
+//   [0] route (0 = CUDA cores, 1 = wgmma), [1] BM, [2] BN, [3] stages,
+//   [4] threads, [5..7] grid, [8] dynamic shared memory bytes, then for q, k, v
+//   16 values each from [9]: dims (hd, s, h, b), byte strides (s, h, b), the
+//   number of slabs and, per slab (two places), its first column, width,
+//   swizzle bytes and box rows.
+constexpr int PLAN_OPERANDS = 9;
+constexpr int ENCODE_FAILED = 10000;   // + the CUresult of a failed encode
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+    static EncodeTiledFn fn = nullptr;
+    if (fn == nullptr) {
+        void* ptr = nullptr;
+        cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+        const cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+        const cudaError_t err =
+            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiledFn>(ptr);
     }
-    const int n_q_tiles = (sq + TC_BM - 1) / TC_BM;
-    const dim3 grid(n_q_tiles, hq, b);
-    kernel<<<grid, TC_THREADS, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), qs, ks, vs, os,
-        hq / hkv, sq, skv, n_q_tiles, sm_scale, causal);
+    return fn;
+}
+
+CUresult encode_map(EncodeTiledFn encode, CUtensorMap* map, const void* base, const long long* op,
+                    int slab) {
+    const long long* sl = op + 8 + 4 * slab;
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(op[0]), static_cast<cuuint64_t>(op[1]),
+                                static_cast<cuuint64_t>(op[2]), static_cast<cuuint64_t>(op[3])};
+    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(op[4]), static_cast<cuuint64_t>(op[5]),
+                                   static_cast<cuuint64_t>(op[6])};
+    const cuuint32_t box[4] = {static_cast<cuuint32_t>(sl[1]), static_cast<cuuint32_t>(sl[3]), 1, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    const CUtensorMapSwizzle swizzle = sl[2] == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                       : sl[2] == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                     : CU_TENSOR_MAP_SWIZZLE_32B;
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                  box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The plan must describe exactly the kernel built for (HD, NCWG).
+template <int HD, int NCWG>
+bool wgmma_plan_ok(const long long* plan, int b, int hq, int hkv, int sq, int skv) {
+    using L = WgLayout<HD, NCWG>;
+    if (plan[1] != L::BM || plan[2] != WG_BN || plan[3] != WG_STAGES || plan[4] != L::threads ||
+        plan[5] != (sq + L::BM - 1) / L::BM || plan[6] != hq || plan[7] != b || plan[8] != L::smem)
+        return false;
+    const long long rows[3] = {L::BM, WG_BN, WG_BN};
+    const long long seq[3] = {sq, skv, skv};
+    const long long heads[3] = {hq, hkv, hkv};
+    const int n_slabs = L::W1 > 0 ? 2 : 1;
+    for (int i = 0; i < 3; ++i) {
+        const long long* op = plan + PLAN_OPERANDS + 16 * i;
+        if (op[0] != HD || op[1] != seq[i] || op[2] != heads[i] || op[3] != b || op[7] != n_slabs)
+            return false;
+        for (int j = 4; j < 7; ++j)
+            if (op[j] <= 0 || op[j] % 16 != 0 || op[j] >= (1LL << 40)) return false;
+        for (int j = 0; j < n_slabs; ++j) {
+            const long long* sl = op + 8 + 4 * j;
+            const int width = j == 0 ? L::W0 : L::W1;
+            if (sl[0] != (j == 0 ? 0 : L::W0) || sl[1] != width || sl[2] != 2 * width ||
+                sl[3] != rows[i])
+                return false;
+        }
+    }
+    return true;
+}
+
+template <int HD, int NCWG>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, Strides os,
+                 const long long* plan, int b, int hq, int hkv, int sq, int skv, float sm_scale,
+                 int causal, cudaStream_t stream) {
+    using L = WgLayout<HD, NCWG>;
+    if (!wgmma_plan_ok<HD, NCWG>(plan, b, hq, hkv, sq, skv)) return cudaErrorInvalidValue;
+    const EncodeTiledFn encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorSymbolNotFound;
+    TmaMaps maps;
+    memset(&maps, 0, sizeof(maps));
+    const void* bases[3] = {q, k, v};
+    CUtensorMap* dst[3] = {maps.q, maps.k, maps.v};
+    for (int i = 0; i < 3; ++i) {
+        const long long* op = plan + PLAN_OPERANDS + 16 * i;
+        for (int j = 0; j < op[7]; ++j) {
+            const CUresult res = encode_map(encode, &dst[i][j], bases[i], op, j);
+            if (res != CUDA_SUCCESS) return ENCODE_FAILED + static_cast<int>(res);
+        }
+    }
+    auto kernel = flash_fwd_wgmma_kernel<HD, NCWG>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::smem);
+    if (err != cudaSuccess) return err;
+    const int n_q_tiles = static_cast<int>(plan[5]);
+    kernel<<<dim3(n_q_tiles, hq, b), L::threads, L::smem, stream>>>(
+        maps, static_cast<__nv_bfloat16*>(o), os, hq / hkv, sq, skv, n_q_tiles,
+        sm_scale * LOG2E, causal);
     return cudaGetLastError();
 }
 
-// The tensor-core kernel copies rows in 16-byte pieces and stores bf16 pairs.
+template <int HD>
+int launch_wgmma_bm(const void* q, const void* k, const void* v, void* o, Strides os,
+                    const long long* plan, int b, int hq, int hkv, int sq, int skv,
+                    float sm_scale, int causal, cudaStream_t stream) {
+    if (plan[1] == 128)
+        return launch_wgmma<HD, 2>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
+    if (plan[1] == 64)
+        return launch_wgmma<HD, 1>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
+    return cudaErrorInvalidValue;
+}
+
+// The wgmma route's inputs: bf16 rows in 16-byte pieces, bf16 pairs stored.
 bool rows_16_byte_aligned(const void* const* ptrs, const long long* strides) {
     for (int i = 0; i < 4; ++i)
         if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
@@ -488,18 +929,21 @@ bool rows_16_byte_aligned(const void* const* ptrs, const long long* strides) {
 // ---------------------------------------------------------------------------
 
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, Strides qs,
-                   Strides ks, Strides vs, Strides os, int b, int hq, int hkv, int sq,
-                   int skv, float sm_scale, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, Strides qs, Strides ks,
+           Strides vs, Strides os, const long long* plan, int b, int hq, int hkv, int sq,
+           int skv, float sm_scale, int causal, cudaStream_t stream) {
     constexpr int BN = HD >= 128 ? 32 : 64;
     auto kernel = flash_fwd_kernel<T, HD, BN>;
     constexpr size_t smem = Smem<HD, BN>::bytes;
+    const int n_q_tiles = (sq + BM - 1) / BM;
+    if (plan[1] != BM || plan[2] != BN || plan[3] != 1 || plan[4] != NT || plan[5] != n_q_tiles ||
+        plan[6] != hq || plan[7] != b || plan[8] != static_cast<long long>(smem))
+        return cudaErrorInvalidValue;
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
         if (err != cudaSuccess) return err;
     }
-    const int n_q_tiles = (sq + BM - 1) / BM;
     const dim3 grid(n_q_tiles, hq, b);
     kernel<<<grid, NT, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -508,23 +952,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, Strides
 }
 
 template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-                        Strides qs, Strides ks, Strides vs, Strides os, int b, int hq,
-                        int hkv, int sq, int skv, float sm_scale, int causal,
-                        cudaStream_t stream) {
+int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, Strides qs,
+                Strides ks, Strides vs, Strides os, const long long* plan, int b, int hq,
+                int hkv, int sq, int skv, float sm_scale, int causal, cudaStream_t stream) {
     switch (hd) {
-        case 16:
-            return launch<T, 16>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, stream);
-        case 32:
-            return launch<T, 32>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, stream);
-        case 64:
-            return launch<T, 64>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, stream);
-        case 80:
-            return launch<T, 80>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, stream);
-        case 128:
-            return launch<T, 128>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, stream);
-        default:
-            return cudaErrorInvalidValue;
+        case 16: return launch<T, 16>(q, k, v, o, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
+        case 32: return launch<T, 32>(q, k, v, o, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
+        case 64: return launch<T, 64>(q, k, v, o, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
+        case 80: return launch<T, 80>(q, k, v, o, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
+        case 128: return launch<T, 128>(q, k, v, o, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
+        default: return cudaErrorInvalidValue;
     }
 }
 
@@ -532,11 +969,12 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, voi
 
 // dtype codes: 0 = float32, 1 = bfloat16.  `strides` holds (batch, head, seq)
 // element strides of q, k, v, o in that order (12 values); the head_dim stride
-// is 1.  Returns a cudaError_t (0 = launched).
+// is 1.  `plan`: see PLAN_OPERANDS above.  Returns 0 when launched, else a
+// cudaError_t, or ENCODE_FAILED + the CUresult of a failed tensor-map encode.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int dtype, int b, int hq, int hkv, int sq, int skv, int hd,
                                    const long long* strides, float sm_scale, int causal,
-                                   void* stream) {
+                                   const long long* plan, void* stream) {
     if (b <= 0 || hq <= 0 || hkv <= 0 || sq <= 0 || skv <= 0 || hq % hkv != 0 ||
         hq > 65535 || b > 65535) {
         return static_cast<int>(cudaErrorInvalidValue);
@@ -546,23 +984,22 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     const Strides vs{strides[6], strides[7], strides[8]};
     const Strides os{strides[9], strides[10], strides[11]};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err = cudaErrorInvalidValue;
-    if (dtype == 0) {
-        err = dispatch_hd<float>(hd, q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, s);
-    } else if (dtype == 1) {
-        const void* ptrs[4] = {q, k, v, o};
-        if (rows_16_byte_aligned(ptrs, strides)) {
-            switch (hd) {
-                case 16: err = launch_tc<16>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, s); break;
-                case 32: err = launch_tc<32>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, s); break;
-                case 64: err = launch_tc<64>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, s); break;
-                case 80: err = launch_tc<80>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, s); break;
-                case 128: err = launch_tc<128>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, s); break;
-                default: break;
-            }
-        } else {
-            err = dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, qs, ks, vs, os, b, hq, hkv, sq, skv, sm_scale, causal, s);
+    const void* ptrs[4] = {q, k, v, o};
+    if (plan[0] == 1) {
+        if (dtype != 1 || !rows_16_byte_aligned(ptrs, strides)) return cudaErrorInvalidValue;
+        switch (hd) {
+            case 16: return launch_wgmma_bm<16>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 32: return launch_wgmma_bm<32>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 64: return launch_wgmma_bm<64>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 80: return launch_wgmma_bm<80>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 128: return launch_wgmma_bm<128>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            default: return cudaErrorInvalidValue;
         }
     }
-    return static_cast<int>(err);
+    if (plan[0] != 0) return cudaErrorInvalidValue;
+    if (dtype == 0)
+        return dispatch_hd<float>(hd, q, k, v, o, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+    if (dtype == 1)
+        return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+    return cudaErrorInvalidValue;
 }

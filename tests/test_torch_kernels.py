@@ -8,6 +8,8 @@ the SSD chunk scan its own test's: y at 1e-4 (fp32) or 2e-2 with atol 1e-4
 (bf16), S_final at 1e-4, since the chunk products sum over up to 128 terms.
 """
 
+import math
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -18,7 +20,9 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as fa_pallas
 from repro.kernels.rmsnorm import rmsnorm as rms_pallas
 from repro.kernels.ssd_chunk import ssd_chunk_scan as ssd_pallas
+from repro_torch.kernels import flash_attention as fa_cuda
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rmsnorm as rms_cuda
 
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
 
@@ -140,6 +144,23 @@ class TestRMSNormRef:
         got = ref.rmsnorm_ref(xt, torch.from_numpy(s), 1e-6)
         rtol, atol = TOL[dtype]
         np.testing.assert_allclose(to_np(got), to_np(want), rtol=rtol, atol=atol)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("shape", RMS_SHAPES)
+    def test_statistics_follow_the_kernels_steps(self, dtype, shape):
+        """Bit for bit: the squares summed exactly, the mean (times 1/d, in
+        fp64) rounded once to fp32, then eps, square root and reciprocal in
+        fp32, then x * inv * scale -- the steps csrc/rmsnorm.cu takes."""
+        rng = np.random.default_rng(2)
+        _, xt = make(rng, shape, dtype)
+        s = (rng.standard_normal(shape[-1]) + 1.0).astype(np.float32)
+        x32 = xt.float().numpy().reshape(-1, shape[-1])
+        sums = np.array([math.fsum(v) for v in x32.astype(np.float64) ** 2])
+        mean = (sums * (1.0 / shape[-1])).astype(np.float32)[:, None]
+        inv = np.float32(1.0) / np.sqrt(mean + np.float32(1e-5))
+        want = torch.from_numpy((x32 * inv) * s).reshape(shape).to(xt.dtype)
+        got = ref.rmsnorm_ref(xt, torch.from_numpy(s))
+        assert torch.equal(got, want)
 
     @pytest.mark.parametrize("rows", [1, 7, 64])
     @pytest.mark.parametrize("d", [32, 128])
@@ -315,3 +336,154 @@ class TestOpsDispatch:
         with pytest.raises(ValueError, match="CUDA"):
             ssd_chunk_scan_cuda(torch.zeros(1, 1, 8, 4), torch.zeros(1, 1, 8, 4),
                                 torch.zeros(1, 1, 8, 4), torch.zeros(1, 1, 8), torch.zeros(1, 1, 8))
+
+
+# Every flash-attention case of chip_smoke.py's kernels phase:
+# (b, hq, hkv, sq, skv, hd, dtype, model layout, offset in elements)
+PLAN_FLASH = [
+    (1, 32, 32, 32768, 32768, 80, "bfloat16", True, 0),   # zamba2's 32k forward
+    (1, 32, 32, 4096, 4096, 80, "bfloat16", True, 0),
+    (2, 8, 8, 300, 300, 80, "bfloat16", True, 0),
+    (1, 4, 4, 150, 150, 80, "float32", False, 0),
+    (1, 4, 2, 130, 130, 80, "bfloat16", False, 1),
+    (1, 32, 2, 1024, 1024, 128, "bfloat16", True, 0),     # glm4-9b's largest prefill bucket
+    (1, 32, 2, 128, 128, 128, "bfloat16", True, 0),       # and its smallest
+    (2, 4, 2, 75, 203, 64, "float32", False, 0),
+    (1, 4, 4, 96, 96, 16, "float32", False, 0),
+    (2, 4, 2, 75, 203, 64, "bfloat16", False, 0),
+    (1, 4, 4, 96, 96, 16, "bfloat16", True, 0),
+    (1, 8, 1, 130, 130, 32, "bfloat16", False, 0),
+    (1, 8, 2, 200, 200, 128, "bfloat16", False, 1),
+    (1, 4, 2, 100, 70, 64, "bfloat16", False, 0),
+    (1, 4, 2, 100, 70, 32, "float32", False, 0),
+]
+# Every RMSNorm case of chip_smoke.py: (shape, dtype)
+PLAN_RMS = [
+    ((1, 32768, 2560), "bfloat16"),
+    ((8, 1, 2560), "bfloat16"),
+    ((1, 1024, 4096), "bfloat16"),
+    ((8, 1, 4096), "bfloat16"),
+    ((3, 37, 1000), "float32"),
+    ((5, 4099), "bfloat16"),
+    ((1, 1024, 2560), "bfloat16"),
+]
+
+
+def meta_attention(b, hq, hkv, sq, skv, hd, dtype, model_layout, offset):
+    """q, k, v and the wrapper's output as storage-free (meta) tensors with the
+    strides and element offsets chip_smoke.py gives the kernel; a meta
+    tensor's ``data_ptr`` is its byte offset, so alignment shows as on the card."""
+    dt = getattr(torch, dtype)
+
+    def make_t(h, s):
+        shape = (b, s, h, hd) if model_layout else (b, h, s, hd)
+        t = torch.empty(int(np.prod(shape)) + offset, dtype=dt, device="meta")[offset:].view(shape)
+        return t.transpose(1, 2) if model_layout else t
+
+    q, k, v = make_t(hq, sq), make_t(hkv, skv), make_t(hkv, skv)
+    return q, k, v, fa_cuda._dense_like(q)
+
+
+class TestFlashPlan:
+    """``flash_plan`` is the launch the C entry point validates and runs; here
+    it is checked on the CPU for every shape the chip smoke gives the kernel."""
+
+    @pytest.mark.parametrize("case", PLAN_FLASH)
+    def test_route(self, case):
+        plan = fa_cuda.flash_plan(*meta_attention(*case))
+        dtype, offset = case[6], case[8]
+        assert plan.route == ("wgmma" if dtype == "bfloat16" and offset == 0 else "cuda_cores")
+
+    @pytest.mark.parametrize("case", PLAN_FLASH)
+    def test_grid_covers_every_query_tile(self, case):
+        b, hq, sq = case[0], case[1], case[3]
+        plan = fa_cuda.flash_plan(*meta_attention(*case))
+        assert plan.grid == (-(-sq // plan.bm), hq, b)
+        assert plan.threads == (128 * (plan.bm // 64 + 1) if plan.route == "wgmma" else 256)
+
+    @pytest.mark.parametrize("case", PLAN_FLASH)
+    def test_shared_memory_fits_a_block(self, case):
+        plan = fa_cuda.flash_plan(*meta_attention(*case))
+        assert 0 < plan.smem_bytes <= fa_cuda.SMEM_LIMIT
+
+    @pytest.mark.parametrize("case", PLAN_FLASH)
+    def test_tensor_maps(self, case):
+        b, hq, hkv, sq, skv, hd = case[:6]
+        q, k, v, out = meta_attention(*case)
+        plan = fa_cuda.flash_plan(q, k, v, out)
+        if plan.route != "wgmma":
+            assert plan.maps == ()
+            return
+        for m, t, h, s, rows in zip(plan.maps, (q, k, v), (hq, hkv, hkv), (sq, skv, skv),
+                                    (plan.bm, plan.bn, plan.bn)):
+            assert m.dims == (hd, s, h, b)
+            # the head-dim slabs cover hd exactly, in order
+            assert [c for c, _, _ in m.slabs] == [sum(w for _, w, _ in m.slabs[:i])
+                                                  for i in range(len(m.slabs))]
+            assert sum(w for _, w, _ in m.slabs) == hd
+            for _, width, swizzle in m.slabs:
+                box = (width, m.box_rows, 1, 1)   # what the C side encodes for the slab
+                assert swizzle in (32, 64, 128)
+                assert box[0] * 2 <= swizzle and box[0] * 2 % 16 == 0   # inner box within its swizzle span
+                assert all(1 <= n <= 256 for n in box) and box[1] == rows
+            assert all(st > 0 and st % 16 == 0 for st in m.strides)
+            # a dim of size > 1 keeps the tensor's own stride (model layout read without a copy)
+            for st, n, elems in zip(m.strides, (s, h, b), (t.stride(2), t.stride(1), t.stride(0))):
+                if n > 1:
+                    assert st == 2 * elems
+
+    @pytest.mark.parametrize("hd,slabs", [(16, [(0, 16, 32)]), (32, [(0, 32, 64)]),
+                                          (64, [(0, 64, 128)]),
+                                          (80, [(0, 64, 128), (64, 16, 32)]),
+                                          (128, [(0, 64, 128), (64, 64, 128)])])
+    def test_head_dim_slabs(self, hd, slabs):
+        assert list(fa_cuda.head_dim_slabs(hd)) == slabs
+
+    def test_small_grids_take_one_consumer_warpgroup(self):
+        small = fa_cuda.flash_plan(*meta_attention(1, 32, 2, 128, 128, 128, "bfloat16", True, 0))
+        large = fa_cuda.flash_plan(*meta_attention(1, 32, 2, 1024, 1024, 128, "bfloat16", True, 0))
+        assert (small.bm, small.grid) == (64, (2, 32, 1))
+        assert (large.bm, large.grid) == (128, (8, 32, 1))
+
+    @pytest.mark.parametrize("case", PLAN_FLASH[:3])
+    def test_plan_array_layout(self, case):
+        plan = fa_cuda.flash_plan(*meta_attention(*case))
+        values = list(plan.as_array())
+        assert len(values) == fa_cuda.PLAN_LEN
+        assert values[:9] == [fa_cuda.ROUTES.index(plan.route), plan.bm, plan.bn, plan.stages,
+                              plan.threads, *plan.grid, plan.smem_bytes]
+        for i, m in enumerate(plan.maps):
+            assert values[9 + 16 * i: 9 + 16 * (i + 1)] == m.values()
+
+
+class TestRMSNormPlan:
+    @pytest.mark.parametrize("shape,dtype", PLAN_RMS)
+    def test_route(self, shape, dtype):
+        x = torch.empty(shape, dtype=getattr(torch, dtype), device="meta")
+        plan = rms_cuda.rmsnorm_plan(x, torch.empty(shape[-1], device="meta"), torch.empty_like(x))
+        d = shape[-1]
+        if dtype == "bfloat16" and d % 8 == 0 and np.prod(shape[:-1]) >= rms_cuda.N_SM:
+            assert plan.route == "registers"
+            vpl = plan.vectors_per_lane
+            assert vpl in rms_cuda.VECTORS_PER_LANE and 256 * vpl >= d
+            assert all(256 * v < d for v in rms_cuda.VECTORS_PER_LANE if v < vpl)
+        else:
+            assert plan == rms_cuda.RMSNormPlan("block")
+
+    @pytest.mark.parametrize("d", [384, 1024, 2304, 2560, 3072, 4096, 6144])
+    def test_every_config_width_is_held_in_registers(self, d):
+        x = torch.empty(1024, d, dtype=torch.bfloat16, device="meta")
+        plan = rms_cuda.rmsnorm_plan(x, torch.empty(d, device="meta"), torch.empty_like(x))
+        assert plan.route == "registers" and plan.vectors_per_lane == -(-d // 256)
+
+    @pytest.mark.parametrize("what", ["x offset", "width past the largest count", "fp32",
+                                      "fewer rows than SMs"])
+    def test_other_rows_take_the_block_route(self, what):
+        d = 6400 if what == "width past the largest count" else 2560
+        dt = torch.float32 if what == "fp32" else torch.bfloat16
+        offset = 1 if what == "x offset" else 0
+        rows = 8 if what == "fewer rows than SMs" else 256
+        x = torch.empty(rows * d + offset, dtype=dt, device="meta")[offset:].view(rows, d)
+        plan = rms_cuda.rmsnorm_plan(x, torch.empty(d, device="meta"),
+                                     torch.empty(rows, d, dtype=dt, device="meta"))
+        assert plan.route == "block"

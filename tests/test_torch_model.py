@@ -108,6 +108,14 @@ class TestConvert:
             from_jax_params(jax.tree.map(np.asarray, jp),
                             dataclasses.replace(tm.cfg, n_layers=3))
 
+    def test_default_device_is_the_card(self, pair, monkeypatch):
+        """Without ``device`` the weights go to the card; a machine without
+        one raises instead of falling back to the CPU."""
+        _, jp, tm, _ = pair
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="cuda"):
+            from_jax_params(jax.tree.map(np.asarray, jp), tm.cfg)
+
 
 def _prefill_both(jm, jp, tm, tp, prompt, bucket, table):
     padded = np.zeros((1, bucket), np.int32)

@@ -145,6 +145,12 @@ class TestConvert:
             from_jax_params(jax.tree.map(np.asarray, jp),
                             dataclasses.replace(tm.cfg, n_layers=6, attn_every=3))
 
+    def test_default_device_is_the_card(self, pair, monkeypatch):
+        _, jp, tm, _ = pair
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="cuda"):
+            from_jax_params(jax.tree.map(np.asarray, jp), tm.cfg)
+
 
 class TestMamba2:
     @pytest.mark.parametrize("with_tail", [False, True])
