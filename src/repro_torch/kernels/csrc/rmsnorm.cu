@@ -1,14 +1,8 @@
 // Fused RMSNorm forward for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_rmsnorm_kernel` / `rmsnorm` of the reference's
-// kernels/rmsnorm.py: per row of x (rows, d), the mean of squares, then
-// x * rsqrt(var + eps) * scale, cast back to x's type.  The TPU kernel sums the
-// squares in fp32; here they are summed in fp64, where the sum is exact (bf16)
-// or nearly so (fp32) in any order, and the mean is rounded once to fp32, as
-// the plain version in kernels/ref.py does, so the two agree bit for bit.
-// With fp32 sums the order of summation flipped the rounding of a few
-// outputs, and a 12-layer bf16 zamba2 amplified those flips to 2 % of its
-// largest logit.
+// kernels/rmsnorm.py: per row of x (rows, d), the fp32 mean of squares, then
+// x * rsqrt(var + eps) * scale, cast back to x's type.
 //
 // What bounds it on this card: bytes.  The function reads x once and writes
 // the output once (2 * rows * d * sizeof(x)); there are a few operations per
@@ -17,22 +11,26 @@
 // validated here.  Two kernels:
 //
 //  * rmsnorm_warp_kernel -- at least as many bf16 rows as the card has SMs,
-//    with 16-byte-aligned addresses (x, out, scale) and a width of at most
-//    24 * 256 (every width of the repo's configs: 384 ... 6144).  One warp per
-//    row, four rows per block.  The row stays in registers as 16-byte
+//    an fp32 scale (the models' norm scales are fp32), 16-byte-aligned
+//    addresses (x, out, scale) and a width of at most 24 * 256 (every width
+//    of the repo's configs: 384 ... 6144).  One warp per row, four rows per
+//    block.  The row stays in registers as 16-byte
 //    vectors, VPL per lane (a compile-time count, lanes past the end of the
 //    row masked), so device memory sees it once and nothing is parked in
 //    shared memory; the sum of squares is reduced by warp shuffles alone,
 //    with no block barrier; scale is read as 16-byte vectors, issued with the
 //    row's loads so that its round trip (L2) overlaps theirs.
-//  * rmsnorm_kernel -- every other row (fp32, unaligned, wider, or so few
-//    rows that one warp each would leave most SMs idle: decode's 8 rows run
-//    faster with a whole block per row): one block per row, 16-byte loads
-//    and stores where the row allows (else scalar),
-//    the row parked in shared memory between the two passes, the sum of
-//    squares reduced by warp shuffles plus one shared-memory step.  A row
-//    too long for the 40 KB cache is read a second time (it is then still in
-//    L2).
+//  * rmsnorm_kernel -- every other row (fp32 x, a bf16 scale, unaligned,
+//    wider, or so few rows that one warp each would leave most SMs idle:
+//    decode's 8 rows run faster with a whole block per row): one block per
+//    row, 16-byte loads and stores where the row allows (else scalar), the
+//    row parked in shared memory between the two passes, the sum of squares
+//    reduced by warp shuffles plus one shared-memory step.  A row too long
+//    for the 40 KB cache is read a second time (it is then still in L2).
+//
+// Both kernels take the reference's statistics: the squares summed in fp32
+// (each in its own order, so a row's mean may differ from the plain
+// version's in its last bit), rsqrt(mean + eps) in fp32.
 //
 // With few rows (decode: 8) the launch itself dominates either kernel.
 //
@@ -57,25 +55,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
     return __float2bfloat16_rn(v);
 }
 
-// 1 / sqrt(mean of squares + eps) from the row's fp64 sum of squares: the
-// mean (times inv_d = 1 / d, from the host) rounded once to fp32, then eps,
-// square root and reciprocal in fp32.  The plain version (kernels/ref.py)
-// takes the same correctly rounded steps in the same order, and the
-// intrinsics keep the compiler from fusing any two of them, so kernel and
-// plain version agree bit for bit.
-__device__ __forceinline__ float row_inv(double sum_sq, double inv_d, float eps) {
-    const float mean = __double2float_rn(__dmul_rn(sum_sq, inv_d));
-    return __frcp_rn(__fsqrt_rn(__fadd_rn(mean, eps)));
-}
-
 // Sum over the block; every thread gets the total.
-__device__ __forceinline__ double block_sum(double v, double* warp_sums) {
+__device__ __forceinline__ float block_sum(float v, float* warp_sums) {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     if (lane == 0) warp_sums[warp] = v;
     __syncthreads();
     const int n_warps = (blockDim.x + 31) >> 5;
-    double total = lane < n_warps ? warp_sums[lane] : 0.0;
+    float total = lane < n_warps ? warp_sums[lane] : 0.f;
     for (int o = 16; o > 0; o >>= 1) total += __shfl_xor_sync(0xffffffffu, total, o);
     return total;
 }
@@ -85,9 +72,9 @@ __device__ __forceinline__ double block_sum(double v, double* warp_sums) {
 template <typename T, typename S, int VEC>
 __global__ void __launch_bounds__(kMaxThreads)
 rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale, T* __restrict__ out,
-               int d, double inv_d, float eps, int use_cache) {
+               int d, float eps, int use_cache) {
     extern __shared__ __align__(16) unsigned char row_cache_raw[];
-    __shared__ double warp_sums[32];
+    __shared__ float warp_sums[32];
     T* row_cache = reinterpret_cast<T*>(row_cache_raw);
 
     const int64_t row = blockIdx.x;
@@ -95,7 +82,7 @@ rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale, T* __restri
     T* outr = out + row * d;
     const int tid = threadIdx.x, nt = blockDim.x;
 
-    double ss = 0.0;   // squares of fp32 or bf16 values are exact in fp64
+    float ss = 0.f;
     if (VEC > 1) {
         const int n_vec = d / VEC;
         const uint4* xv = reinterpret_cast<const uint4*>(xr);
@@ -106,7 +93,7 @@ rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale, T* __restri
             const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
             for (int j = 0; j < VEC; ++j) {
-                const double f = to_f32(e[j]);
+                float f = to_f32(e[j]);
                 ss += f * f;
             }
         }
@@ -114,12 +101,13 @@ rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale, T* __restri
         for (int i = tid; i < d; i += nt) {
             T raw = xr[i];
             if (use_cache) row_cache[i] = raw;
-            const double f = to_f32(raw);
+            float f = to_f32(raw);
             ss += f * f;
         }
     }
     // block_sum's barrier also makes the cached row visible to every thread
-    const float inv = row_inv(block_sum(ss, warp_sums), inv_d, eps);
+    const float total = block_sum(ss, warp_sums);
+    const float inv = rsqrtf(total / static_cast<float>(d) + eps);
 
     const T* src = use_cache ? row_cache : xr;
     if (VEC > 1) {
@@ -162,11 +150,11 @@ cudaError_t launch(const void* x, const void* scale, void* out, int64_t rows, in
     if (aligned) {
         rmsnorm_kernel<T, S, VEC><<<grid, threads, smem, stream>>>(
             static_cast<const T*>(x), static_cast<const S*>(scale), static_cast<T*>(out),
-            d, 1.0 / d, eps, use_cache);
+            d, eps, use_cache);
     } else {
         rmsnorm_kernel<T, S, 1><<<grid, threads, smem, stream>>>(
             static_cast<const T*>(x), static_cast<const S*>(scale), static_cast<T*>(out),
-            d, 1.0 / d, eps, use_cache);
+            d, eps, use_cache);
     }
     return cudaGetLastError();
 }
@@ -184,20 +172,12 @@ __device__ __forceinline__ void load_scale8(const float* s, float (&f)[8]) {
     f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-__device__ __forceinline__ void load_scale8(const __nv_bfloat16* s, float (&f)[8]) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(s);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) f[j] = __bfloat162float(e[j]);
-}
-
 // Vector i of lane `lane` is the row's vector lane + 32 i (8 bf16), so the
 // lanes of a warp read neighbouring 16-byte pieces.
-template <typename S, int VPL>
+template <int VPL>
 __global__ void __launch_bounds__(32 * WARP_ROWS)
-rmsnorm_warp_kernel(const __nv_bfloat16* __restrict__ x, const S* __restrict__ scale,
-                    __nv_bfloat16* __restrict__ out, long long rows, int d, double inv_d,
-                    float eps) {
+rmsnorm_warp_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
+                    __nv_bfloat16* __restrict__ out, long long rows, int d, float eps) {
     const int lane = threadIdx.x % 32;
     const long long row = static_cast<long long>(blockIdx.x) * WARP_ROWS + threadIdx.x / 32;
     if (row >= rows) return;
@@ -222,19 +202,20 @@ rmsnorm_warp_kernel(const __nv_bfloat16* __restrict__ x, const S* __restrict__ s
             if (j < n_vec) load_scale8(scale + 8 * j, sc[i]);
         }
     }
-    double ss = 0.0;   // squares of bf16 values are exact, and so is their fp64 sum
+    float ss = 0.f;   // masked lanes hold zeros
 #pragma unroll
     for (int i = 0; i < VPL; ++i) {
         const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v[i]);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-            const double f = __bfloat162float(e[j]);
+            const float f = __bfloat162float(e[j]);
             ss += f * f;
         }
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    const float inv = row_inv(ss, inv_d, eps);
+    // the mean as torch's takes it: the sum times 1/d rounded to fp32
+    const float inv = rsqrtf(ss * (1.f / static_cast<float>(d)) + eps);
 
 #pragma unroll
     for (int i = 0; i < VPL; ++i) {
@@ -256,27 +237,26 @@ rmsnorm_warp_kernel(const __nv_bfloat16* __restrict__ x, const S* __restrict__ s
 // (384 -> 2 ... 6144 -> 24); a row takes the smallest count that covers it.
 constexpr int VPLS[] = {2, 4, 9, 10, 12, 16, 24};
 
-template <typename S, int VPL>
+template <int VPL>
 cudaError_t launch_warp(const void* x, const void* scale, void* out, long long rows, int d,
                         float eps, cudaStream_t stream) {
     const long long blocks = (rows + WARP_ROWS - 1) / WARP_ROWS;
-    rmsnorm_warp_kernel<S, VPL><<<static_cast<unsigned>(blocks), 32 * WARP_ROWS, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const S*>(scale),
-        static_cast<__nv_bfloat16*>(out), rows, d, 1.0 / d, eps);
+    rmsnorm_warp_kernel<VPL><<<static_cast<unsigned>(blocks), 32 * WARP_ROWS, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale),
+        static_cast<__nv_bfloat16*>(out), rows, d, eps);
     return cudaGetLastError();
 }
 
-template <typename S>
 cudaError_t dispatch_warp(int vpl, const void* x, const void* scale, void* out, long long rows,
                           int d, float eps, cudaStream_t stream) {
     switch (vpl) {
-        case 2: return launch_warp<S, 2>(x, scale, out, rows, d, eps, stream);
-        case 4: return launch_warp<S, 4>(x, scale, out, rows, d, eps, stream);
-        case 9: return launch_warp<S, 9>(x, scale, out, rows, d, eps, stream);
-        case 10: return launch_warp<S, 10>(x, scale, out, rows, d, eps, stream);
-        case 12: return launch_warp<S, 12>(x, scale, out, rows, d, eps, stream);
-        case 16: return launch_warp<S, 16>(x, scale, out, rows, d, eps, stream);
-        case 24: return launch_warp<S, 24>(x, scale, out, rows, d, eps, stream);
+        case 2: return launch_warp<2>(x, scale, out, rows, d, eps, stream);
+        case 4: return launch_warp<4>(x, scale, out, rows, d, eps, stream);
+        case 9: return launch_warp<9>(x, scale, out, rows, d, eps, stream);
+        case 10: return launch_warp<10>(x, scale, out, rows, d, eps, stream);
+        case 12: return launch_warp<12>(x, scale, out, rows, d, eps, stream);
+        case 16: return launch_warp<16>(x, scale, out, rows, d, eps, stream);
+        case 24: return launch_warp<24>(x, scale, out, rows, d, eps, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -294,21 +274,18 @@ bool warp_route_ok(const void* x, const void* scale, const void* out, int d, int
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  route: 0 = block per row, 1 = warp
-// per row with `vpl` 16-byte vectors per lane (bf16 x only).  Returns a
-// cudaError_t (0 = launched).
+// per row with `vpl` 16-byte vectors per lane (bf16 x, fp32 scale only).
+// Returns a cudaError_t (0 = launched).
 extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* out, int x_dtype,
                            int scale_dtype, long long rows, int d, float eps, int route, int vpl,
                            void* stream) {
     if (rows <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (route == 1) {
-        if (x_dtype != 1 || !warp_route_ok(x, scale, out, d, vpl) ||
+        if (x_dtype != 1 || scale_dtype != 0 || !warp_route_ok(x, scale, out, d, vpl) ||
             (rows + WARP_ROWS - 1) / WARP_ROWS > 2147483647LL)
             return static_cast<int>(cudaErrorInvalidValue);
-        if (scale_dtype == 0) return static_cast<int>(dispatch_warp<float>(vpl, x, scale, out, rows, d, eps, s));
-        if (scale_dtype == 1)
-            return static_cast<int>(dispatch_warp<__nv_bfloat16>(vpl, x, scale, out, rows, d, eps, s));
-        return static_cast<int>(cudaErrorInvalidValue);
+        return static_cast<int>(dispatch_warp(vpl, x, scale, out, rows, d, eps, s));
     }
     if (route != 0 || rows > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaErrorInvalidValue;

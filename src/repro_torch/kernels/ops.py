@@ -19,8 +19,7 @@ from repro_torch.kernels import ssd_chunk as _ssd
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """x: (..., d) -> same shape and dtype; the squares summed in fp64, the
-    mean rounded to fp32 (kernel and plain version agree bit for bit)."""
+    """x: (..., d) -> same shape and dtype; fp32 statistics."""
     if x.is_cuda:
         return _rms.rmsnorm_cuda(x, scale, eps)
     return ref.rmsnorm_ref(x, scale, eps)

@@ -31,18 +31,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """x: (..., d); output in x.dtype.  The squares are summed in fp64, where
-    the sum of bf16 squares is exact in any order (of fp32 squares, exact to
-    far below an fp32 rounding), and the mean is rounded once to fp32; eps,
-    square root and reciprocal follow in fp32, each correctly rounded, step
-    for step as the CUDA kernel takes them, so the two agree bit for bit.  The
-    reference sums in fp32: sums in two orders flip the rounding of a few
-    outputs, which a deep bf16 model amplifies."""
+    """x: (..., d); fp32 statistics, output in x.dtype."""
     x32 = x.float()
-    sum_sq = x32.double().square().sum(dim=-1, keepdim=True)
-    mean = (sum_sq * (1.0 / x.shape[-1])).float()
-    inv = torch.sqrt(mean + eps).reciprocal()
-    return (x32 * inv * scale.float()).to(x.dtype)
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
 def ssd_chunk_ref(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: torch.Tensor,

@@ -3,8 +3,8 @@
 Counterpart of the reference's Pallas ``kernels/rmsnorm.py``.  ``rmsnorm_plan``
 chooses the route from what it can see of the tensors: ``"registers"`` (one
 warp per row, the row held in registers) for at least ``N_SM`` bf16 rows with
-16-byte-aligned addresses and a width that a built vector count covers,
-``"block"`` (one block per row) for everything else, decode's few rows
+an fp32 scale, 16-byte-aligned addresses and a width that a built vector count
+covers, ``"block"`` (one block per row) for everything else, decode's few rows
 included (a warp each would leave most of the card idle).  The wrapper checks
 what the kernels take, allocates the output, launches on PyTorch's current
 stream and raises if the launch was refused.  It does not synchronise.
@@ -45,7 +45,8 @@ def rmsnorm_plan(x: torch.Tensor, scale: torch.Tensor, out: torch.Tensor) -> RMS
     d = x.shape[-1]
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, out)) and d % 8 == 0
     many_rows = x.numel() // d >= N_SM
-    if x.dtype == torch.bfloat16 and aligned and many_rows and d <= 256 * VECTORS_PER_LANE[-1]:
+    if (x.dtype == torch.bfloat16 and scale.dtype == torch.float32 and aligned and many_rows
+            and d <= 256 * VECTORS_PER_LANE[-1]):
         return RMSNormPlan("registers", next(v for v in VECTORS_PER_LANE if 256 * v >= d))
     return RMSNormPlan("block")
 
