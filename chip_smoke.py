@@ -272,16 +272,6 @@ def flash_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype: tor
         raise AssertionError(f"flash_attention q{tuple(q.shape)} {dtype} offset {offset} took "
                              f"the {plan.route!r} route")
     args = [(q, k, v)]
-    bm128 = None
-    if plan.route == "wgmma" and plan.bm == 64:
-        # the grid is smaller than the card, so the plan took BM = 64 (one
-        # consumer warpgroup); BM = 128 on the same inputs is the yardstick
-        with mock.patch.object(_fa, "N_SM", 0):
-            got128 = ops.flash_attention(q, k, v, causal=causal)
-            if _fa.flash_plan(q, k, v, got128).bm != 128:
-                raise AssertionError("the BM = 128 yardstick did not take BM = 128")
-            compare(got128, want, f"flash_attention BM 128 q{tuple(q.shape)}")
-            bm128 = time_ms(lambda *a: ops.flash_attention(*a, causal=causal), args, iters)[0]
     case = {
         "kernel": "flash_attention", "q": list(q.shape), "kv": list(k.shape),
         "layout": "(b,s,h,hd) strided" if model_layout else "(b,h,s,hd) contiguous",
@@ -291,8 +281,6 @@ def flash_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype: tor
         "max_abs_plain": want.abs().max().item(),
         "mean_abs_plain_last_row": want[:, :, -1].float().abs().mean().item(),
     }
-    if bm128 is not None:
-        case["kernel_bm128_ms"] = bm128
     del got, want
     timings(
         case,

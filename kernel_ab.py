@@ -1,0 +1,88 @@
+#!/usr/bin/env python3
+"""Times the port's RMSNorm and flash-attention kernels of several checkouts
+one after the other on one NVIDIA GPU, so that two versions are compared on
+the same card, in the same run.
+
+    python3 kernel_ab.py PARENT_DIR . . PARENT_DIR
+
+Each argument is the root of a checkout of this repo; its ``src/repro_torch``
+is imported in a process of its own and its kernels build into that
+checkout's ``build/``.  Prints the card as ``nvidia-smi`` names it, then one
+JSON line per checkout: device milliseconds per call at each shape (CUDA
+events around a CUDA-graph replay of ``ITERS`` calls, after warm-up; bf16,
+inputs from a seed; RMSNorm with an fp32 scale, as the models pass it;
+causal flash attention with q, k, v contiguous ``(b, h, s, hd)``).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+ITERS = 200
+RMSNORM = [(8, 1, 2560), (8, 1, 4096), (1, 1024, 4096), (1, 32768, 2560)]
+FLASH = [  # (b, hq, hkv, s, hd): glm4-9b's smallest and largest prefill, zamba2's 300 tokens
+    (1, 32, 2, 128, 128), (1, 32, 2, 1024, 128), (2, 8, 8, 300, 80),
+]
+
+
+def child(root: str) -> dict:
+    import torch
+
+    sys.path.insert(0, os.path.join(root, "src"))
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, device=dev, generator=gen).to(dtype)
+
+    def device_ms(fn, *args) -> float:
+        for _ in range(3):
+            fn(*args)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(ITERS):
+                fn(*args)
+        graph.replay()
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / ITERS
+
+    out = {"checkout": root, "ms": {}}
+    for shape in RMSNORM:
+        x, scale = rand(*shape), 1.0 + 0.1 * rand(shape[-1], dtype=torch.float32)
+        out["ms"][f"rmsnorm {shape}"] = device_ms(ops.rmsnorm, x, scale, 1e-5)
+    for b, hq, hkv, s, hd in FLASH:
+        q, k, v = rand(b, hq, s, hd), rand(b, hkv, s, hd), rand(b, hkv, s, hd)
+        out["ms"][f"flash q{(b, hq, s, hd)} kv{(b, hkv, s, hd)}"] = device_ms(
+            ops.flash_attention, q, k, v, True)
+    return out
+
+
+def main() -> None:
+    if sys.argv[1:2] == ["--child"]:
+        print(json.dumps(child(os.path.abspath(sys.argv[2]))), flush=True)
+        return
+    roots = sys.argv[1:]
+    if not roots:
+        raise SystemExit(__doc__)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True).stdout.strip(), flush=True)
+    for root in roots:
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", root],
+                             capture_output=True, text=True)
+        if run.returncode != 0:
+            raise SystemExit(f"{root}: exit {run.returncode}\n{run.stderr[-4000:]}")
+        print(run.stdout.strip().splitlines()[-1], flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -38,9 +38,8 @@
 //        one's softmax overlaps the other's products.  Where S, P and O do
 //        not fit the registers together (hd 128, two warpgroups: ptxas
 //        serialises the products, C7512) the tiles run one after the other.
-//        A BM = 64 variant (one consumer warpgroup) serves grids too small
-//        to fill the card.  Blocks walk the heads fastest and the query tiles
-//        from the heaviest down, so every head's heavy tiles go first.
+//        Blocks walk the heads fastest and the query tiles from the heaviest
+//        down, so every head's heavy tiles go first.
 //      - Tensor maps are 4-D, dims (hd, s, h, b) with each tensor's own byte
 //        strides, so the model's (b, s, h, hd) tensors go in as transposed
 //        views and a box that runs past s is zero-filled inside its own head
@@ -282,9 +281,9 @@ template <> struct Slabs<128> { static constexpr int W0 = 64, W1 = 64; };
 // repeats every 1024 bytes): Q (BM rows; slab 0, then slab 1), then WG_STAGES
 // stages of [K slab 0, K slab 1, V slab 0, V slab 1].  A slab of width w holds
 // rows of 2w bytes, as TMA writes them.
-template <int HD, int NCWG>
+template <int HD>
 struct WgLayout {
-    static constexpr int BM = 64 * NCWG;
+    static constexpr int BM = 128;   // two consumer warpgroups of 64 rows
     static constexpr int W0 = Slabs<HD>::W0, W1 = Slabs<HD>::W1;
     static constexpr int Q1 = BM * W0 * 2;
     static constexpr int KV = BM * HD * 2;
@@ -293,12 +292,12 @@ struct WgLayout {
     static constexpr int V1 = V0 + WG_BN * W0 * 2;
     static constexpr int STAGE = 2 * WG_BN * HD * 2;
     static constexpr int smem = 1024 + KV + WG_STAGES * STAGE;   // 1024: room to align the base
-    static constexpr int threads = 128 * (NCWG + 1);
+    static constexpr int threads = 384;   // the two consumers and the producer
     // Overlapping tile t's softmax with tile t - 1's P V keeps S, P and O live
-    // at once (96 + HD / 2 registers a thread).  At hd 128 with two consumer
-    // warpgroups ptxas then serialises the products (C7512, too few
-    // registers), so that kernel runs the tiles one after the other.
-    static constexpr bool overlap = HD <= 80 || NCWG == 1;
+    // at once (96 + HD / 2 registers a thread).  At hd 128 ptxas then
+    // serialises the products (C7512, too few registers), so that kernel runs
+    // the tiles one after the other.
+    static constexpr bool overlap = HD <= 80;
 };
 
 struct TmaMaps {
@@ -497,12 +496,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Accumulator fragments (S and O) of a warpgroup: thread `lane` of warp w
 // holds, for each 8-column chunk c, elements 4c + e at row w * 16 + lane / 4
 // + 8 (e >> 1) and column 8c + 2 (lane % 4) + (e & 1).
-template <int HD, int NCWG>
-__global__ void __launch_bounds__(WgLayout<HD, NCWG>::threads, 1)
+template <int HD>
+__global__ void __launch_bounds__(WgLayout<HD>::threads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ TmaMaps maps, __nv_bfloat16* __restrict__ o,
                        Strides os, int group, int sq, int skv, int n_q_tiles, float scale2,
                        int causal) {
-    using L = WgLayout<HD, NCWG>;
+    using L = WgLayout<HD>;
     constexpr int BM = L::BM, W0 = L::W0, W1 = L::W1;
     extern __shared__ __align__(1024) unsigned char smem_raw[];
     __shared__ __align__(8) uint64_t bars[1 + 2 * WG_STAGES];   // Q, K/V full[], K/V empty[]
@@ -528,7 +527,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ TmaMaps maps, __nv_bfloat16* __re
         mbar_init(q_bar, 1);
         for (int s = 0; s < WG_STAGES; ++s) {
             mbar_init(full0 + 8 * s, 1);
-            mbar_init(empty0 + 8 * s, 128 * NCWG);   // every consumer thread releases a stage
+            mbar_init(empty0 + 8 * s, 256);   // every consumer thread releases a stage
         }
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
@@ -536,10 +535,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ TmaMaps maps, __nv_bfloat16* __re
 
     // One if/else for the whole kernel: `setmaxnreg` is ignored where the
     // roles' paths meet again.
-    if (tid >= 128 * NCWG) {
+    if (tid >= 256) {
         // ---- producer warpgroup: its first thread issues every TMA load ----
-        if constexpr (NCWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-        if (tid == 128 * NCWG) {
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+        if (tid == 256) {
             const int hk = h / group;
             mbar_expect_tx(q_bar, BM * HD * 2);
             tma_load_4d(base, &maps.q[0], q_bar, 0, q0, h, b);
@@ -559,7 +558,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ TmaMaps maps, __nv_bfloat16* __re
         }
     } else {
         // ---- consumer warpgroups: 64 query rows each ----
-        if constexpr (NCWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
         const int wg = tid / 128;
         const int warp = (tid % 128) / 32, lane = tid % 32;
         const int row0 = warp * 16 + lane / 4;   // this thread's rows: row0, row0 + 8
@@ -679,7 +678,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ TmaMaps maps, __nv_bfloat16* __re
         // tensor cores while the other's softmax runs on the CUDA cores.  Each
         // warpgroup takes n_tiles + 1 turns; warpgroup 0 takes the first, and
         // warpgroup 1 skips its last hand-over, which nobody waits for.
-        constexpr bool ping_pong = NCWG == 2 && L::overlap;
+        constexpr bool ping_pong = L::overlap;
         int turns_left = n_tiles + 1;
         auto begin_turn = [&]() {
             if constexpr (ping_pong) named_sync(1 + wg);
@@ -848,10 +847,10 @@ CUresult encode_map(EncodeTiledFn encode, CUtensorMap* map, const void* base, co
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// The plan must describe exactly the kernel built for (HD, NCWG).
-template <int HD, int NCWG>
+// The plan must describe exactly the kernel built for HD.
+template <int HD>
 bool wgmma_plan_ok(const long long* plan, int b, int hq, int hkv, int sq, int skv) {
-    using L = WgLayout<HD, NCWG>;
+    using L = WgLayout<HD>;
     if (plan[1] != L::BM || plan[2] != WG_BN || plan[3] != WG_STAGES || plan[4] != L::threads ||
         plan[5] != (sq + L::BM - 1) / L::BM || plan[6] != hq || plan[7] != b || plan[8] != L::smem)
         return false;
@@ -876,12 +875,12 @@ bool wgmma_plan_ok(const long long* plan, int b, int hq, int hkv, int sq, int sk
     return true;
 }
 
-template <int HD, int NCWG>
+template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, Strides os,
                  const long long* plan, int b, int hq, int hkv, int sq, int skv, float sm_scale,
                  int causal, cudaStream_t stream) {
-    using L = WgLayout<HD, NCWG>;
-    if (!wgmma_plan_ok<HD, NCWG>(plan, b, hq, hkv, sq, skv)) return cudaErrorInvalidValue;
+    using L = WgLayout<HD>;
+    if (!wgmma_plan_ok<HD>(plan, b, hq, hkv, sq, skv)) return cudaErrorInvalidValue;
     const EncodeTiledFn encode = encode_tiled();
     if (encode == nullptr) return cudaErrorSymbolNotFound;
     TmaMaps maps;
@@ -895,7 +894,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, Strides o
             if (res != CUDA_SUCCESS) return ENCODE_FAILED + static_cast<int>(res);
         }
     }
-    auto kernel = flash_fwd_wgmma_kernel<HD, NCWG>;
+    auto kernel = flash_fwd_wgmma_kernel<HD>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::smem);
     if (err != cudaSuccess) return err;
@@ -904,17 +903,6 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, Strides o
         maps, static_cast<__nv_bfloat16*>(o), os, hq / hkv, sq, skv, n_q_tiles,
         sm_scale * LOG2E, causal);
     return cudaGetLastError();
-}
-
-template <int HD>
-int launch_wgmma_bm(const void* q, const void* k, const void* v, void* o, Strides os,
-                    const long long* plan, int b, int hq, int hkv, int sq, int skv,
-                    float sm_scale, int causal, cudaStream_t stream) {
-    if (plan[1] == 128)
-        return launch_wgmma<HD, 2>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
-    if (plan[1] == 64)
-        return launch_wgmma<HD, 1>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
-    return cudaErrorInvalidValue;
 }
 
 // The wgmma route's inputs: bf16 rows in 16-byte pieces, bf16 pairs stored.
@@ -988,11 +976,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     if (plan[0] == 1) {
         if (dtype != 1 || !rows_16_byte_aligned(ptrs, strides)) return cudaErrorInvalidValue;
         switch (hd) {
-            case 16: return launch_wgmma_bm<16>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
-            case 32: return launch_wgmma_bm<32>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
-            case 64: return launch_wgmma_bm<64>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
-            case 80: return launch_wgmma_bm<80>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
-            case 128: return launch_wgmma_bm<128>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 16: return launch_wgmma<16>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 32: return launch_wgmma<32>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 64: return launch_wgmma<64>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 80: return launch_wgmma<80>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 128: return launch_wgmma<128>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
             default: return cudaErrorInvalidValue;
         }
     }

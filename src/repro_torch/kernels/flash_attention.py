@@ -32,8 +32,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 80, 128)
 ROUTES = ("cuda_cores", "wgmma")   # index = the route's code in the plan
 
-N_SM = 132                      # streaming multiprocessors of an H100 SXM
 SMEM_LIMIT = 232448             # dynamic shared memory a block may opt into
+WGMMA_BM = 128                  # query rows per block: two consumer warpgroups of 64
+WGMMA_THREADS = 384             # the two consumer warpgroups and the producer
 WGMMA_BN = 128                  # keys per K/V tile
 WGMMA_STAGES = 3                # K/V tiles in flight
 CORE_BM, CORE_THREADS = 64, 256  # the CUDA-core kernel's query tile and block
@@ -113,13 +114,11 @@ def flash_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Ten
     and addresses only, so it runs on CPU tensors too."""
     b, hq, sq, hd = q.shape
     if q.dtype == torch.bfloat16 and rows_16_byte_aligned((q, k, v, out)):
-        # BM = 128 (two consumer warpgroups) unless that leaves SMs idle
-        bm = 128 if -(-sq // 128) * hq * b >= N_SM else 64
         return FlashPlan(
-            route="wgmma", bm=bm, bn=WGMMA_BN, stages=WGMMA_STAGES, threads=128 * (bm // 64 + 1),
-            grid=(-(-sq // bm), hq, b),
-            smem_bytes=1024 + bm * hd * 2 + WGMMA_STAGES * 2 * WGMMA_BN * hd * 2,
-            maps=(_tensor_map(q, bm), _tensor_map(k, WGMMA_BN), _tensor_map(v, WGMMA_BN)),
+            route="wgmma", bm=WGMMA_BM, bn=WGMMA_BN, stages=WGMMA_STAGES, threads=WGMMA_THREADS,
+            grid=(-(-sq // WGMMA_BM), hq, b),
+            smem_bytes=1024 + WGMMA_BM * hd * 2 + WGMMA_STAGES * 2 * WGMMA_BN * hd * 2,
+            maps=(_tensor_map(q, WGMMA_BM), _tensor_map(k, WGMMA_BN), _tensor_map(v, WGMMA_BN)),
         )
     bn = 32 if hd >= 128 else 64
     floats = CORE_BM * (hd + 4) + bn * (hd + 4) + bn * hd + CORE_BM * (bn + 4)
