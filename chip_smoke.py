@@ -14,7 +14,9 @@ raises and the script exits non-zero:
    and small cases), holds the result against the plain PyTorch version on
    the same inputs, and times kernel, plain version and the one PyTorch
    library call that computes the same function (a yardstick; the port never
-   calls it; none exists for the SSD scan) with CUDA events after warm-up.
+   calls it; none exists for the SSD scan) with CUDA events after warm-up;
+   checks the route each launch plan took (flash, RMSNorm, and the SSD scan's
+   route, sequence segments and heads per block).
 4. ``parity``  -- glm4-9b at full width, 4 layers: one padded prefill and a few
    decode steps, logits through the kernels against logits through the plain
    versions, in fp32 and in bf16.
@@ -62,6 +64,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as _fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as _rms  # noqa: E402
+from repro_torch.kernels import ssd_chunk as _ssd  # noqa: E402
 from repro_torch.models import ModelOptions, build_model  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     EngineConfig,
@@ -166,6 +169,7 @@ def ptxas_report(outputs: dict[str, str]) -> list[dict]:
             args = ""
             if m:
                 args = re.sub(r"Li(\d+)E", r"\1,", m.group(2))
+                args = args.replace("Lb0E", "false,").replace("Lb1E", "true,")
                 args = args.replace("13__nv_bfloat16", "bf16,").replace("S1_", "bf16,")
                 args = re.sub(r"(?<![\w])f(?=\d|,|$)", "f32,", args).rstrip(",")
             used = re.search(r"Used (\d+) registers", entry)
@@ -302,14 +306,25 @@ def flash_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype: tor
     return case
 
 
+# what an SSD case's plan must choose for the sequence segments G
+SEGMENTS = {
+    "one": lambda g, n: g == 1,              # b * H alone fills the card, or one chunk
+    "many": lambda g, n: g > 1,              # the card filled by segments
+    "ragged": lambda g, n: n % g != 0,       # segments of unequal length
+    "any": lambda g, n: 1 <= g <= n,
+}
+
+
 def ssd_case(b: int, H: int, s: int, P: int, N: int, chunk: int, dtype: torch.dtype,
              gen: torch.Generator, iters: int, model_layout: bool,
-             out_dtype: torch.dtype | None = None, vs_fp32_cumsum: bool = False) -> dict:
+             out_dtype: torch.dtype | None = None, vs_fp32_cumsum: bool = False,
+             segments: str = "one") -> dict:
     """``model_layout``: x held as (b, s, H, P) and passed as a transposed view,
     B/C as (b, s, N) shared by the heads and passed as head-stride-0 views,
     dt/loga as (b, s, H), as ``mamba2_fwd`` does.  ``vs_fp32_cumsum``: also
     report the kernel's distance from the plain version with the reference's
-    fp32 prefix sum."""
+    fp32 prefix sum.  ``segments``: a key of ``SEGMENTS``, what the plan's G
+    must satisfy on the tensor-core route."""
     dev = gen.device
 
     def rand(*shape, scale=1.0, to=dtype):
@@ -331,17 +346,32 @@ def ssd_case(b: int, H: int, s: int, P: int, N: int, chunk: int, dtype: torch.dt
     y_want, S_want = ref.ssd_chunk_scan_ref(x, B, C, dt, loga, chunk, out_dtype)
     what = f"ssd_chunk_scan x{tuple(x.shape)} N {N} chunk {chunk} {dtype}"
     err = compare(y, y_want, what)
+    # bf16 at zamba2's (chunk, P, N) runs on the tensor cores, all else on the
+    # CUDA cores; two heads a block where B and C are shared by the heads
+    cs = min(chunk, s)
+    plan = _ssd.ssd_plan(x, B, C, cs, y)
+    tc = dtype == torch.bfloat16 and (cs, P, N) == (128, 64, 64)
+    n_chunks = s // cs
+    if plan.route != ("tensor_cores" if tc else "cuda_cores") or (tc and not (
+            SEGMENTS[segments](plan.segments, n_chunks)
+            and plan.heads_per_block == (2 if model_layout and H % 2 == 0 else 1))):
+        raise AssertionError(f"{what}: plan {plan} (expected segments {segments!r})")
     s_err = (S - S_want).abs()
     if S.dtype != torch.float32 or not bool((s_err <= SSD_STATE_TOL * (1 + S_want.abs())).all()):
         raise AssertionError(f"{what}: S_final disagrees with the plain version, max abs err "
                              f"{s_err.max().item()} (rtol = atol = {SSD_STATE_TOL})")
     case = {
-        "kernel": "ssd_chunk_scan", "shape": [b, H, s, P, N], "chunk": min(chunk, s),
+        "kernel": "ssd_chunk_scan", "shape": [b, H, s, P, N], "chunk": cs, "route": plan.route,
+        "segments": plan.segments, "n_chunks": n_chunks, "heads_per_block": plan.heads_per_block,
+        "smem_bytes": plan.smem_bytes, "state_smem_bytes": plan.state_smem_bytes,
         "layout": "model: x (b,s,H,P), B/C (b,s,N) head stride 0" if model_layout
         else "(b,H,s,.) contiguous",
         "dtype": str(dtype).removeprefix("torch."), "y_dtype": str(y.dtype).removeprefix("torch."),
         "max_abs_err": err, "tol": TOL[y.dtype], "S_final_max_abs_err": s_err.max().item(),
-        "S_final_tol": SSD_STATE_TOL,
+        "S_final_tol": SSD_STATE_TOL, "max_abs_plain": y_want.float().abs().max().item(),
+        # the worst element's share of its allowance: |err| / (tol (1 + |plain|))
+        "worst_share_of_tol": ((y.float() - y_want.float()).abs()
+                               / (TOL[y.dtype] * (1 + y_want.float().abs()))).max().item(),
     }
     if vs_fp32_cumsum:
         # a reading, not a check: the reference's arithmetic (fp32 prefix sum)
@@ -360,7 +390,6 @@ def ssd_case(b: int, H: int, s: int, P: int, N: int, chunk: int, dtype: torch.dt
         plain=(lambda *a: ref.ssd_chunk_scan_ref(*a, chunk, out_dtype), args, max(1, iters // 3)),
         library=None,   # no single PyTorch call computes the SSD chunk scan
     )
-    cs = min(chunk, s)
     flops = b * H * (s // cs) * 2 * cs * (cs * (N + P) + 2 * P * N)
     # each input read once (B/C: their storage, shared by the heads), each output written once
     nbytes = (x.numel() * dtype.itemsize + 2 * b * (1 if model_layout else H) * s * N * dtype.itemsize
@@ -382,7 +411,8 @@ def kernels_phase(cfg, zcfg, dev: torch.device) -> dict[str, dict]:
     zh, zhd = zcfg.n_heads, zcfg.resolved_head_dim
     H, N = zcfg.ssm_heads, zcfg.ssm_state
     P = zcfg.ssm_expand * zcfg.d_model // H
-    ssd_main = ssd_case(1, H, ZAMBA_SEQ, P, N, 128, bf16, gen, 3, True, fp32, vs_fp32_cumsum=True)
+    ssd_main = ssd_case(1, H, ZAMBA_SEQ, P, N, 128, bf16, gen, 3, True, fp32, vs_fp32_cumsum=True,
+                        segments="many")
     # the shapes of zamba2's 32k forward: the shared attention, each norm of it
     flash_main = flash_case(1, zh, zh, ZAMBA_SEQ, ZAMBA_SEQ, zhd, bf16, gen, 3, True,
                             q_scale=4.0, by_head=True)
@@ -393,7 +423,10 @@ def kernels_phase(cfg, zcfg, dev: torch.device) -> dict[str, dict]:
         rmsnorm_main,
         rmsnorm_case((8, 1, zcfg.d_model), bf16, gen, 200),      # zamba2's decode, 8 lanes
         ssd_case(1, H, 128, P, N, 128, bf16, gen, 20, True, fp32),       # s == chunk
-        ssd_case(2, H, 1024, P, N, 128, bf16, gen, 10, True, fp32),      # b = 2
+        ssd_case(2, H, 1024, P, N, 128, bf16, gen, 10, True, fp32, segments="any"),   # b = 2
+        ssd_case(1, H, 1024, P, N, 128, bf16, gen, 10, True, fp32, segments="ragged"),
+        # b * H fills the card alone; B/C per head: one head a block, y in bf16
+        ssd_case(4, H, 512, P, N, 128, bf16, gen, 10, False),
         ssd_case(1, 8, 384, P, N, 128, fp32, gen, 10, True),
         # the shapes of the reference's tests/test_kernels.py, y in x's dtype
         *(ssd_case(b, h, s, p, n, c, dt, gen, 10, False)
@@ -594,6 +627,9 @@ def zamba_parity_phase(cfg, dev: torch.device, n_layers: int = 12, seq: int = 30
               "seeds": {}}
     for seed in seeds:
         report["seeds"][seed] = _zamba_parity_seed(cfg, dev, seq, seed, decode=seed == seeds[0])
+    # the SSD scan's share of the bf16 reading: the scan alone through its kernel
+    report["ssd_alone_bf16"] = {seed: r["bfloat16"]["each_kernel_alone"]["ssd_chunk_scan"]
+                                for seed, r in report["seeds"].items()}
     emit(report)
 
 
@@ -754,7 +790,7 @@ def _profiled(fn, repeats: int) -> dict:
     busy_ms = sum(ms for ms, _ in by_name.values())
     if busy_ms <= 0:
         raise AssertionError("the profiler recorded no device time")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {
         "wall_ms": wall_ms / repeats, "device_busy_ms": busy_ms / repeats,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
@@ -877,6 +913,7 @@ def main() -> None:
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
             "shape": case.get("shape") or {"q": case["q"], "kv": case["kv"]},
             "dtype": case["dtype"],
+            **({"segments": case["segments"]} if "segments" in case else {}),
         }
 
     emit({"kernels": [

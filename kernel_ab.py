@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times the port's RMSNorm and flash-attention kernels of several checkouts
-one after the other on one NVIDIA GPU, so that two versions are compared on
-the same card, in the same run.
+"""Times the port's RMSNorm, flash-attention and SSD chunk-scan kernels of
+several checkouts one after the other on one NVIDIA GPU, so that two versions
+are compared on the same card, in the same run.
 
     python3 kernel_ab.py PARENT_DIR . . PARENT_DIR
 
@@ -11,7 +11,10 @@ checkout's ``build/``.  Prints the card as ``nvidia-smi`` names it, then one
 JSON line per checkout: device milliseconds per call at each shape (CUDA
 events around a CUDA-graph replay of ``ITERS`` calls, after warm-up; bf16,
 inputs from a seed; RMSNorm with an fp32 scale, as the models pass it;
-causal flash attention with q, k, v contiguous ``(b, h, s, hd)``).
+causal flash attention with q, k, v contiguous ``(b, h, s, hd)``; the SSD
+scan in zamba2's model layout -- x ``(b, s, H, P)`` bf16 as a transposed
+view, B/C ``(b, s, N)`` shared by the heads, dt/loga fp32, y fp32 -- over
+``SSD_ITERS`` calls).
 """
 
 from __future__ import annotations
@@ -22,10 +25,12 @@ import subprocess
 import sys
 
 ITERS = 200
+SSD_ITERS = 20
 RMSNORM = [(8, 1, 2560), (8, 1, 4096), (1, 1024, 4096), (1, 32768, 2560)]
 FLASH = [  # (b, hq, hkv, s, hd): glm4-9b's smallest and largest prefill, zamba2's 300 tokens
     (1, 32, 2, 128, 128), (1, 32, 2, 1024, 128), (2, 8, 8, 300, 80),
 ]
+SSD = [(1, 80, 32768, 64, 64), (2, 80, 1024, 64, 64)]   # (b, H, s, P, N): zamba2's 32k forward, b = 2
 
 
 def child(root: str) -> dict:
@@ -40,12 +45,12 @@ def child(root: str) -> dict:
     def rand(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, device=dev, generator=gen).to(dtype)
 
-    def device_ms(fn, *args) -> float:
+    def device_ms(fn, *args, iters: int = ITERS) -> float:
         for _ in range(3):
             fn(*args)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            for _ in range(ITERS):
+            for _ in range(iters):
                 fn(*args)
         graph.replay()
         torch.cuda.synchronize()
@@ -54,7 +59,7 @@ def child(root: str) -> dict:
         graph.replay()
         stop.record()
         torch.cuda.synchronize()
-        return start.elapsed_time(stop) / ITERS
+        return start.elapsed_time(stop) / iters
 
     out = {"checkout": root, "ms": {}}
     for shape in RMSNORM:
@@ -64,6 +69,13 @@ def child(root: str) -> dict:
         q, k, v = rand(b, hq, s, hd), rand(b, hkv, s, hd), rand(b, hkv, s, hd)
         out["ms"][f"flash q{(b, hq, s, hd)} kv{(b, hkv, s, hd)}"] = device_ms(
             ops.flash_attention, q, k, v, True)
+    for b, H, s, P, N in SSD:
+        x = rand(b, s, H, P).transpose(1, 2)
+        B, C = ((rand(b, s, N) * 0.5)[:, None].expand(b, H, s, N) for _ in range(2))
+        dt = torch.nn.functional.softplus(rand(b, s, H, dtype=torch.float32)).transpose(1, 2)
+        loga = -torch.nn.functional.softplus(rand(b, s, H, dtype=torch.float32)).transpose(1, 2)
+        out["ms"][f"ssd x{(b, H, s, P)} N {N}"] = device_ms(
+            ops.ssd_chunk_scan, x, B, C, dt, loga, 128, torch.float32, iters=SSD_ITERS)
     return out
 
 

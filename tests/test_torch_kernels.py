@@ -21,6 +21,7 @@ from repro.kernels.ssd_chunk import ssd_chunk_scan as ssd_pallas
 from repro_torch.kernels import flash_attention as fa_cuda
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rms_cuda
+from repro_torch.kernels import ssd_chunk as ssd_cuda
 
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
 
@@ -271,6 +272,127 @@ class TestSSDChunkRef:
                                torch.zeros(1, 2, 15), torch.zeros(1, 2, 16))
 
 
+def segmented_scan(x, B, C, dt, loga, chunk, G):
+    """The tensor-core route's decomposition in plain torch: each (b, h) cut
+    into G segments of whole chunks (sizes differing by at most one, as the
+    kernel cuts them); pass A runs segments 0 .. G-2 from a zero state for
+    their local state and total decay; the scan over segments gives each one
+    its incoming state; pass B runs every segment from it for y and S_final."""
+    b, H, s, P = x.shape
+    N = B.shape[-1]
+    n = s // chunk
+    bounds = [(k * n // G, (k + 1) * n // G) for k in range(G)]
+
+    def run(c0, c1, S):
+        ys = []
+        for c in range(c0, c1):
+            part = slice(c * chunk, (c + 1) * chunk)
+            y, S = ref.ssd_chunk_ref(x[:, :, part], B[:, :, part], C[:, :, part],
+                                     dt[:, :, part], loga[:, :, part], S)
+            ys.append(y)
+        return ys, S
+
+    zero = torch.zeros(b, H, P, N)
+    s_loc, decay = [], []
+    for c0, c1 in bounds[:-1]:                       # pass A
+        s_loc.append(run(c0, c1, zero)[1])
+        d = torch.ones(b, H)
+        for c in range(c0, c1):
+            cum = torch.cumsum(loga[:, :, c * chunk:(c + 1) * chunk].double(), -1).float()
+            d = d * torch.exp(cum[..., -1])
+        decay.append(d)
+    s_in = [zero]                                    # the scan over segments
+    for k in range(G - 1):
+        s_in.append(s_in[-1] * decay[k][..., None, None] + s_loc[k])
+    ys = []
+    for k, (c0, c1) in enumerate(bounds):            # pass B
+        yk, S = run(c0, c1, s_in[k])
+        ys += yk
+    return torch.cat(ys, dim=2), S
+
+
+class TestSSDSegments:
+    """The sequence split of the tensor-core route is exact algebra: at any G,
+    with or without G dividing the number of chunks, it gives the sequential
+    scan up to fp32 rounding and the Pallas kernel at the reference's rule."""
+
+    @pytest.mark.parametrize("G", [1, 2, 3, 5, 8])
+    def test_equals_the_sequential_scan(self, G):
+        args = [t for _, t in ssd_inputs(np.random.default_rng(11), 1, 2, 256, 8, 4, "float32")]
+        y, S = segmented_scan(*args, chunk=32, G=G)
+        y_want, S_want = ref.ssd_chunk_scan_ref(*args, chunk=32)
+        torch.testing.assert_close(y, y_want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(S, S_want, rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("G", [2, 3])
+    def test_matches_pallas_interpret(self, G, dtype):
+        args = ssd_inputs(np.random.default_rng(12), 2, 2, 128, 16, 8, dtype)
+        y_want, S_want = ssd_pallas(*(j for j, _ in args), chunk=32, interpret=True)
+        y, S = segmented_scan(*(t.float() for _, t in args), chunk=32, G=G)
+        rtol, atol = SSD_TOL[dtype]
+        np.testing.assert_allclose(to_np(y), to_np(y_want), rtol=rtol, atol=atol)
+        np.testing.assert_allclose(to_np(S), to_np(S_want), rtol=1e-4, atol=1e-4)
+
+    def test_a_segment_decay_that_underflows_to_zero_is_exact(self):
+        """A segment whose total decay underflows to 0 hands on only its own
+        local state: no inf meets the 0, so no NaN."""
+        x, B, C, dt, _ = (t for _, t in ssd_inputs(np.random.default_rng(13), 1, 2, 128, 8, 4,
+                                                   "float32"))
+        loga = torch.full((1, 2, 128), -60.0)   # exp(-60 * 32) is 0 in fp32
+        y, S = segmented_scan(x, B, C, dt, loga, chunk=32, G=4)
+        y_want, S_want = ref.ssd_chunk_scan_ref(x, B, C, dt, loga, chunk=32)
+        assert torch.isfinite(y).all() and torch.isfinite(S).all()
+        torch.testing.assert_close(y, y_want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(S, S_want, rtol=1e-5, atol=1e-5)
+
+
+class TestSSDSplitPrecision:
+    """Why the tensor-core route splits each fp32 operand into three bf16
+    terms: at a chunk whose prefix sum reaches |cum| ~ 100, W x with W rounded
+    once to bf16 misses the 1e-4 rule (rtol = atol) by far; two terms meet it
+    with a margin of a few times, three at fp32 level."""
+
+    @staticmethod
+    def chunk():
+        rng = np.random.default_rng(0)
+        cs, P, N = 128, 64, 64
+        loga = -np.abs(rng.standard_normal(cs) * 0.5 + 0.78).astype(np.float32)
+        dt = np.logaddexp(rng.standard_normal(cs), 0.0).astype(np.float32)
+        C, B = (rng.standard_normal((cs, N)).astype(np.float32) * 0.5 for _ in range(2))
+        x = rng.standard_normal((cs, P)).astype(np.float32)
+        C, B, x = (torch.from_numpy(a).bfloat16().float() for a in (C, B, x))
+        cum = torch.cumsum(torch.from_numpy(loga).double(), 0).float()
+        gate = torch.where(torch.ones(cs, cs, dtype=torch.bool).tril(),
+                           torch.exp(cum[:, None] - cum[None, :]), 0.0)
+        W = gate * (C @ B.T) * torch.from_numpy(dt)[None, :]
+        return cum, W, x
+
+    @staticmethod
+    def terms(v, k):
+        out = []
+        for _ in range(k):
+            out.append(v.bfloat16().float())
+            v = v - out[-1]
+        return out
+
+    @pytest.mark.parametrize("k,lo,hi", [(1, 1.0, np.inf), (2, 0.0, 0.5), (3, 0.0, 1e-6)])
+    def test_terms_against_the_rule(self, k, lo, hi):
+        cum, W, x = self.chunk()
+        assert cum[-1].abs() > 100
+        exact = W.double() @ x.double()
+        got = sum(t.double() @ x.double() for t in self.terms(W, k))   # each product exact
+        ratio = ((got - exact).abs() / (1e-4 * (1 + exact.abs()))).max().item()
+        assert lo < ratio <= hi
+
+    def test_three_terms_sum_to_the_fp32_value(self):
+        _, W, _ = self.chunk()
+        t0, t1, t2 = self.terms(W, 3)
+        assert all(t.bfloat16().float().equal(t) for t in (t0, t1, t2))
+        # to fp32's rounding, but for subnormals (below 1.2e-38) that bf16 cannot hold
+        torch.testing.assert_close(t0 + t1 + t2, W, rtol=2 ** -23, atol=1e-37)
+
+
 class TestOpsDispatch:
     def test_cpu_tensor_takes_the_plain_version_and_launches_nothing(self):
         g = torch.Generator().manual_seed(0)
@@ -468,3 +590,101 @@ class TestRMSNormPlan:
         plan = rms_cuda.rmsnorm_plan(x, torch.empty(d, dtype=scale_dt, device="meta"),
                                      torch.empty(rows, d, dtype=dt, device="meta"))
         assert plan.route == "block"
+
+
+# Every SSD case of chip_smoke.py's kernels phase, and zamba_parity's forward:
+# (b, H, s, P, N, chunk, dtype, model layout, y dtype, what G must satisfy)
+PLAN_SSD = [
+    (1, 80, 32768, 64, 64, 128, "bfloat16", True, "float32", "many"),   # zamba2's 32k forward
+    (1, 80, 128, 64, 64, 128, "bfloat16", True, "float32", "one"),      # s == chunk
+    (2, 80, 1024, 64, 64, 128, "bfloat16", True, "float32", "any"),
+    (1, 80, 1024, 64, 64, 128, "bfloat16", True, "float32", "ragged"),
+    (4, 80, 512, 64, 64, 128, "bfloat16", False, "bfloat16", "one"),    # b * H fills the card
+    (1, 80, 384, 64, 64, 128, "bfloat16", True, "float32", "many"),     # zamba_parity, padded
+    (1, 80, 384, 64, 64, 128, "float32", True, "float32", "one"),
+    (1, 8, 384, 64, 64, 128, "float32", True, "float32", "one"),
+    (2, 2, 64, 16, 8, 16, "float32", False, "float32", "one"),          # the reference's shapes
+    (1, 4, 128, 32, 16, 32, "float32", False, "float32", "one"),
+    (2, 1, 32, 8, 8, 32, "float32", False, "float32", "one"),
+    (2, 2, 64, 16, 8, 16, "bfloat16", False, "bfloat16", "one"),
+    (1, 4, 128, 32, 16, 32, "bfloat16", False, "bfloat16", "one"),
+    (2, 1, 32, 8, 8, 32, "bfloat16", False, "bfloat16", "one"),
+]
+SEGMENTS = {"one": lambda g, n: g == 1, "many": lambda g, n: g > 1,
+            "ragged": lambda g, n: n % g != 0, "any": lambda g, n: 1 <= g <= n}
+
+
+def meta_ssd(b, H, s, P, N, chunk, dtype, model_layout, y_dtype, offset=0):
+    """``ssd_plan``'s arguments as meta tensors with the strides the model (or
+    a contiguous caller) gives them; ``offset`` shifts x's storage by that
+    many elements."""
+    dt_ = getattr(torch, dtype)
+    if model_layout:
+        x = torch.empty(b * s * H * P + offset, dtype=dt_, device="meta")[offset:]
+        x = x.view(b, s, H, P).transpose(1, 2)
+        B, C = (torch.empty(b, s, N, dtype=dt_, device="meta")[:, None].expand(b, H, s, N)
+                for _ in range(2))
+    else:
+        x = torch.empty(b * H * s * P + offset, dtype=dt_, device="meta")[offset:].view(b, H, s, P)
+        B, C = (torch.empty(b, H, s, N, dtype=dt_, device="meta") for _ in range(2))
+    y = ssd_cuda._output(x, getattr(torch, y_dtype))
+    return x, B, C, min(chunk, s), y
+
+
+class TestSSDPlan:
+    """``ssd_plan`` is the launch the C entry point validates and runs; here
+    it is checked on the CPU at every shape the chip smoke gives the kernel."""
+
+    @pytest.mark.parametrize("case", PLAN_SSD)
+    def test_route(self, case):
+        b, H, s, P, N, chunk, dtype = case[:7]
+        plan = ssd_cuda.ssd_plan(*meta_ssd(*case[:9]))
+        tc = dtype == "bfloat16" and (min(chunk, s), P, N) == (128, 64, 64)
+        assert plan.route == ("tensor_cores" if tc else "cuda_cores")
+
+    @pytest.mark.parametrize("case", PLAN_SSD)
+    def test_segments_and_grid(self, case):
+        b, H, s, P, N, chunk, dtype, model_layout = case[:8]
+        plan = ssd_cuda.ssd_plan(*meta_ssd(*case[:9]))
+        n_chunks = s // min(chunk, s)
+        if plan.route == "cuda_cores":
+            assert (plan.segments, plan.heads_per_block, plan.grid, plan.threads) == (1, 1, (H, b, 1), 256)
+            return
+        hb = 2 if model_layout and H % 2 == 0 else 1   # B/C shared by the heads
+        assert plan.heads_per_block == hb and plan.threads == 128 * hb
+        assert SEGMENTS[case[9]](plan.segments, n_chunks)
+        assert plan.grid == (plan.segments, H // hb, b)
+        assert (plan.state_smem_bytes > 0) == (plan.segments > 1)
+
+    @pytest.mark.parametrize("case", PLAN_SSD)
+    def test_shared_memory_fits_a_block(self, case):
+        plan = ssd_cuda.ssd_plan(*meta_ssd(*case[:9]))
+        assert 0 < plan.smem_bytes <= fa_cuda.SMEM_LIMIT
+        assert 0 <= plan.state_smem_bytes <= fa_cuda.SMEM_LIMIT
+
+    def test_the_32k_forward_fills_the_card_twice(self):
+        """At zamba2's 32k forward at least two blocks a SM run in pass B."""
+        plan = ssd_cuda.ssd_plan(*meta_ssd(*PLAN_SSD[0][:9]))
+        assert np.prod(plan.grid) >= 2 * ssd_cuda.N_SM
+
+    @pytest.mark.parametrize("what", ["x offset", "chunk 64", "P 32", "N 32", "fp32 x"])
+    def test_other_inputs_take_the_cuda_cores(self, what):
+        args = dict(b=1, H=8, s=512, P=64, N=64, chunk=128, dtype="bfloat16", model_layout=True,
+                    y_dtype="float32")
+        args.update({"chunk 64": {"chunk": 64}, "P 32": {"P": 32}, "N 32": {"N": 32},
+                     "fp32 x": {"dtype": "float32"}}.get(what, {}))
+        plan = ssd_cuda.ssd_plan(*meta_ssd(**args, offset=1 if what == "x offset" else 0))
+        assert plan.route == "cuda_cores"
+
+    def test_segments_rule(self):
+        slots = ssd_cuda.N_SM
+        assert ssd_cuda.segments_for(slots, 256, slots, 2 * slots) == 1     # fills the card
+        assert ssd_cuda.segments_for(40, 1, slots, 2 * slots) == 1          # one chunk
+        for n in (2, 3, 8, 256):
+            assert 1 <= ssd_cuda.segments_for(40, n, slots, 2 * slots) <= n
+
+    def test_plan_array_layout(self):
+        plan = ssd_cuda.ssd_plan(*meta_ssd(*PLAN_SSD[0][:9]))
+        assert list(plan.as_array()) == [1, plan.heads_per_block, plan.segments, plan.threads,
+                                         *plan.grid, plan.smem_bytes, plan.state_smem_bytes]
+        assert len(plan.as_array()) == ssd_cuda.PLAN_LEN
