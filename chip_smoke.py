@@ -9,14 +9,17 @@ raises and the script exits non-zero:
 1. ``env``     -- the card (name, power limit), torch/CUDA versions, TF32 setting.
 2. ``build``   -- compiles ``src/repro_torch/kernels/csrc/*.cu`` with nvcc
    (one process per source, all at once).
-3. ``kernels`` -- calls each kernel's wrapper at the shapes the two model paths
-   give it (glm4-9b's serving, zamba2-2.7b's prefill; plus ragged, unaligned
-   and small cases), holds the result against the plain PyTorch version on
-   the same inputs, and times kernel, plain version and the one PyTorch
-   library call that computes the same function (a yardstick; the port never
-   calls it; none exists for the SSD scan) with CUDA events after warm-up;
-   checks the route each launch plan took (flash, RMSNorm, and the SSD scan's
-   route, sequence segments and heads per block).
+3. ``kernels`` -- calls each kernel's wrapper at the shapes the three model
+   paths give it (glm4-9b's serving, zamba2-2.7b's prefill, minicpm-2b's
+   training step; plus ragged, unaligned and small cases), holds the result
+   against the plain PyTorch version on the same inputs, and times kernel,
+   plain version and the one PyTorch library call that computes the same
+   function (a yardstick; the port never calls it; none exists for the SSD
+   scan; for a backward, its autograd backward with the forward outside the
+   timed region) with CUDA events after warm-up; checks the route each launch
+   plan took (flash, RMSNorm, and the SSD scan's route, sequence segments and
+   heads per block), and that the flash forward's out is bit-identical with
+   and without its log-sum-exp.
 4. ``parity``  -- glm4-9b at full width, 4 layers: one padded prefill and a few
    decode steps, logits through the kernels against logits through the plain
    versions, in fp32 and in bf16.
@@ -30,13 +33,29 @@ raises and the script exits non-zero:
 7. ``zamba``   -- zamba2-2.7b at full width and full depth (54 layers, bf16,
    random weights from a seed): one 32768-token forward, then 128 decode
    steps at batch 8; checks the outputs and the exact launch counts.
+8. ``train_parity`` -- minicpm-2b at full width, 4 layers, fp32 masters: the
+   loss and every parameter's gradient on one batch of 4 x 1024 tokens
+   through the kernels (forward and backward) against autograd through the
+   plain versions, in fp32 and in bf16 compute (rule in the phase).
+9. ``train``   -- minicpm-2b at full width and full depth (40 layers) with the
+   reference's defaults (bf16 compute, fp32 masters and AdamW state, remat):
+   8 steps of ``make_train_step`` on ``SyntheticDataset`` batches under a WSD
+   schedule; checks finite, falling loss, every gradient present and finite,
+   the exact launches of each step; reports step time, tokens/s, TFLOP/s and
+   peak memory.
+10. ``trainer`` -- the reduced config on the card through
+   ``repro_torch.launch.train.main``, and a ``Trainer`` restarted by a
+   ``FaultInjector`` against an uninterrupted one (final checkpoints
+   bit-identical).
 
-With ``--profile`` two further phases, after ``serve`` and after ``zamba``,
-trace a decode step and a prefill of each model with ``torch.profiler``
-(device-busy time against the host's wall clock).
+With ``--profile`` three further phases, after ``serve``, ``zamba`` and
+``train``, trace a decode step and a prefill of each served model and one
+full-depth train step with ``torch.profiler`` (device-busy time against the
+host's wall clock).
 
-Then the ``kernels`` summary line (launches over both models' paths, error,
-times and roofline bound per kernel), the card as ``nvidia-smi`` names it,
+Then the ``kernels`` summary line (the three forwards and the two backwards:
+launches over the serve, zamba and train paths, error, times and roofline
+bound per kernel), the card as ``nvidia-smi`` names it,
 and the verdict as the last line.  There is no CPU path: without a CUDA device the
 script exits non-zero before printing anything.
 """
@@ -51,9 +70,11 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -61,11 +82,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data import Prefetcher, SyntheticDataset  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as _fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as _rms  # noqa: E402
 from repro_torch.kernels import ssd_chunk as _ssd  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import ModelOptions, build_model  # noqa: E402
+from repro_torch.optim import AdamWConfig, get_schedule, init_opt_state  # noqa: E402
+from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     EngineConfig,
     LengthMixture,
@@ -74,6 +99,14 @@ from repro_torch.serve import (  # noqa: E402
     ServeReport,
     generate_requests,
 )
+from repro_torch.train import (  # noqa: E402
+    FaultInjector,
+    Trainer,
+    TrainerConfig,
+    loss_and_grads,
+    make_train_step,
+)
+from repro_torch.train.train_step import batch_to_device  # noqa: E402
 
 # Published peaks of one H100 SXM (dense, no sparsity); bounds are stated
 # against these whatever the card's power limit, which is printed beside them.
@@ -306,6 +339,155 @@ def flash_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype: tor
     return case
 
 
+def timed_grad_ms(forward, inputs: list[torch.Tensor], dout: torch.Tensor, iters: int) -> float:
+    """Device milliseconds of one backward of ``forward`` under autograd, the
+    forward outside the timed region: a CUDA graph of ``iters`` forwards and
+    backwards less one of ``iters`` forwards (the library yardsticks)."""
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+
+    def fwd():
+        return forward(*leaves)
+
+    def both():
+        torch.autograd.grad(forward(*leaves), leaves, dout)
+
+    side = torch.cuda.Stream()   # warm-up on a side stream before capturing autograd
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            both()
+    torch.cuda.current_stream().wait_stream(side)
+    times = {}
+    for name, fn in (("fwd", fwd), ("both", both)):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        times[name] = _elapsed_ms(graph.replay) / iters
+        del graph
+    return times["both"] - times["fwd"]
+
+
+def flash_bwd_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype: torch.dtype,
+                   gen: torch.Generator, iters: int, model_layout: bool,
+                   causal: bool = True, offset: int = 0) -> dict:
+    """The backward kernel on the forward kernel's out and lse, against the
+    plain backward (``ref.flash_attention_bwd_ref``) on the same inputs;
+    ``model_layout``: q, k, v and dout held as (b, s, h, hd) and passed as
+    transposed views, as autograd hands them over; ``offset``: elements by
+    which each input's storage is shifted (1 breaks bf16 rows' alignment)."""
+    dev = gen.device
+
+    def rand(h: int, s: int) -> torch.Tensor:
+        shape = (b, s, h, hd) if model_layout else (b, h, s, hd)
+        flat = torch.randn(math.prod(shape) + offset, device=dev, dtype=torch.float32,
+                           generator=gen).to(dtype)
+        t = flat[offset:].view(shape)
+        return t.transpose(1, 2) if model_layout else t
+
+    q, k, v, dout = rand(hq, sq), rand(hkv, skv), rand(hkv, skv), rand(hq, sq)
+    out, lse = _fa.flash_attention_cuda(q, k, v, causal, with_lse=True)
+    got = _fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal)
+    what = f"flash_attention_bwd q{tuple(q.shape)} kv{tuple(k.shape)} {dtype}"
+    errs = {name: compare(g, w, f"{what} {name}") for name, g, w in zip(("dq", "dk", "dv"), got, want)}
+    # aligned bf16 runs on the tensor cores, fp32 and offset bf16 on the CUDA cores
+    plan = _fa.flash_bwd_plan(q, k, v, out, dout, *got)
+    if plan.route != ("mma" if dtype == torch.bfloat16 and offset == 0 else "cuda_cores"):
+        raise AssertionError(f"{what} offset {offset} took the {plan.route!r} route")
+    case = {
+        "kernel": "flash_attention_bwd", "q": list(q.shape), "kv": list(k.shape),
+        "layout": "(b,s,h,hd) strided" if model_layout else "(b,h,s,hd) contiguous",
+        "route": plan.route, "block_rows": plan.rows, "block_cols": plan.cols,
+        "smem_bytes": plan.smem_bytes, "causal": causal, "dtype": str(dtype).removeprefix("torch."),
+        "max_abs_err": max(errs.values()), "max_abs_err_each": errs, "tol": TOL[dtype],
+        "max_abs_plain": max(w.float().abs().max().item() for w in want),
+    }
+    del got, want
+    args = [(q, k, v, out, lse, dout)]
+    timings(
+        case,
+        kernel=(lambda *a: _fa.flash_attention_bwd_cuda(*a, causal), args, iters),
+        plain=(lambda *a: ref.flash_attention_bwd_ref(*a, causal), args, max(1, iters // 4)),
+        library=None,
+    )
+    # the library's causal mask is aligned top-left: the same function only if
+    # sq == skv; its backward faults on inputs shifted off 16 bytes, so it gets
+    # aligned copies of the same values
+    case["library_ms"] = timed_grad_ms(
+        lambda *a: F.scaled_dot_product_attention(*a, is_causal=causal, enable_gqa=True),
+        [t.clone() for t in (q, k, v)], dout.clone(), iters) if sq == skv or not causal else None
+    visible = sum(min(skv, i + skv - sq + 1) for i in range(sq)) if causal else sq * skv
+    # five products of 2 hd flops per visible pair: S (recomputed), dP, dV, dQ, dK
+    flops = 10 * b * hq * visible * hd
+    nbytes = (2 * (q.numel() + k.numel() + v.numel()) + out.numel() + dout.numel()) * dtype.itemsize \
+        + lse.numel() * 4
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    case["bound_ms"] = max(by_bytes, by_ops)
+    case["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    case["kernel_tflops"] = flops / case["kernel_ms"] / 1e9
+    return case
+
+
+def flash_lse_case(b: int, hq: int, hkv: int, s: int, hd: int, dtype: torch.dtype,
+                   gen: torch.Generator) -> dict:
+    """The forward's out is bit-identical with and without lse, and lse
+    agrees with the plain version's (fp32 rule); model layout, causal."""
+    q, k, v = (torch.randn((b, s, h, hd), device=gen.device, generator=gen).to(dtype).transpose(1, 2)
+               for h in (hq, hkv, hkv))
+    alone = _fa.flash_attention_cuda(q, k, v, True)
+    out, lse = _fa.flash_attention_cuda(q, k, v, True, with_lse=True)
+    torch.cuda.synchronize()
+    if not torch.equal(alone, out):
+        raise AssertionError(f"flash forward q{tuple(q.shape)} {dtype}: storing lse changed out")
+    _, want = ref.flash_attention_lse_ref(q, k, v, True)
+    return {"kernel": "flash_attention", "case": "lse", "q": list(q.shape), "kv": list(k.shape),
+            "dtype": str(dtype).removeprefix("torch."), "route": _fa.flash_plan(q, k, v, out).route,
+            "out_bit_identical_with_lse": True, "lse_max_abs_err": compare(lse, want, "lse"),
+            "tol": TOL[torch.float32]}
+
+
+def rmsnorm_bwd_case(shape: tuple[int, ...], dtype: torch.dtype, gen: torch.Generator,
+                     iters: int) -> dict:
+    dev = gen.device
+    d = shape[-1]
+    rows = math.prod(shape[:-1])
+    x, dy = (torch.randn(shape, device=dev, generator=gen).to(dtype) for _ in range(2))
+    scale = 1.0 + 0.1 * torch.randn(d, device=dev, generator=gen)
+    dx, dscale = _rms.rmsnorm_bwd_cuda(x, scale, dy, 1e-5)
+    torch.cuda.synchronize()
+    want_dx, want_dscale = ref.rmsnorm_bwd_ref(x, scale, dy, 1e-5)
+    what = f"rmsnorm_bwd {shape} {dtype}"
+    err = compare(dx, want_dx, f"{what} dx")
+    err_scale = compare(dscale, want_dscale, f"{what} dscale")
+    plan = _rms.rmsnorm_bwd_plan(x, scale, dx)
+    if plan.route != _rms.rmsnorm_plan(x, scale, dx).route:
+        raise AssertionError(f"{what}: the backward took {plan.route!r}, not the forward's route")
+    case = {"kernel": "rmsnorm_bwd", "shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
+            "route": plan.route, "blocks": plan.blocks, "max_abs_err": err,
+            "dscale_max_abs_err": err_scale, "tol": TOL[dtype], "dscale_tol": TOL[torch.float32]}
+    args = [(x, scale, dy)]
+    timings(
+        case,
+        kernel=(lambda *a: _rms.rmsnorm_bwd_cuda(*a, 1e-5), args, iters),
+        plain=(lambda *a: ref.rmsnorm_bwd_ref(*a, 1e-5), args, iters),
+        library=None,
+    )
+    case["library_ms"] = timed_grad_ms(lambda a, s: F.rms_norm(a, (d,), s.to(dtype), 1e-5),
+                                       [x, scale], dy, iters)
+    # x and dy read, dx written, scale read and dscale written once
+    nbytes = 3 * rows * d * dtype.itemsize + 2 * d * 4
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = 10 * rows * d / PEAK_FLOPS[torch.float32] * 1e3   # fp32 on the CUDA cores
+    case["bound_ms"] = max(by_bytes, by_ops)
+    case["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    return case
+
+
 # what an SSD case's plan must choose for the sequence segments G
 SEGMENTS = {
     "one": lambda g, n: g == 1,              # b * H alone fills the card, or one chunk
@@ -402,9 +584,10 @@ def ssd_case(b: int, H: int, s: int, P: int, N: int, chunk: int, dtype: torch.dt
     return case
 
 
-def kernels_phase(cfg, zcfg, dev: torch.device) -> dict[str, dict]:
+def kernels_phase(cfg, zcfg, mcfg, dev: torch.device) -> dict[str, dict]:
     """Every kernel case; returns the case of each kernel at its main paths'
-    heaviest shape (zamba2-2.7b's 32k prefill for all three)."""
+    heaviest shape (zamba2-2.7b's 32k prefill for the three forwards,
+    minicpm-2b's training step for the two backwards)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     hd = cfg.resolved_head_dim
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -461,8 +644,34 @@ def kernels_phase(cfg, zcfg, dev: torch.device) -> dict[str, dict]:
         # the configs' other widths; at 384 lanes 16-31 mask their second vector
         *(rmsnorm_case((256, d), bf16, gen, 50) for d in (384, 1024, 2304, 3072, 6144)),
     ]
-    emit({"phase": "kernels", "cases": cases + zamba_cases})
-    return {"rmsnorm": rmsnorm_main, "flash_attention": flash_main, "ssd_chunk_scan": ssd_main}
+    # minicpm-2b's training step: 4 x 1024 tokens, 36 heads of 64, d_model 2304
+    mh, mhd, md = mcfg.n_heads, mcfg.resolved_head_dim, mcfg.d_model
+    flash_bwd_main = flash_bwd_case(4, mh, mh, 1024, 1024, mhd, bf16, gen, 10, True)
+    rmsnorm_bwd_main = rmsnorm_bwd_case((4, 1024, md), bf16, gen, 50)
+    train_cases = [
+        flash_bwd_main,
+        flash_bwd_case(4, mh, mh, 1024, 1024, mhd, fp32, gen, 3, True),   # the launcher's fp32
+        flash_bwd_case(1, 32, 2, 1024, 1024, 128, bf16, gen, 10, True),    # GQA, hd 128
+        flash_bwd_case(2, 8, 8, 300, 300, 80, bf16, gen, 20, True),        # hd 80, ragged
+        flash_bwd_case(1, 4, 2, 75, 203, 64, fp32, gen, 20, False),        # causal offset
+        flash_bwd_case(1, 4, 2, 100, 70, 32, fp32, gen, 20, False, causal=False),
+        flash_bwd_case(4, mh, mh, 1024, 1024, mhd, bf16, gen, 3, True, offset=1),  # CUDA cores
+        # the forward's lse leaves out as it was: wgmma and the CUDA cores
+        flash_lse_case(4, mh, mh, 1024, mhd, bf16, gen),
+        flash_lse_case(4, mh, mh, 1024, mhd, fp32, gen),
+        flash_lse_case(2, 8, 8, 300, 80, bf16, gen),
+        # the forwards at the training step's shapes
+        flash_case(4, mh, mh, 1024, 1024, mhd, bf16, gen, 10, True),
+        rmsnorm_case((4, 1024, md), bf16, gen, 50),
+        rmsnorm_bwd_main,
+        rmsnorm_bwd_case((4, 1024, md), fp32, gen, 50),
+        rmsnorm_bwd_case((8, 64, 64), bf16, gen, 50),
+        rmsnorm_bwd_case((3, 37, 1000), fp32, gen, 50),   # block route, ragged
+        rmsnorm_bwd_case((5, 4099), bf16, gen, 50),       # unaligned rows: scalar path
+    ]
+    emit({"phase": "kernels", "cases": cases + zamba_cases + train_cases})
+    return {"rmsnorm": rmsnorm_main, "flash_attention": flash_main, "ssd_chunk_scan": ssd_main,
+            "rmsnorm_bwd": rmsnorm_bwd_main, "flash_attention_bwd": flash_bwd_main}
 
 
 # ------------------------------------------------------------------- parity
@@ -584,7 +793,7 @@ def serve_phase(cfg, dev: torch.device, n_layers: int):
     expected = {
         "rmsnorm": norms_per_forward * (stats.prefills + stats.decode_steps + 1 + n_buckets),
         "flash_attention": cfg.n_layers * (stats.prefills + n_buckets),
-        "ssd_chunk_scan": 0,
+        "ssd_chunk_scan": 0, "rmsnorm_bwd": 0, "flash_attention_bwd": 0,
     }
     if counts != expected or stats.prefills != len(requests):
         raise AssertionError(f"launch counts {counts}, expected {expected}")
@@ -612,7 +821,8 @@ def zamba_launches(cfg, forwards: int, decode_steps: int) -> dict[str, int]:
     shared block and once at the end, in both paths."""
     units = cfg.n_layers // cfg.attn_every
     return {"rmsnorm": (cfg.n_layers + 2 * units + 1) * (forwards + decode_steps),
-            "flash_attention": units * forwards, "ssd_chunk_scan": cfg.n_layers * forwards}
+            "flash_attention": units * forwards, "ssd_chunk_scan": cfg.n_layers * forwards,
+            "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
 
 
 def zamba_parity_phase(cfg, dev: torch.device, n_layers: int = 12, seq: int = 300,
@@ -764,6 +974,176 @@ def zamba_phase(cfg, dev: torch.device):
     return {k: fwd_counts[k] + dec_counts[k] for k in fwd_counts}, model, params
 
 
+# -------------------------------------------------------------------- train
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024   # 4 x 1024 tokens a step
+TRAIN_STEPS = 8
+TRAIN_LR = 1e-4   # the WSD schedule's peak
+
+
+def train_launches(cfg, remat: bool) -> dict[str, int]:
+    """Launches of one dense-model train step: per forward RMSNorm twice a
+    layer and once at the end, flash attention once a layer; remat runs each
+    layer's forward again in the backward (the final norm is outside the
+    checkpoints); each backward once per forward call it differentiates."""
+    layers = cfg.n_layers
+    return {"rmsnorm": (2 * layers + 1) + (2 * layers if remat else 0),
+            "flash_attention": layers * (2 if remat else 1), "ssd_chunk_scan": 0,
+            "rmsnorm_bwd": 2 * layers + 1, "flash_attention_bwd": layers}
+
+
+def train_parity_phase(cfg, dev: torch.device, n_layers: int = 4) -> None:
+    """minicpm-2b at full width and ``n_layers`` layers, fp32 masters: the
+    loss and every parameter's gradient on one batch, through the kernels
+    against autograd through the plain versions, in fp32 and in bf16 compute.
+    Rule, per leaf: ||g_kernels - g_plain|| <= rel ||g_plain|| (Frobenius),
+    rel = 1e-4 in fp32 (sums in another order) and 5e-2 in bf16 (about 13
+    units of bf16 rounding, 2^-8, for a gradient that passes a few dozen
+    bf16 roundings); the loss within 1e-5 (fp32) and 1e-2 (bf16) of the plain
+    one, relative."""
+    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    batch = batch_to_device(SyntheticDataset(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0).batch(0), dev)
+    report = {"phase": "train_parity", "n_layers": n_layers,
+              "tokens": TRAIN_BATCH * TRAIN_SEQ, "rule": {"float32": 1e-4, "bfloat16": 5e-2}}
+    master = None
+    for name, rel, loss_rel in (("float32", 1e-4, 1e-5), ("bfloat16", 5e-2, 1e-2)):
+        model = build_model(cfg, ModelOptions("float32", name, remat=False), dev)
+        if master is None:
+            master = model.init(torch.Generator(device=dev).manual_seed(4))
+        ops.reset_launch_counts()
+        loss_k, _, grads = loss_and_grads(model, master, batch)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        got = [g.clone() for g in tree_leaves(grads)]
+        with plain_kernels():
+            loss_p, _, grads = loss_and_grads(model, master, batch)
+        torch.cuda.synchronize()
+        want = tree_leaves(grads)
+        if counts != train_launches(cfg, remat=False) or ops.launch_counts() != counts:
+            raise AssertionError(f"train_parity {name}: the kernel run launched {counts}, expected "
+                                 f"{train_launches(cfg, remat=False)}; the plain run must launch "
+                                 f"none ({ops.launch_counts()})")
+        rels = [((a - b).norm() / b.norm().clamp(min=1e-30)).item() for a, b in zip(got, want)]
+        loss_diff = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        report[name] = {"loss_kernels": loss_k.item(), "loss_plain": loss_p.item(),
+                        "loss_rel_diff": loss_diff, "loss_rule": loss_rel,
+                        "leaves": len(rels), "worst_leaf_rel_diff": max(rels),
+                        "median_leaf_rel_diff": sorted(rels)[len(rels) // 2],
+                        "max_abs_grad_diff": max((a - b).abs().max().item() for a, b in zip(got, want))}
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        if not finite or max(rels) > rel or loss_diff > loss_rel:
+            raise AssertionError(f"train_parity {name}: {report[name]} (finite={finite})")
+        del got, want, grads
+    emit(report)
+
+
+def train_phase(cfg, dev: torch.device, steps: int = TRAIN_STEPS):
+    """minicpm-2b at full width and depth with the reference's defaults: bf16
+    compute, fp32 masters and AdamW state, remat; ``SyntheticDataset(seed 0)``
+    batches of 4 x 1024 tokens through ``make_train_step`` under a WSD
+    schedule.  Checks finite, falling loss, every gradient present and
+    finite, and the exact launches of every step.  Returns the launches of all
+    steps, the model, parameters, optimizer state and step function."""
+    model = build_model(cfg, ModelOptions("float32", "bfloat16", remat=True), dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    opt_state = init_opt_state(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    data = SyntheticDataset(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    step_fn = make_train_step(model, AdamWConfig(lr=get_schedule(cfg.lr_schedule, TRAIN_LR, 2, steps)))
+    expected = train_launches(cfg, remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    history, totals = [], dict.fromkeys(expected, 0)
+    prefetch = Prefetcher(data)
+    try:
+        for step in range(steps):
+            _, batch = prefetch.next()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()   # waits for the step
+            history.append({"step": step + 1, "loss": loss, "grad_norm": gnorm, "lr": metrics["lr"],
+                            "ms": (time.perf_counter() - t0) * 1e3})
+            counts = ops.launch_counts()
+            if counts != expected:
+                raise AssertionError(f"train step {step + 1}: launches {counts}, expected {expected}")
+            totals = {k: totals[k] + counts[k] for k in totals}
+    finally:
+        prefetch.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    leaves = tree_leaves(params)
+    grads_ok = all(p.grad is not None for p in leaves) and \
+        bool(torch.stack([torch.isfinite(p.grad).all() for p in leaves]).all())
+    losses = [h["loss"] for h in history]
+    first_ok = abs(losses[0] - math.log(cfg.vocab)) < 0.5
+    if not (grads_ok and first_ok and all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                                          for h in history) and losses[-1] < losses[0]):
+        raise AssertionError(f"train: grads present and finite {grads_ok}, first loss "
+                             f"{losses[0]} against ln(vocab) {math.log(cfg.vocab)}, history {history}")
+    step_ms = sorted(h["ms"] for h in history[1:])[(steps - 1) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n = cfg.param_count()
+    hd = cfg.resolved_head_dim
+    attn_fwd = 4 * TRAIN_BATCH * cfg.n_heads * (TRAIN_SEQ * (TRAIN_SEQ + 1) // 2) * hd * cfg.n_layers
+    model_flops = 6 * n * tokens + 3 * attn_fwd            # forward + backward (2x)
+    remat_flops = 2 * n * tokens + attn_fwd                # the layers' forward again
+    emit({
+        "phase": "train", "model": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": n, "param_dtype": "float32", "compute_dtype": "bfloat16", "remat": True,
+        "schedule": {"name": cfg.lr_schedule, "peak_lr": TRAIN_LR, "warmup_steps": 2},
+        "batch": [TRAIN_BATCH, TRAIN_SEQ], "steps": steps, "init_s": init_s, "history": history,
+        "median_step_ms_after_first": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+        "model_tflops": model_flops / step_ms / 1e9,
+        "model_tflops_with_remat": (model_flops + remat_flops) / step_ms / 1e9,
+        "peak_device_memory_gb": peak_gb, "launches_per_step": expected,
+        "launches_per_step_note": "forward kernels count the remat recompute: rmsnorm "
+                                  "(2L + 1) + 2L, flash_attention 2L; backward kernels "
+                                  "rmsnorm_bwd 2L + 1, flash_attention_bwd L",
+        "grads_present_and_finite": grads_ok,
+    })
+    return totals, model, params, opt_state, step_fn, data
+
+
+def trainer_phase(cfg, dev: torch.device) -> None:
+    """The reduced config on the card through the launcher (fp32 compute, as
+    the reference's single-device run), and a Trainer with a FaultInjector
+    restart against an uninterrupted one: the final checkpoints must be
+    bit-identical."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rc = launch_train.main(["--device", "cuda", "--ckpt-dir", os.path.join(tmp, "launch"),
+                                "--steps", "24", "--log-every", "8", "--ckpt-every", "12"])
+        launch_s = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"launch.train.main returned {rc}")
+        small = cfg.reduced()
+        finals = []
+        for name, fail_at in (("restarted", [5]), ("uninterrupted", [])):
+            model = build_model(small, ModelOptions("float32", "float32", remat=False), dev)
+            trainer = Trainer(model, SyntheticDataset(small.vocab, 16, 4), AdamWConfig(lr=3e-3),
+                              os.path.join(tmp, name),
+                              TrainerConfig(total_steps=8, ckpt_every=4, log_every=4),
+                              FaultInjector(fail_at))
+            trainer.run()
+            restarts = sum(h.get("event") == "restart" for h in trainer.history)
+            if restarts != len(fail_at):
+                raise AssertionError(f"trainer {name}: {restarts} restarts, expected {len(fail_at)}")
+            # the final checkpoint's files, leaf by leaf
+            path = os.path.join(tmp, name, "step_8")
+            with open(os.path.join(path, "manifest.json")) as f:
+                manifest = json.load(f)["leaves"]
+            finals.append({k: np.load(os.path.join(path, v["file"])) for k, v in manifest.items()})
+        a, b = finals
+        same = a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+        if not same:
+            raise AssertionError("trainer: the restarted run's final checkpoint differs from the "
+                                 "uninterrupted run's")
+    emit({"phase": "trainer", "launcher_rc": rc, "launcher_s": launch_s,
+          "config": f"{small.name} reduced", "restart_bit_identical": same,
+          "leaves_compared": len(a)})
+
+
 # ------------------------------------------------------------------ profile
 def _profiled(fn, repeats: int) -> dict:
     """Run ``fn`` ``repeats`` times under torch.profiler: wall and device-busy
@@ -829,6 +1209,20 @@ def profile_phase(model, params, dev: torch.device) -> None:
           "prefill_1024": _profiled(prefill, 2)})
 
 
+def profile_train_phase(model, params, opt_state, step_fn, data) -> None:
+    """Where one full-depth train step spends its time (one warm-up step,
+    then one traced)."""
+    batch = data.batch(TRAIN_STEPS)
+    state = [params, opt_state]
+
+    def step():
+        state[0], state[1], metrics = step_fn(state[0], state[1], batch)
+        return metrics["loss"].item()
+
+    emit({"phase": "profile_train", "n_layers": model.cfg.n_layers,
+          "tokens": TRAIN_BATCH * TRAIN_SEQ, "train_step": _profiled(step, 1)})
+
+
 @torch.no_grad()
 def profile_zamba_phase(model, params, dev: torch.device) -> None:
     """Where zamba2-2.7b's decode step (8 lanes, ring of 4096) and its
@@ -857,7 +1251,8 @@ def main() -> None:
     parser.add_argument("--layers", type=int, default=0,
                         help="depth of the serve phase (default: the model's own, 40)")
     parser.add_argument("--profile", action="store_true",
-                        help="also trace a decode step and a prefill of each model with torch.profiler")
+                        help="also trace a decode step and a prefill of each served model and "
+                             "a train step with torch.profiler")
     parser.add_argument("--ptxas-info", action="store_true",
                         help="print each kernel's registers and shared memory from the build")
     args = parser.parse_args()
@@ -883,8 +1278,8 @@ def main() -> None:
     if ignored:   # setmaxnreg ignored: the consumers would run on the producer's registers
         raise AssertionError(f"ptxas ignored setmaxnreg (C7508) in {ignored}")
 
-    cfg, zcfg = get_config("glm4-9b"), get_config("zamba2-2.7b")
-    cases = kernels_phase(cfg, zcfg, dev)
+    cfg, zcfg, mcfg = get_config("glm4-9b"), get_config("zamba2-2.7b"), get_config("minicpm-2b")
+    cases = kernels_phase(cfg, zcfg, mcfg, dev)
     torch.cuda.empty_cache()   # the 32k plain attention's graph pool
     parity_phase(cfg, dev)
     serve_counts, model, params = serve_phase(cfg, dev, args.layers or cfg.n_layers)
@@ -896,18 +1291,31 @@ def main() -> None:
     zamba_counts, model, params = zamba_phase(zcfg, dev)
     if args.profile:
         profile_zamba_phase(model, params, dev)
-    # every kernel ran on zamba2's paths; rmsnorm and flash attention on glm4's too
-    if min(zamba_counts.values()) <= 0 or min(serve_counts["rmsnorm"],
-                                              serve_counts["flash_attention"]) <= 0:
+    del model, params
+    torch.cuda.empty_cache()
+    train_parity_phase(mcfg, dev)
+    torch.cuda.empty_cache()
+    train_counts, *train_state = train_phase(mcfg, dev)
+    if args.profile:
+        profile_train_phase(*train_state)
+    del train_state
+    torch.cuda.empty_cache()
+    trainer_phase(mcfg, dev)
+    # every kernel ran on a main path: the three forwards on zamba2's, rmsnorm
+    # and flash attention on glm4's and minicpm-2b's training, the backwards on the latter
+    if min(zamba_counts[k] for k in ("rmsnorm", "flash_attention", "ssd_chunk_scan")) <= 0 or \
+            min(serve_counts["rmsnorm"], serve_counts["flash_attention"]) <= 0 or \
+            min(train_counts[k] for k in ("rmsnorm", "flash_attention", "rmsnorm_bwd",
+                                          "flash_attention_bwd")) <= 0:
         raise AssertionError(f"a main path never launched a kernel: serve {serve_counts}, "
-                             f"zamba {zamba_counts}")
+                             f"zamba {zamba_counts}, train {train_counts}")
 
     def summary(name: str, source: str, replaces: str) -> dict:
         case = cases[name]
         return {
             "name": name, "route": "cuda", "plan_route": case.get("route", "cuda_cores"),
             "source": source, "replaces": replaces,
-            "launches": serve_counts[name] + zamba_counts[name],
+            "launches": serve_counts[name] + zamba_counts[name] + train_counts[name],
             "max_abs_err": case["max_abs_err"],
             "ms": case["kernel_ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
@@ -923,6 +1331,12 @@ def main() -> None:
                 "src/repro/kernels/flash_attention.py:69"),
         summary("ssd_chunk_scan", "src/repro_torch/kernels/csrc/ssd_chunk.cu",
                 "src/repro/kernels/ssd_chunk.py:61"),
+        # the backwards of the first two: the TPU kernels are forward-only and
+        # the reference differentiates its plain jnp versions
+        summary("rmsnorm_bwd", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:23"),
+        summary("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention.py:69"),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,9 @@ checkout's ``build/``.  Prints the card as ``nvidia-smi`` names it, then one
 JSON line per checkout: device milliseconds per call at each shape (CUDA
 events around a CUDA-graph replay of ``ITERS`` calls, after warm-up; bf16,
 inputs from a seed; RMSNorm with an fp32 scale, as the models pass it;
-causal flash attention with q, k, v contiguous ``(b, h, s, hd)``; the SSD
+causal flash attention's forward with q, k, v contiguous ``(b, h, s, hd)``
+at glm4-9b's and minicpm-2b's shapes and in zamba2's model layout ``(b, s, h,
+hd)`` at its 4096- and 32768-token shapes (``FLASH_LONG_ITERS`` calls); the SSD
 scan in zamba2's model layout -- x ``(b, s, H, P)`` bf16 as a transposed
 view, B/C ``(b, s, N)`` shared by the heads, dt/loga fp32, y fp32 -- over
 ``SSD_ITERS`` calls).
@@ -26,10 +28,13 @@ import sys
 
 ITERS = 200
 SSD_ITERS = 20
+FLASH_LONG_ITERS = 5
 RMSNORM = [(8, 1, 2560), (8, 1, 4096), (1, 1024, 4096), (1, 32768, 2560)]
-FLASH = [  # (b, hq, hkv, s, hd): glm4-9b's smallest and largest prefill, zamba2's 300 tokens
+FLASH = [  # (b, hq, hkv, s, hd): glm4-9b's smallest and largest prefill, zamba2's 300 tokens,
     (1, 32, 2, 128, 128), (1, 32, 2, 1024, 128), (2, 8, 8, 300, 80),
+    (4, 36, 36, 1024, 64),   # minicpm-2b's training step
 ]
+FLASH_ZAMBA = [(1, 32, 4096, 80), (1, 32, 32768, 80)]   # (b, h, s, hd) in model layout
 SSD = [(1, 80, 32768, 64, 64), (2, 80, 1024, 64, 64)]   # (b, H, s, P, N): zamba2's 32k forward, b = 2
 
 
@@ -69,6 +74,10 @@ def child(root: str) -> dict:
         q, k, v = rand(b, hq, s, hd), rand(b, hkv, s, hd), rand(b, hkv, s, hd)
         out["ms"][f"flash q{(b, hq, s, hd)} kv{(b, hkv, s, hd)}"] = device_ms(
             ops.flash_attention, q, k, v, True)
+    for b, h, s, hd in FLASH_ZAMBA:
+        q, k, v = (rand(b, s, h, hd).transpose(1, 2) for _ in range(3))
+        out["ms"][f"flash (b,s,h,hd) {(b, s, h, hd)}"] = device_ms(
+            ops.flash_attention, q, k, v, True, iters=FLASH_LONG_ITERS)
     for b, H, s, P, N in SSD:
         x = rand(b, s, H, P).transpose(1, 2)
         B, C = ((rand(b, s, N) * 0.5)[:, None].expand(b, H, s, N) for _ in range(2))

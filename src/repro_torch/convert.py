@@ -1,4 +1,4 @@
-"""Parameter conversion from the reference's pytree to the port's.
+"""Parameter conversion between the reference's pytree and the port's.
 
 The reference stacks the layers on a leading axis (``jax.vmap`` over the layer
 keys; the Zamba2 hybrid on two, ``(n_units, attn_every, ...)``); the port holds
@@ -94,3 +94,24 @@ def from_jax_params(tree: dict, cfg: ArchConfig, dtype: torch.dtype = torch.floa
     if "lm_head" in tree:
         params["lm_head"] = _leaf(tree["lm_head"], dtype, device)
     return params
+
+
+def to_jax_layout(tree: dict) -> dict:
+    """The inverse of :func:`from_jax_params` for the dense family: the port's
+    tree (parameters, or gradients of the same shape) as fp32 numpy arrays in
+    the reference's layout, each per-layer leaf stacked on a leading
+    ``(n_layers, ...)`` axis."""
+    def host(t: torch.Tensor) -> np.ndarray:
+        return t.detach().float().cpu().numpy()
+
+    layers = tree["layers"]
+    out = {
+        "embed": {"tokens": host(tree["embed"]["tokens"])},
+        "layers": {group: {name: np.stack([host(lp[group][name]) for lp in layers])
+                           for name in leaves}
+                   for group, leaves in layers[0].items()},
+        "final_norm": {"norm_scale": host(tree["final_norm"]["norm_scale"])},
+    }
+    if "lm_head" in tree:
+        out["lm_head"] = host(tree["lm_head"])
+    return out

@@ -1,4 +1,5 @@
-// Flash attention forward (causal or full, grouped-query) for Hopper (sm_90a).
+// Flash attention forward and backward (causal or full, grouped-query) for
+// Hopper (sm_90a); the backward is described at its section below.
 //
 // Replaces the TPU kernel `_fa_kernel` / `flash_attention` of the reference's
 // kernels/flash_attention.py: out = softmax(q k^T / sqrt(hd) + mask) v with an
@@ -108,8 +109,9 @@ struct Smem {
 template <typename T, int HD, int BN>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, Strides qs, Strides ks, Strides vs, Strides os,
-                 int group, int sq, int skv, int n_q_tiles, float sm_scale, int causal) {
+                 T* __restrict__ o, float* __restrict__ lse, Strides qs, Strides ks, Strides vs,
+                 Strides os, int group, int sq, int skv, int n_q_tiles, float sm_scale,
+                 int causal) {
     using L = Smem<HD, BN>;
     constexpr int NJ = BN / TX;   // score columns per thread: tx + TX * j
     constexpr int NC = HD / TX;   // output columns per thread: tx + TX * c
@@ -257,6 +259,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
             for (int c = 0; c < NC; ++c)
                 ob[row * os.s + tx + TX * c] = from_f32<T>(acc[i][c] / denom);
+            // m is the running max of the scaled scores, l the sum of exp(s - m)
+            if (lse != nullptr && tx == 0)
+                lse[(static_cast<long long>(b) * gridDim.y + h) * sq + row] = m[i] + logf(l[i]);
         }
     }
 }
@@ -495,12 +500,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // Accumulator fragments (S and O) of a warpgroup: thread `lane` of warp w
 // holds, for each 8-column chunk c, elements 4c + e at row w * 16 + lane / 4
-// + 8 (e >> 1) and column 8c + 2 (lane % 4) + (e & 1).
-template <int HD>
+// + 8 (e >> 1) and column 8c + 2 (lane % 4) + (e & 1).  kLse: also write each
+// row's log-sum-exp (training); the serving instance has none of that code.
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(WgLayout<HD>::threads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ TmaMaps maps, __nv_bfloat16* __restrict__ o,
-                       Strides os, int group, int sq, int skv, int n_q_tiles, float scale2,
-                       int causal) {
+                       float* __restrict__ lse, Strides os, int group, int sq, int skv,
+                       int n_q_tiles, float scale2, float sm_scale, int causal) {
     using L = WgLayout<HD>;
     constexpr int BM = L::BM, W0 = L::W0, W1 = L::W1;
     extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -777,6 +783,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ TmaMaps maps, __nv_bfloat16* __re
             lt += __shfl_xor_sync(0xffffffffu, lt, 2);
             const float inv = 1.f / fmaxf(lt, 1e-30f);
             const int row = qw0 + row0 + 8 * r;
+            // m holds the raw (unscaled) row max and lt the sum of
+            // exp(sm_scale (s - m)) (the softmax runs in log2 units, scale2 =
+            // sm_scale log2 e): lse = sm_scale m + ln(lt), natural log
+            if constexpr (kLse) {
+                if (row < sq && lane % 4 == 0)
+                    lse[(static_cast<long long>(b) * hq + h) * sq + row] = fmaf(m[r], sm_scale, logf(lt));
+            }
             if (row < sq) {
                 __nv_bfloat16* orow = out + row * os.s + col;
 #pragma unroll
@@ -876,7 +889,7 @@ bool wgmma_plan_ok(const long long* plan, int b, int hq, int hkv, int sq, int sk
 }
 
 template <int HD>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, Strides os,
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, Strides os,
                  const long long* plan, int b, int hq, int hkv, int sq, int skv, float sm_scale,
                  int causal, cudaStream_t stream) {
     using L = WgLayout<HD>;
@@ -894,14 +907,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, Strides o
             if (res != CUDA_SUCCESS) return ENCODE_FAILED + static_cast<int>(res);
         }
     }
-    auto kernel = flash_fwd_wgmma_kernel<HD>;
+    auto kernel =
+        lse != nullptr ? flash_fwd_wgmma_kernel<HD, true> : flash_fwd_wgmma_kernel<HD, false>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::smem);
     if (err != cudaSuccess) return err;
     const int n_q_tiles = static_cast<int>(plan[5]);
     kernel<<<dim3(n_q_tiles, hq, b), L::threads, L::smem, stream>>>(
-        maps, static_cast<__nv_bfloat16*>(o), os, hq / hkv, sq, skv, n_q_tiles,
-        sm_scale * LOG2E, causal);
+        maps, static_cast<__nv_bfloat16*>(o), lse, os, hq / hkv, sq, skv, n_q_tiles,
+        sm_scale * LOG2E, sm_scale, causal);
     return cudaGetLastError();
 }
 
@@ -917,9 +931,9 @@ bool rows_16_byte_aligned(const void* const* ptrs, const long long* strides) {
 // ---------------------------------------------------------------------------
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, Strides qs, Strides ks,
-           Strides vs, Strides os, const long long* plan, int b, int hq, int hkv, int sq,
-           int skv, float sm_scale, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, Strides qs,
+           Strides ks, Strides vs, Strides os, const long long* plan, int b, int hq, int hkv,
+           int sq, int skv, float sm_scale, int causal, cudaStream_t stream) {
     constexpr int BN = HD >= 128 ? 32 : 64;
     auto kernel = flash_fwd_kernel<T, HD, BN>;
     constexpr size_t smem = Smem<HD, BN>::bytes;
@@ -935,20 +949,736 @@ int launch(const void* q, const void* k, const void* v, void* o, Strides qs, Str
     const dim3 grid(n_q_tiles, hq, b);
     kernel<<<grid, NT, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), qs, ks, vs, os, hq / hkv, sq, skv, n_q_tiles, sm_scale, causal);
+        static_cast<T*>(o), lse, qs, ks, vs, os, hq / hkv, sq, skv, n_q_tiles, sm_scale, causal);
     return cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, Strides qs,
-                Strides ks, Strides vs, Strides os, const long long* plan, int b, int hq,
-                int hkv, int sq, int skv, float sm_scale, int causal, cudaStream_t stream) {
+int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, float* lse,
+                Strides qs, Strides ks, Strides vs, Strides os, const long long* plan, int b,
+                int hq, int hkv, int sq, int skv, float sm_scale, int causal,
+                cudaStream_t stream) {
     switch (hd) {
-        case 16: return launch<T, 16>(q, k, v, o, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
-        case 32: return launch<T, 32>(q, k, v, o, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
-        case 64: return launch<T, 64>(q, k, v, o, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
-        case 80: return launch<T, 80>(q, k, v, o, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
-        case 128: return launch<T, 128>(q, k, v, o, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
+        case 16: return launch<T, 16>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
+        case 32: return launch<T, 32>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
+        case 64: return launch<T, 64>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
+        case 80: return launch<T, 80>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
+        case 128: return launch<T, 128>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Backward (training): the gradient of out with respect to q, k and v
+// ---------------------------------------------------------------------------
+//
+// The TPU kernel has no backward (the reference differentiates its plain jnp
+// attention), so this is the port's own: FlashAttention-2's recomputation
+// scheme, three kernels a call, no atomics, so every result is deterministic.
+//
+//  * flash_bwd_dot_kernel -- D = rowsum(dO * O) in fp32, one warp per row.
+//  * flash_bwd_dkv_kernel -- one block per (kv tile of 64 keys, kv head,
+//    batch).  It holds its K and V tiles and dK, dV in fp32 registers and
+//    walks the query heads of its group and, in each, the query tiles that see
+//    its keys (causally dead tiles are never loaded; the offset skv - sq is the
+//    forward's), so a kv head's sum over its group needs no second pass.  Per
+//    query tile: S^T = K Q^T and dP^T = V dO^T, P^T = exp(s S^T - lse) masked,
+//    dV += P^T dO, dS^T = P^T (dP^T - D), dK += dS^T Q.
+//  * flash_bwd_dq_kernel -- one block per (q tile of 64 queries, q head,
+//    batch), over the kv tiles up to its causal limit: S = Q K^T, dP = dO V^T,
+//    P = exp(s S - lse) masked, dS = P (dP - D), dQ += dS K.
+//
+// P is recomputed from q, k and the forward's lse (natural log), never stored.
+// What bounds it on this card: operations (five products of 2 hd flops per
+// visible (query, key) pair).  Two routes, chosen in Python (`flash_bwd_plan`)
+// as the forward's are: bf16 whose rows are 16-byte aligned runs its products
+// on the tensor cores (the *_mma_kernel pair below); fp32 and unaligned bf16
+// run them in fp32 on the CUDA cores (the two kernels that follow), from fp32
+// shared-memory tiles (bf16 widened as it is loaded) with the forward
+// CUDA-core kernel's 4-row micro-tiles and 16-byte shared-memory reads, so
+// they cannot pass the card's 67 TFLOP/s fp32 rate.  Inputs are read through
+// their (b, h, s) strides, as in the forward: dout may be the transposed view
+// autograd hands back for the model's (b, s, h, hd) layout.
+
+constexpr int BWD_ROWS = 64;                // rows a block owns: queries (dQ) or keys (dK/dV)
+constexpr int BWD_THREADS = TX * TY;        // 256
+constexpr int BWD_RI = BWD_ROWS / TY;       // 4 rows a thread: ty + TY * i
+constexpr int DOT_ROWS = 8;                 // rows of the D pass per block, one warp each
+
+// Shared memory of both kernels: two (64, hd) tiles of the side a block owns,
+// two (C, hd) tiles of the side it walks, the (64, C) P / dS tile, and lse and
+// D of the C walked rows.  C = 64 keys or queries, 32 at hd 128.
+template <int HD>
+struct BwdSmem {
+    static constexpr int C = HD >= 128 ? 32 : 64;
+    static constexpr int RS = HD + 4;   // padded row strides in floats (as Smem above)
+    static constexpr int PS = C + 4;
+    static constexpr int floats = 2 * BWD_ROWS * RS + 2 * C * RS + BWD_ROWS * PS + 2 * C;
+    static constexpr size_t bytes = sizeof(float) * floats;
+};
+
+// Rows r0 .. r0 + n of a head's (s, hd) slice into shared memory as fp32,
+// zeros past `limit`.
+template <typename T, int HD>
+__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, long long s_stride,
+                                          int r0, int n, int limit) {
+    constexpr int RS = HD + 4;
+    for (int idx = threadIdx.x; idx < n * HD; idx += BWD_THREADS) {
+        const int r = idx / HD, d = idx % HD;
+        const int row = r0 + r;
+        dst[r * RS + d] = row < limit ? to_f32(src[row * s_stride + d]) : 0.f;
+    }
+}
+
+// acc[i][j] = A[ty + TY i] . B[tx + TX j] over hd (rows of two tiles).
+template <int HD, int NJ>
+__device__ __forceinline__ void row_dots(float (&acc)[BWD_RI][NJ], const float* A, const float* B) {
+    constexpr int RS = HD + 4;
+    const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+#pragma unroll
+    for (int i = 0; i < BWD_RI; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+        float4 a[BWD_RI], bv[NJ];
+#pragma unroll
+        for (int i = 0; i < BWD_RI; ++i)
+            a[i] = *reinterpret_cast<const float4*>(&A[(ty + TY * i) * RS + d]);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+            bv[j] = *reinterpret_cast<const float4*>(&B[(tx + TX * j) * RS + d]);
+#pragma unroll
+        for (int i = 0; i < BWD_RI; ++i)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+                acc[i][j] = fmaf(a[i].x, bv[j].x, acc[i][j]);
+                acc[i][j] = fmaf(a[i].y, bv[j].y, acc[i][j]);
+                acc[i][j] = fmaf(a[i].z, bv[j].z, acc[i][j]);
+                acc[i][j] = fmaf(a[i].w, bv[j].w, acc[i][j]);
+            }
+    }
+}
+
+// out[i][c] += sum_j P[ty + TY i][j] M[j][tx + TX c]: the (64, C) tile P
+// times the (C, hd) tile M.
+template <int HD, int C>
+__device__ __forceinline__ void tile_product(float (&out)[BWD_RI][HD / TX], const float* P,
+                                             const float* M) {
+    constexpr int RS = HD + 4, PS = C + 4, NC = HD / TX;
+    const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+#pragma unroll 2
+    for (int kk = 0; kk < C; kk += 4) {
+        float4 pv[BWD_RI];
+#pragma unroll
+        for (int i = 0; i < BWD_RI; ++i)
+            pv[i] = *reinterpret_cast<const float4*>(&P[(ty + TY * i) * PS + kk]);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+            const float m0 = M[(kk + 0) * RS + tx + TX * c];
+            const float m1 = M[(kk + 1) * RS + tx + TX * c];
+            const float m2 = M[(kk + 2) * RS + tx + TX * c];
+            const float m3 = M[(kk + 3) * RS + tx + TX * c];
+#pragma unroll
+            for (int i = 0; i < BWD_RI; ++i) {
+                out[i][c] = fmaf(pv[i].x, m0, out[i][c]);
+                out[i][c] = fmaf(pv[i].y, m1, out[i][c]);
+                out[i][c] = fmaf(pv[i].z, m2, out[i][c]);
+                out[i][c] = fmaf(pv[i].w, m3, out[i][c]);
+            }
+        }
+    }
+}
+
+// D = rowsum(dO * O) over the logical (b, hq, sq) rows, into a contiguous buffer.
+template <typename T>
+__global__ void __launch_bounds__(32 * DOT_ROWS)
+flash_bwd_dot_kernel(const T* __restrict__ dout, const T* __restrict__ o, float* __restrict__ delta,
+                     Strides dos, Strides os, int hq, int sq, int hd, long long rows) {
+    const long long row = static_cast<long long>(blockIdx.x) * DOT_ROWS + threadIdx.x / 32;
+    if (row >= rows) return;
+    const int lane = threadIdx.x % 32;
+    const int i = static_cast<int>(row % sq);
+    const int h = static_cast<int>((row / sq) % hq);
+    const long long b = row / (static_cast<long long>(sq) * hq);
+    const T* dr = dout + b * dos.b + h * dos.h + i * dos.s;
+    const T* orow = o + b * os.b + h * os.h + i * os.s;
+    float sum = 0.f;
+    for (int d = lane; d < hd; d += 32) sum = fmaf(to_f32(dr[d]), to_f32(orow[d]), sum);
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
+    if (lane == 0) delta[row] = sum;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                     Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
+                     int group, int hq, int sq, int skv, float sm_scale, int causal) {
+    using L = BwdSmem<HD>;
+    constexpr int C = L::C, NJ = C / TX, NC = HD / TX, RS = L::RS, PS = L::PS;
+    extern __shared__ __align__(16) float smem[];
+    float* Ks = smem;
+    float* Vs = Ks + BWD_ROWS * RS;
+    float* Qs = Vs + BWD_ROWS * RS;
+    float* dOs = Qs + C * RS;
+    float* Ps = dOs + C * RS;
+    float* lse_s = Ps + BWD_ROWS * PS;
+    float* d_s = lse_s + C;
+
+    const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+    const int hk = blockIdx.y, b = blockIdx.z;
+    const int k0 = blockIdx.x * BWD_ROWS;
+    const int off = skv - sq;   // causal offset: query i sees keys <= i + off
+    load_rows<T, HD>(Ks, k + b * ks.b + hk * ks.h, ks.s, k0, BWD_ROWS, skv);
+    load_rows<T, HD>(Vs, v + b * vs.b + hk * vs.h, vs.s, k0, BWD_ROWS, skv);
+
+    float acc_k[BWD_RI][NC], acc_v[BWD_RI][NC];
+#pragma unroll
+    for (int i = 0; i < BWD_RI; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+    // the first query that sees key k0, and so the first query tile to load
+    const int first_tile = causal ? max(0, k0 - off) / C : 0;
+    const int n_q_tiles = (sq + C - 1) / C;
+    for (int g = 0; g < group; ++g) {
+        const int h = hk * group + g;
+        const T* qb = q + b * qs.b + h * qs.h;
+        const T* dob = dout + b * dos.b + h * dos.h;
+        const long long rows0 = (static_cast<long long>(b) * hq + h) * sq;
+        for (int u = first_tile; u < n_q_tiles; ++u) {
+            const int c0 = u * C;
+            __syncthreads();   // the previous tile's products are done with Qs, dOs, Ps
+            load_rows<T, HD>(Qs, qb, qs.s, c0, C, sq);
+            load_rows<T, HD>(dOs, dob, dos.s, c0, C, sq);
+            for (int j = tid; j < C; j += BWD_THREADS) {
+                const bool in = c0 + j < sq;
+                lse_s[j] = in ? lse[rows0 + c0 + j] : 0.f;
+                d_s[j] = in ? delta[rows0 + c0 + j] : 0.f;
+            }
+            __syncthreads();
+
+            float s[BWD_RI][NJ], dp[BWD_RI][NJ];
+            row_dots<HD, NJ>(s, Ks, Qs);    // S^T: keys x queries
+            row_dots<HD, NJ>(dp, Vs, dOs);  // dP^T
+#pragma unroll
+            for (int i = 0; i < BWD_RI; ++i)
+#pragma unroll
+                for (int j = 0; j < NJ; ++j) {
+                    const int k_pos = k0 + ty + TY * i, q_pos = c0 + tx + TX * j;
+                    const bool valid = k_pos < skv && q_pos < sq && (!causal || q_pos + off >= k_pos);
+                    s[i][j] = valid ? expf(fmaf(s[i][j], sm_scale, -lse_s[tx + TX * j])) : 0.f;
+                    Ps[(ty + TY * i) * PS + tx + TX * j] = s[i][j];
+                }
+            __syncthreads();
+            tile_product<HD, C>(acc_v, Ps, dOs);   // dV += P^T dO
+            __syncthreads();
+#pragma unroll
+            for (int i = 0; i < BWD_RI; ++i)
+#pragma unroll
+                for (int j = 0; j < NJ; ++j)
+                    Ps[(ty + TY * i) * PS + tx + TX * j] = s[i][j] * (dp[i][j] - d_s[tx + TX * j]);
+            __syncthreads();
+            tile_product<HD, C>(acc_k, Ps, Qs);    // dK += dS^T Q
+        }
+    }
+
+    T* dkb = dk + b * dks.b + hk * dks.h;
+    T* dvb = dv + b * dvs.b + hk * dvs.h;
+#pragma unroll
+    for (int i = 0; i < BWD_RI; ++i) {
+        const int row = k0 + ty + TY * i;
+        if (row < skv) {
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+                dkb[row * dks.s + tx + TX * c] = from_f32<T>(acc_k[i][c] * sm_scale);
+                dvb[row * dvs.s + tx + TX * c] = from_f32<T>(acc_v[i][c]);
+            }
+        }
+    }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq, Strides qs, Strides ks,
+                    Strides vs, Strides dos, Strides dqs, int group, int sq, int skv,
+                    int n_q_tiles, float sm_scale, int causal) {
+    using L = BwdSmem<HD>;
+    constexpr int C = L::C, NJ = C / TX, NC = HD / TX, RS = L::RS, PS = L::PS;
+    extern __shared__ __align__(16) float smem[];
+    float* Qs = smem;
+    float* dOs = Qs + BWD_ROWS * RS;
+    float* Ks = dOs + BWD_ROWS * RS;
+    float* Vs = Ks + C * RS;
+    float* dSs = Vs + C * RS;
+
+    const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+    const int q_tile = n_q_tiles - 1 - static_cast<int>(blockIdx.x);   // heaviest first
+    const int h = blockIdx.y, b = blockIdx.z;
+    const int hk = h / group;
+    const int q0 = q_tile * BWD_ROWS;
+    const int off = skv - sq;
+    load_rows<T, HD>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, BWD_ROWS, sq);
+    load_rows<T, HD>(dOs, dout + b * dos.b + h * dos.h, dos.s, q0, BWD_ROWS, sq);
+    const T* kb = k + b * ks.b + hk * ks.h;
+    const T* vb = v + b * vs.b + hk * vs.h;
+
+    const long long rows0 = (static_cast<long long>(b) * gridDim.y + h) * sq;
+    float lse_r[BWD_RI], d_r[BWD_RI], acc[BWD_RI][NC];
+#pragma unroll
+    for (int i = 0; i < BWD_RI; ++i) {
+        const int row = q0 + ty + TY * i;
+        lse_r[i] = row < sq ? lse[rows0 + row] : 0.f;
+        d_r[i] = row < sq ? delta[rows0 + row] : 0.f;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+    }
+
+    const int kv_end = causal ? min(skv, min(q0 + BWD_ROWS, sq) + off) : skv;
+    const int n_tiles = (kv_end + C - 1) / C;
+    for (int t = 0; t < n_tiles; ++t) {
+        const int k0 = t * C;
+        __syncthreads();   // the previous tile's product is done with Ks, dSs
+        load_rows<T, HD>(Ks, kb, ks.s, k0, C, skv);
+        load_rows<T, HD>(Vs, vb, vs.s, k0, C, skv);
+        __syncthreads();
+
+        float s[BWD_RI][NJ], dp[BWD_RI][NJ];
+        row_dots<HD, NJ>(s, Qs, Ks);
+        row_dots<HD, NJ>(dp, dOs, Vs);
+#pragma unroll
+        for (int i = 0; i < BWD_RI; ++i)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+                const int q_pos = q0 + ty + TY * i, k_pos = k0 + tx + TX * j;
+                const bool valid = q_pos < sq && k_pos < skv && (!causal || q_pos + off >= k_pos);
+                const float p = valid ? expf(fmaf(s[i][j], sm_scale, -lse_r[i])) : 0.f;
+                dSs[(ty + TY * i) * PS + tx + TX * j] = p * (dp[i][j] - d_r[i]);
+            }
+        __syncthreads();
+        tile_product<HD, C>(acc, dSs, Ks);   // dQ += dS K
+    }
+
+    T* dqb = dq + b * dqs.b + h * dqs.h;
+#pragma unroll
+    for (int i = 0; i < BWD_RI; ++i) {
+        const int row = q0 + ty + TY * i;
+        if (row < sq) {
+#pragma unroll
+            for (int c = 0; c < NC; ++c)
+                dqb[row * dqs.s + tx + TX * c] = from_f32<T>(acc[i][c] * sm_scale);
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Backward, bf16 on the tensor cores: mma.sync.m16n8k16, fp32 accumulators
+// ---------------------------------------------------------------------------
+//
+// Aligned bf16 (the training path) takes these two kernels in place of the
+// CUDA-core ones, with the same blocks, loops and masks: four warps own 16 of
+// the block's 64 rows each; Q, K, V, dO tiles sit in shared memory as bf16 in
+// rows of hd + 8 elements (16-byte rows whose 8 ldmatrix rows fall in 8 bank
+// groups); S and dP (fp32) come from ldmatrix fragments, and P and dS are
+// rounded to bf16 and become the A fragments of the next products without
+// leaving registers (the accumulator of two neighbouring 8-column tiles is one
+// 16-wide A fragment), as FlashAttention-2 does.  Tiles are loaded with
+// 16-byte loads and no pipelining: a simple first version.
+
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_THREADS = 32 * MMA_WARPS;   // 64 rows: 16 a warp
+
+template <int HD>
+struct MmaSmem {
+    static constexpr int C = HD >= 128 ? 32 : 64;   // walked rows per tile (registers at hd 128)
+    static constexpr int RS = HD + 8;               // bf16 row stride
+    static constexpr int elems = 2 * BWD_ROWS * RS + 2 * C * RS;
+    static constexpr size_t bytes = 2 * elems + 2 * C * sizeof(float);   // + lse and D of the walked rows
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+// D (16 x 8, fp32) += A (16 x 16, bf16) B (16 x 8, bf16); with g = lane / 4 and
+// i = lane % 4: A a0 (g, 2i..2i+1), a1 (g + 8, 2i..), a2 (g, 8 + 2i..),
+// a3 (g + 8, 8 + 2i..); B b0 (k 2i..2i+1, n g), b1 (k 8 + 2i.., n g);
+// D d0, d1 (g, 2i..2i+1), d2, d3 (g + 8, 2i..2i+1).
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Rows r0 .. r0 + n of a head's (s, hd) bf16 slice into shared memory (row
+// stride hd + 8), 16 bytes a load, zeros past `limit`.
+template <int HD>
+__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
+                                               long long s_stride, int r0, int n, int limit) {
+    constexpr int RS = HD + 8, V = HD / 8;
+    for (int idx = threadIdx.x; idx < n * V; idx += MMA_THREADS) {
+        const int r = idx / V, c = (idx % V) * 8;
+        const int row = r0 + r;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (row < limit) val = *reinterpret_cast<const uint4*>(src + row * s_stride + c);
+        *reinterpret_cast<uint4*>(dst + r * RS + c) = val;
+    }
+}
+
+// acc[j] = A[16 rows from a] . B[rows 8 j .. 8 j + 7 from b] over hd, for the
+// NT 16 x 8 tiles of A B^T; A and B (rows, hd) bf16 in shared memory.
+template <int HD, int NT>
+__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], uint32_t a, uint32_t b) {
+    constexpr int RS = HD + 8;
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD; kk += 16) {
+        uint32_t af[4];
+        ldsm_x4(af, a + 2 * ((lane % 16) * RS + kk + (lane / 16) * 8));
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+            uint32_t bf[4];   // b0, b1 of tile j, then of tile j + 1
+            ldsm_x4(bf, b + 2 * ((8 * j + (lane & 7) + (lane >> 4) * 8) * RS + kk +
+                                 ((lane >> 3) & 1) * 8));
+            mma16816(acc[j], af, bf[0], bf[1]);
+            mma16816(acc[j + 1], af, bf[2], bf[3]);
+        }
+    }
+}
+
+// out (16 x hd) += P (16 x C, bf16 A fragments) M (C x hd, row-major bf16 in
+// shared memory at m).
+template <int HD, int C>
+__device__ __forceinline__ void mma_pm(float (&out)[HD / 8][4], const uint32_t (&pa)[C / 16][4],
+                                       uint32_t m) {
+    constexpr int RS = HD + 8;
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int kk = 0; kk < C / 16; ++kk)
+#pragma unroll
+        for (int n = 0; n < HD / 8; n += 2) {
+            uint32_t bf[4];   // b0, b1 of column tile n, then of n + 1 (transposed loads)
+            ldsm_x4_t(bf, m + 2 * ((16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * RS + 8 * n +
+                                   (lane >> 4) * 8));
+            mma16816(out[n], pa[kk], bf[0], bf[1]);
+            mma16816(out[n + 1], pa[kk], bf[2], bf[3]);
+        }
+}
+
+// The accumulators of tiles 2 kk and 2 kk + 1 as the bf16 A fragment kk.
+template <int NT>
+__device__ __forceinline__ void to_a_frags(uint32_t (&pa)[NT / 2][4], const float (&acc)[NT][4]) {
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+        pa[kk][0] = pack_bf16(acc[2 * kk][0], acc[2 * kk][1]);
+        pa[kk][1] = pack_bf16(acc[2 * kk][2], acc[2 * kk][3]);
+        pa[kk][2] = pack_bf16(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
+        pa[kk][3] = pack_bf16(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
+    }
+}
+
+// A warp's 16 x hd accumulator rows (row0, row0 + 8) times `mul` to bf16 rows
+// of `dst` (head slice, row stride s) below `limit`.
+template <int HD>
+__device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* dst, long long s, int row0, int limit,
+                                                const float (&acc)[HD / 8][4], float mul) {
+    const int col = 2 * (threadIdx.x % 4);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row < limit) {
+#pragma unroll
+            for (int n = 0; n < HD / 8; ++n)
+                *reinterpret_cast<__nv_bfloat162*>(dst + row * s + 8 * n + col) =
+                    __floats2bfloat162_rn(acc[n][2 * r] * mul, acc[n][2 * r + 1] * mul);
+        }
+    }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Strides qs,
+                         Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs, int group,
+                         int hq, int sq, int skv, float sm_scale, int causal) {
+    using L = MmaSmem<HD>;
+    constexpr int C = L::C, NT = C / 8, RS = L::RS;
+    extern __shared__ __align__(16) __nv_bfloat16 smem_bf[];
+    __nv_bfloat16* Ks = smem_bf;
+    __nv_bfloat16* Vs = Ks + BWD_ROWS * RS;
+    __nv_bfloat16* Qs = Vs + BWD_ROWS * RS;
+    __nv_bfloat16* dOs = Qs + C * RS;
+    float* lse_s = reinterpret_cast<float*>(dOs + C * RS);
+    float* d_s = lse_s + C;
+
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int hk = blockIdx.y, b = blockIdx.z;
+    const int k0 = blockIdx.x * BWD_ROWS;
+    const int off = skv - sq;
+    load_rows_bf16<HD>(Ks, k + b * ks.b + hk * ks.h, ks.s, k0, BWD_ROWS, skv);
+    load_rows_bf16<HD>(Vs, v + b * vs.b + hk * vs.h, vs.s, k0, BWD_ROWS, skv);
+    const int row0 = k0 + 16 * warp + lane / 4;   // this thread's keys: row0, row0 + 8
+    const uint32_t k_frag = smem_u32(Ks + 16 * warp * RS);
+    const uint32_t v_frag = smem_u32(Vs + 16 * warp * RS);
+
+    float acc_k[HD / 8][4], acc_v[HD / 8][4];
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+    const int first_tile = causal ? max(0, k0 - off) / C : 0;
+    const int n_q_tiles = (sq + C - 1) / C;
+    for (int g = 0; g < group; ++g) {
+        const int h = hk * group + g;
+        const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
+        const __nv_bfloat16* dob = dout + b * dos.b + h * dos.h;
+        const long long rows0 = (static_cast<long long>(b) * hq + h) * sq;
+        for (int u = first_tile; u < n_q_tiles; ++u) {
+            const int c0 = u * C;
+            __syncthreads();   // every warp is done with the previous tile
+            load_rows_bf16<HD>(Qs, qb, qs.s, c0, C, sq);
+            load_rows_bf16<HD>(dOs, dob, dos.s, c0, C, sq);
+            for (int j = tid; j < C; j += MMA_THREADS) {
+                const bool in = c0 + j < sq;
+                lse_s[j] = in ? lse[rows0 + c0 + j] : 0.f;
+                d_s[j] = in ? delta[rows0 + c0 + j] : 0.f;
+            }
+            __syncthreads();
+
+            float s[NT][4], dp[NT][4];
+            mma_abt<HD, NT>(s, k_frag, smem_u32(Qs));    // S^T: keys x queries
+            mma_abt<HD, NT>(dp, v_frag, smem_u32(dOs));  // dP^T
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int k_pos = row0 + 8 * (e >> 1);
+                    const int qc = 8 * j + 2 * (lane % 4) + (e & 1);
+                    const int q_pos = c0 + qc;
+                    const bool valid = k_pos < skv && q_pos < sq && (!causal || q_pos + off >= k_pos);
+                    const float p = valid ? expf(fmaf(s[j][e], sm_scale, -lse_s[qc])) : 0.f;
+                    s[j][e] = p;
+                    dp[j][e] = p * (dp[j][e] - d_s[qc]);
+                }
+            uint32_t pa[NT / 2][4], da[NT / 2][4];
+            to_a_frags<NT>(pa, s);
+            to_a_frags<NT>(da, dp);
+            mma_pm<HD, C>(acc_v, pa, smem_u32(dOs));   // dV += P^T dO
+            mma_pm<HD, C>(acc_k, da, smem_u32(Qs));    // dK += dS^T Q
+        }
+    }
+    store_rows_bf16<HD>(dk + b * dks.b + hk * dks.h, dks.s, row0, skv, acc_k, sm_scale);
+    store_rows_bf16<HD>(dv + b * dvs.b + hk * dvs.h, dvs.s, row0, skv, acc_v, 1.f);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, Strides qs, Strides ks, Strides vs,
+                        Strides dos, Strides dqs, int group, int sq, int skv, int n_q_tiles,
+                        float sm_scale, int causal) {
+    using L = MmaSmem<HD>;
+    constexpr int C = L::C, NT = C / 8, RS = L::RS;
+    extern __shared__ __align__(16) __nv_bfloat16 smem_bf[];
+    __nv_bfloat16* Qs = smem_bf;
+    __nv_bfloat16* dOs = Qs + BWD_ROWS * RS;
+    __nv_bfloat16* Ks = dOs + BWD_ROWS * RS;
+    __nv_bfloat16* Vs = Ks + C * RS;
+
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int q_tile = n_q_tiles - 1 - static_cast<int>(blockIdx.x);   // heaviest first
+    const int h = blockIdx.y, b = blockIdx.z;
+    const int hk = h / group;
+    const int q0 = q_tile * BWD_ROWS;
+    const int off = skv - sq;
+    load_rows_bf16<HD>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, BWD_ROWS, sq);
+    load_rows_bf16<HD>(dOs, dout + b * dos.b + h * dos.h, dos.s, q0, BWD_ROWS, sq);
+    const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
+    const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
+    const int row0 = q0 + 16 * warp + lane / 4;   // this thread's queries: row0, row0 + 8
+    const long long rows0 = (static_cast<long long>(b) * gridDim.y + h) * sq;
+    float lse_r[2], d_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        lse_r[r] = row < sq ? lse[rows0 + row] : 0.f;
+        d_r[r] = row < sq ? delta[rows0 + row] : 0.f;
+    }
+    const uint32_t q_frag = smem_u32(Qs + 16 * warp * RS);
+    const uint32_t do_frag = smem_u32(dOs + 16 * warp * RS);
+
+    float acc[HD / 8][4];
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+    const int kv_end = causal ? min(skv, min(q0 + BWD_ROWS, sq) + off) : skv;
+    const int n_tiles = (kv_end + C - 1) / C;
+    for (int t = 0; t < n_tiles; ++t) {
+        const int k0 = t * C;
+        __syncthreads();   // every warp is done with the previous tile
+        load_rows_bf16<HD>(Ks, kb, ks.s, k0, C, skv);
+        load_rows_bf16<HD>(Vs, vb, vs.s, k0, C, skv);
+        __syncthreads();
+
+        float s[NT][4], dp[NT][4];
+        mma_abt<HD, NT>(s, q_frag, smem_u32(Ks));
+        mma_abt<HD, NT>(dp, do_frag, smem_u32(Vs));
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int q_pos = row0 + 8 * (e >> 1);
+                const int k_pos = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
+                const bool valid = q_pos < sq && k_pos < skv && (!causal || q_pos + off >= k_pos);
+                const float p = valid ? expf(fmaf(s[j][e], sm_scale, -lse_r[e >> 1])) : 0.f;
+                s[j][e] = p * (dp[j][e] - d_r[e >> 1]);
+            }
+        uint32_t da[NT / 2][4];
+        to_a_frags<NT>(da, s);
+        mma_pm<HD, C>(acc, da, smem_u32(Ks));   // dQ += dS K
+    }
+    store_rows_bf16<HD>(dq + b * dqs.b + h * dqs.h, dqs.s, row0, sq, acc, sm_scale);
+}
+
+// The backward's launch plan (kernels/flash_attention.py, `FlashBwdPlan.as_array`),
+// int64: [0] route (0 = CUDA cores, 1 = mma), [1] rows a block owns (64), [2] C,
+// [3] threads, [4..6] the dQ grid, [7..9] the dK/dV grid, [10] dynamic shared
+// memory bytes, [11] D-pass blocks.
+constexpr int BWD_PLAN_LEN = 12;
+
+struct BwdArgs {
+    const void *q, *k, *v, *o, *dout;
+    const float* lse;
+    float* delta;
+    void *dq, *dk, *dv;
+    Strides qs, ks, vs, os, dos, dqs, dks, dvs;
+    int b, hq, hkv, sq, skv, hd;
+    float sm_scale;
+    int causal;
+};
+
+// The plan must describe the kernels built for this route and HD.
+bool bwd_plan_ok(const long long* plan, const BwdArgs& a, int route, int cols, int threads,
+                 size_t smem) {
+    const long long rows = static_cast<long long>(a.b) * a.hq * a.sq;
+    return plan[0] == route && plan[1] == BWD_ROWS && plan[2] == cols && plan[3] == threads &&
+           plan[4] == (a.sq + BWD_ROWS - 1) / BWD_ROWS && plan[5] == a.hq && plan[6] == a.b &&
+           plan[7] == (a.skv + BWD_ROWS - 1) / BWD_ROWS && plan[8] == a.hkv && plan[9] == a.b &&
+           plan[10] == static_cast<long long>(smem) && plan[11] == (rows + DOT_ROWS - 1) / DOT_ROWS &&
+           plan[11] <= 2147483647LL;
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(bytes));
+}
+
+template <typename T>
+cudaError_t launch_dot(const BwdArgs& a, const long long* plan, cudaStream_t stream) {
+    flash_bwd_dot_kernel<T><<<static_cast<unsigned>(plan[11]), 32 * DOT_ROWS, 0, stream>>>(
+        static_cast<const T*>(a.dout), static_cast<const T*>(a.o), a.delta, a.dos, a.os, a.hq,
+        a.sq, a.hd, static_cast<long long>(a.b) * a.hq * a.sq);
+    return cudaGetLastError();
+}
+
+template <typename T, int HD>
+int launch_bwd(const BwdArgs& a, const long long* plan, cudaStream_t stream) {
+    using L = BwdSmem<HD>;
+    if (!bwd_plan_ok(plan, a, 0, L::C, BWD_THREADS, L::bytes)) return cudaErrorInvalidValue;
+    auto dkv = flash_bwd_dkv_kernel<T, HD>;
+    auto dq = flash_bwd_dq_kernel<T, HD>;
+    cudaError_t err = allow_smem(dkv, L::bytes);
+    if (err == cudaSuccess) err = allow_smem(dq, L::bytes);
+    if (err == cudaSuccess) err = launch_dot<T>(a, plan, stream);
+    if (err != cudaSuccess) return err;
+    const T* q = static_cast<const T*>(a.q);
+    const T* k = static_cast<const T*>(a.k);
+    const T* v = static_cast<const T*>(a.v);
+    const T* dout = static_cast<const T*>(a.dout);
+    dkv<<<dim3(plan[7], a.hkv, a.b), BWD_THREADS, L::bytes, stream>>>(
+        q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.qs, a.ks,
+        a.vs, a.dos, a.dks, a.dvs, a.hq / a.hkv, a.hq, a.sq, a.skv, a.sm_scale, a.causal);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    dq<<<dim3(plan[4], a.hq, a.b), BWD_THREADS, L::bytes, stream>>>(
+        q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq), a.qs, a.ks, a.vs, a.dos, a.dqs,
+        a.hq / a.hkv, a.sq, a.skv, static_cast<int>(plan[4]), a.sm_scale, a.causal);
+    return cudaGetLastError();
+}
+
+template <int HD>
+int launch_bwd_mma(const BwdArgs& a, const long long* plan, cudaStream_t stream) {
+    using L = MmaSmem<HD>;
+    using B = __nv_bfloat16;
+    if (!bwd_plan_ok(plan, a, 1, L::C, MMA_THREADS, L::bytes)) return cudaErrorInvalidValue;
+    auto dkv = flash_bwd_dkv_mma_kernel<HD>;
+    auto dq = flash_bwd_dq_mma_kernel<HD>;
+    cudaError_t err = allow_smem(dkv, L::bytes);
+    if (err == cudaSuccess) err = allow_smem(dq, L::bytes);
+    if (err == cudaSuccess) err = launch_dot<B>(a, plan, stream);
+    if (err != cudaSuccess) return err;
+    const B* q = static_cast<const B*>(a.q);
+    const B* k = static_cast<const B*>(a.k);
+    const B* v = static_cast<const B*>(a.v);
+    const B* dout = static_cast<const B*>(a.dout);
+    dkv<<<dim3(plan[7], a.hkv, a.b), MMA_THREADS, L::bytes, stream>>>(
+        q, k, v, dout, a.lse, a.delta, static_cast<B*>(a.dk), static_cast<B*>(a.dv), a.qs, a.ks,
+        a.vs, a.dos, a.dks, a.dvs, a.hq / a.hkv, a.hq, a.sq, a.skv, a.sm_scale, a.causal);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    dq<<<dim3(plan[4], a.hq, a.b), MMA_THREADS, L::bytes, stream>>>(
+        q, k, v, dout, a.lse, a.delta, static_cast<B*>(a.dq), a.qs, a.ks, a.vs, a.dos, a.dqs,
+        a.hq / a.hkv, a.sq, a.skv, static_cast<int>(plan[4]), a.sm_scale, a.causal);
+    return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_bwd(const BwdArgs& a, const long long* plan, cudaStream_t stream) {
+    switch (a.hd) {
+        case 16: return launch_bwd<T, 16>(a, plan, stream);
+        case 32: return launch_bwd<T, 32>(a, plan, stream);
+        case 64: return launch_bwd<T, 64>(a, plan, stream);
+        case 80: return launch_bwd<T, 80>(a, plan, stream);
+        case 128: return launch_bwd<T, 128>(a, plan, stream);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+int dispatch_bwd_mma(const BwdArgs& a, const long long* plan, cudaStream_t stream) {
+    switch (a.hd) {
+        case 16: return launch_bwd_mma<16>(a, plan, stream);
+        case 32: return launch_bwd_mma<32>(a, plan, stream);
+        case 64: return launch_bwd_mma<64>(a, plan, stream);
+        case 80: return launch_bwd_mma<80>(a, plan, stream);
+        case 128: return launch_bwd_mma<128>(a, plan, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -957,11 +1687,14 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, St
 
 // dtype codes: 0 = float32, 1 = bfloat16.  `strides` holds (batch, head, seq)
 // element strides of q, k, v, o in that order (12 values); the head_dim stride
-// is 1.  `plan`: see PLAN_OPERANDS above.  Returns 0 when launched, else a
+// is 1.  `lse`: null, or a contiguous (b, hq, sq) fp32 buffer that receives each
+// row's natural-log sum of exp(sm_scale q k^T) over its visible keys (the
+// backward's input; the serving calls pass null and nothing is written).
+// `plan`: see PLAN_OPERANDS above.  Returns 0 when launched, else a
 // cudaError_t, or ENCODE_FAILED + the CUresult of a failed tensor-map encode.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int b, int hq, int hkv, int sq, int skv, int hd,
-                                   const long long* strides, float sm_scale, int causal,
+                                   float* lse, int dtype, int b, int hq, int hkv, int sq, int skv,
+                                   int hd, const long long* strides, float sm_scale, int causal,
                                    const long long* plan, void* stream) {
     if (b <= 0 || hq <= 0 || hkv <= 0 || sq <= 0 || skv <= 0 || hq % hkv != 0 ||
         hq > 65535 || b > 65535) {
@@ -976,18 +1709,53 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     if (plan[0] == 1) {
         if (dtype != 1 || !rows_16_byte_aligned(ptrs, strides)) return cudaErrorInvalidValue;
         switch (hd) {
-            case 16: return launch_wgmma<16>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
-            case 32: return launch_wgmma<32>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
-            case 64: return launch_wgmma<64>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
-            case 80: return launch_wgmma<80>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
-            case 128: return launch_wgmma<128>(q, k, v, o, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 16: return launch_wgmma<16>(q, k, v, o, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 32: return launch_wgmma<32>(q, k, v, o, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 64: return launch_wgmma<64>(q, k, v, o, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 80: return launch_wgmma<80>(q, k, v, o, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 128: return launch_wgmma<128>(q, k, v, o, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
             default: return cudaErrorInvalidValue;
         }
     }
     if (plan[0] != 0) return cudaErrorInvalidValue;
     if (dtype == 0)
-        return dispatch_hd<float>(hd, q, k, v, o, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+        return dispatch_hd<float>(hd, q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
     if (dtype == 1)
-        return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+        return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
     return cudaErrorInvalidValue;
+}
+
+// dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, o, dout and the gradients
+// share it).  `strides` holds (batch, head, seq) element strides of q, k, v,
+// o, dout, dq, dk, dv in that order (24 values); the head_dim stride is 1.
+// `lse`: the forward's (b, hq, sq) fp32 log-sum-exp; `delta`: a (b, hq, sq)
+// fp32 workspace for D.  `plan`: see BWD_PLAN_LEN above (route 1, the tensor
+// cores, takes bf16 whose rows are 16-byte aligned).  Returns 0 when the three
+// kernels were launched, else a cudaError_t.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                                   const void* dout, const float* lse, float* delta, void* dq,
+                                   void* dk, void* dv, int dtype, int b, int hq, int hkv, int sq,
+                                   int skv, int hd, const long long* strides, float sm_scale,
+                                   int causal, const long long* plan, void* stream) {
+    if (b <= 0 || hq <= 0 || hkv <= 0 || sq <= 0 || skv <= 0 || hq % hkv != 0 || hq > 65535 ||
+        b > 65535 || (causal && sq > skv))
+        return static_cast<int>(cudaErrorInvalidValue);
+    auto st = [&](int i) { return Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]}; };
+    const BwdArgs a{q, k, v, o, dout, lse, delta, dq, dk, dv,
+                    st(0), st(1), st(2), st(3), st(4), st(5), st(6), st(7),
+                    b, hq, hkv, sq, skv, hd, sm_scale, causal};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (plan[0] == 1) {   // the mma route: bf16 rows in 16-byte pieces, bf16 pairs stored
+        const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
+        for (int i = 0; i < 8; ++i)
+            if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return cudaErrorInvalidValue;
+        for (int i = 0; i < 24; ++i)
+            if (strides[i] % 8 != 0) return cudaErrorInvalidValue;
+        if (dtype != 1) return cudaErrorInvalidValue;
+        return dispatch_bwd_mma(a, plan, s);
+    }
+    if (plan[0] != 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype == 0) return dispatch_bwd<float>(a, plan, s);
+    if (dtype == 1) return dispatch_bwd<__nv_bfloat16>(a, plan, s);
+    return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,5 @@
-"""Wrapper of the CUDA flash-attention forward kernels
-(``csrc/flash_attention.cu``).
+"""Wrappers of the CUDA flash-attention kernels (``csrc/flash_attention.cu``):
+the forward, which can also write each row's log-sum-exp, and the backward.
 
 Counterpart of the reference's Pallas ``kernels/flash_attention.py``, with its
 public layout: ``q (b, hq, sq, hd)``, ``k/v (b, hkv, skv, hd)`` ->
@@ -15,6 +15,13 @@ tile sizes, grid and dynamic shared memory, and for the ``wgmma`` route each
 operand's 4-D tensor map (dims, byte strides, boxes, head-dim slabs and their
 swizzle).  The C entry point validates the plan against the kernel it built
 and encodes the tensor maps.  ``launches`` counts kernel launches.
+
+The backward (``flash_attention_bwd_cuda``: dq, dk, dv from q, k, v, the
+forward's out and lse, and dout) is three kernels a call -- D = rowsum(dO *
+O), then dK/dV and dQ, each recomputing P -- on the tensor cores
+(``mma.sync``) for bf16 whose rows are 16-byte aligned and on the CUDA cores
+for everything else; ``flash_bwd_plan`` fixes its route, tiles, grids and
+shared memory and ``bwd_launches`` counts its calls.
 """
 
 from __future__ import annotations
@@ -40,8 +47,13 @@ WGMMA_STAGES = 3                # K/V tiles in flight
 CORE_BM, CORE_THREADS = 64, 256  # the CUDA-core kernel's query tile and block
 ENCODE_FAILED = 10000           # the C side's code for a failed tensor-map encode
 PLAN_LEN = 9 + 3 * 16
+BWD_ROWS = 64                   # the backward's block: 64 queries (dQ) or keys (dK/dV)
+BWD_THREADS = {"cuda_cores": 256, "mma": 128}   # 16 x 16 micro-tiles; four warps of 16 rows
+BWD_ROUTES = ("cuda_cores", "mma")  # index = the route's code in the plan
+DOT_ROWS = 8                    # rows of D = rowsum(dO * O) per block, a warp each
 
 launches = 0
+bwd_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,11 +138,55 @@ def flash_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Ten
                      grid=(-(-sq // CORE_BM), hq, b), smem_bytes=4 * floats)
 
 
+@dataclasses.dataclass(frozen=True)
+class FlashBwdPlan:
+    route: str
+    rows: int                        # queries (dQ) or keys (dK/dV) a block owns
+    cols: int                        # keys or queries of the tiles it walks
+    threads: int
+    grid_dq: tuple[int, int, int]    # (query tiles, q heads, batch)
+    grid_dkv: tuple[int, int, int]   # (key tiles, kv heads, batch)
+    smem_bytes: int                  # either kernel's dynamic shared memory
+    dot_blocks: int                  # blocks of the D pass
+
+    def as_array(self):
+        """The int64 layout the C entry point reads (``BWD_PLAN_LEN``)."""
+        values = [BWD_ROUTES.index(self.route), self.rows, self.cols, self.threads,
+                  *self.grid_dq, *self.grid_dkv, self.smem_bytes, self.dot_blocks]
+        return (ctypes.c_longlong * len(values))(*values)
+
+
+def flash_bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                   dout: torch.Tensor, dq: torch.Tensor, dk: torch.Tensor,
+                   dv: torch.Tensor) -> FlashBwdPlan:
+    """The launch of ``flash_attention_bwd`` for q (b, hq, sq, hd), k/v (b,
+    hkv, skv, hd), the forward's out, dout and the gradients it writes.  Pure:
+    reads dtypes, shapes, strides and addresses only."""
+    b, hq, sq, hd = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    cols = 32 if hd >= 128 else 64   # walked rows per tile (registers at hd 128)
+    tensors = (q, k, v, out, dout, dq, dk, dv)
+    if q.dtype == torch.bfloat16 and rows_16_byte_aligned(tensors):
+        # four bf16 tiles with rows of hd + 8, and lse and D of the walked rows
+        route, smem = "mma", 2 * (2 * BWD_ROWS + 2 * cols) * (hd + 8) + 8 * cols
+    else:
+        # two (64, hd) and two (cols, hd) fp32 tiles with padded rows, the
+        # (64, cols) P / dS tile, and lse and D of the walked rows
+        route = "cuda_cores"
+        smem = 4 * (2 * BWD_ROWS * (hd + 4) + 2 * cols * (hd + 4) + BWD_ROWS * (cols + 4) + 2 * cols)
+    return FlashBwdPlan(
+        route=route, rows=BWD_ROWS, cols=cols, threads=BWD_THREADS[route],
+        grid_dq=(-(-sq // BWD_ROWS), hq, b), grid_dkv=(-(-skv // BWD_ROWS), hkv, b),
+        smem_bytes=smem, dot_blocks=-(-(b * hq * sq) // DOT_ROWS),
+    )
+
+
 @functools.cache
 def _fn():
     fn = _build.load("flash_attention").flash_attention_fwd
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k v o
+        ctypes.c_void_p,                                                     # lse or null
         ctypes.c_int,                                                        # dtype
         ctypes.c_int, ctypes.c_int, ctypes.c_int,                            # b hq hkv
         ctypes.c_int, ctypes.c_int, ctypes.c_int,                            # sq skv hd
@@ -168,24 +224,36 @@ def _dense_like(t: torch.Tensor) -> torch.Tensor:
     return out if out.stride(-1) == 1 else torch.empty(t.shape, dtype=t.dtype, device=t.device)
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True) -> torch.Tensor:
-    global launches
+def _check_cuda(what: str, tensors, causal: bool) -> None:
+    """The device, dtype and head-dim rules of the forward and backward
+    kernels (``tensors`` start with q, k, v)."""
+    q, k, v = tensors[:3]
     check_shapes(q, k, v, causal)
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError(f"flash_attention_cuda needs CUDA tensors on one device, got "
-                         f"{q.device}, {k.device}, {v.device}")
-    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention_cuda takes float32/bfloat16 of one type, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError(f"{what} needs CUDA tensors on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if q.dtype not in DTYPE_CODES or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError(f"{what} takes float32/bfloat16 of one type, got "
+                        f"{[t.dtype for t in tensors]}")
     b, hq, sq, hd = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not built; the kernel has {HEAD_DIMS}")
-    if min(b, hq, sq, skv) < 1:
+    if min(b, hq, sq, k.shape[2]) < 1:
         raise ValueError(f"empty attention problem: q {tuple(q.shape)}, k {tuple(k.shape)}")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True, with_lse: bool = False):
+    """out (b, hq, sq, hd) in q's dtype and memory layout; with ``with_lse``,
+    ``(out, lse)`` with lse the (b, hq, sq) fp32 log-sum-exp the backward
+    takes.  Storing lse leaves out's rounding as it is."""
+    global launches
+    _check_cuda("flash_attention_cuda", (q, k, v), causal)
+    b, hq, sq, hd = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = _dense_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse else None
     plan = flash_plan(q, k, v, out)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3])
@@ -193,6 +261,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         err = _fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             DTYPE_CODES[q.dtype], b, hq, hkv, sq, skv, hd, strides,
             1.0 / math.sqrt(hd), int(causal), plan.as_array(),
             torch.cuda.current_stream().cuda_stream,
@@ -203,4 +272,64 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash attention kernel ({plan.route}) launch failed ({what}) for "
                            f"q {tuple(q.shape)}, k {tuple(k.shape)} {q.dtype}")
     launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+@functools.cache
+def _bwd_fn():
+    fn = _build.load("flash_attention").flash_attention_bwd
+    fn.argtypes = [
+        *[ctypes.c_void_p] * 5,                   # q k v o dout
+        ctypes.c_void_p, ctypes.c_void_p,         # lse, the D workspace
+        *[ctypes.c_void_p] * 3,                   # dq dk dv
+        ctypes.c_int,                             # dtype
+        *[ctypes.c_int] * 6,                      # b hq hkv sq skv hd
+        ctypes.POINTER(ctypes.c_longlong),        # strides
+        ctypes.c_float, ctypes.c_int,             # scale causal
+        ctypes.POINTER(ctypes.c_longlong),        # plan
+        ctypes.c_void_p,                          # stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                             causal: bool = True
+                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv), each in its input's shape, dtype and memory layout, from
+    the forward's out and lse (``flash_attention_cuda(..., with_lse=True)``)
+    and the gradient ``dout`` of out.  Any tensor whose head dim is
+    contiguous is read through its strides (dout may be a transposed view)."""
+    global bwd_launches
+    _check_cuda("flash_attention_bwd_cuda", (q, k, v, out, dout), causal)
+    b, hq, sq, hd = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} must have q's "
+                         f"shape {tuple(q.shape)}")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse must be (b, hq, sq) = {(b, hq, sq)} float32 on {q.device}, got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    q, k, v, out, dout = (t if t.stride(-1) == 1 else t.contiguous()
+                          for t in (q, k, v, out, dout))
+    lse = lse.contiguous()
+    dq, dk, dv = _dense_like(q), _dense_like(k), _dense_like(v)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    plan = flash_bwd_plan(q, k, v, out, dout, dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(
+        *(s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3])
+    )
+    with torch.cuda.device(q.device):
+        err = _bwd_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            DTYPE_CODES[q.dtype], b, hq, hkv, sq, skv, hd, strides,
+            1.0 / math.sqrt(hd), int(causal), plan.as_array(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash attention backward ({plan.route}) launch failed (cudaError {err}) for "
+                           f"q {tuple(q.shape)}, k {tuple(k.shape)} {q.dtype}")
+    bwd_launches += 1
+    return dq, dk, dv

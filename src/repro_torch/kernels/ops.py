@@ -6,6 +6,14 @@ Dispatch is on the tensor's device and on nothing else: a CUDA tensor launches
 the hand-written kernel or raises, a CPU tensor takes the plain PyTorch
 version in ``kernels.ref``.  There is no option that hands back the plain
 version for a CUDA tensor and no ``try`` around the build or the launch.
+
+Where autograd will need a gradient, ``rmsnorm`` and ``flash_attention`` run
+as ``torch.autograd.Function``s whose backward is the hand-written backward
+kernel on a CUDA tensor and the plain analytic backward (``ref.*_bwd_ref``) on
+a CPU tensor; the flash forward then also returns the log-sum-exp the backward
+takes.  Otherwise they call the forward alone, as serving does.  The SSD scan
+has no backward kernel yet, so on a CUDA tensor that requires grad it raises
+rather than return a result that would cut the graph.
 """
 
 from __future__ import annotations
@@ -18,17 +26,68 @@ from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import ssd_chunk as _ssd
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """x: (..., d) -> same shape and dtype; fp32 statistics."""
+def _records_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     if x.is_cuda:
         return _rms.rmsnorm_cuda(x, scale, eps)
     return ref.rmsnorm_ref(x, scale, eps)
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, scale)
+        return _rmsnorm_fwd(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        if dy.is_cuda:
+            dx, dscale = _rms.rmsnorm_bwd_cuda(x, scale, dy, ctx.eps)
+        else:
+            dx, dscale = ref.rmsnorm_bwd_ref(x, scale, dy, ctx.eps)
+        return dx, dscale.to(scale.dtype), None
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """x: (..., d) -> same shape and dtype; fp32 statistics."""
+    if _records_grad(x, scale):
+        return _RMSNorm.apply(x, scale, eps)
+    return _rmsnorm_fwd(x, scale, eps)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        if q.is_cuda:
+            out, lse = _fa.flash_attention_cuda(q, k, v, causal, with_lse=True)
+        else:
+            _fa.check_shapes(q, k, v, causal)
+            out, lse = ref.flash_attention_lse_ref(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.is_cuda:
+            grads = _fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, ctx.causal)
+        else:
+            grads = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, ctx.causal)
+        return (*grads, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q: (b, hq, sq, hd); k/v: (b, hkv, skv, hd) -> (b, hq, sq, hd).
     ``causal`` with ``sq > skv`` is rejected on every device."""
+    if _records_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal)
     if q.is_cuda:
         return _fa.flash_attention_cuda(q, k, v, causal)
     _fa.check_shapes(q, k, v, causal)
@@ -40,20 +99,28 @@ def ssd_chunk_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: torch.
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (b, H, s, P); B/C: (b, H, s, N); dt/loga: (b, H, s), fp32 ->
     (y (b, H, s, P) in ``out_dtype`` or x.dtype, S_final (b, H, P, N) fp32).
-    ``s`` must be a multiple of ``min(chunk, s)`` on every device."""
+    ``s`` must be a multiple of ``min(chunk, s)`` on every device.  A CUDA
+    input that requires grad raises: the kernel has no backward yet."""
     if x.is_cuda:
+        if _records_grad(x, B, C, dt, loga):
+            raise NotImplementedError(
+                "ssd_chunk_scan has no backward kernel yet, and its CUDA forward would cut the "
+                "autograd graph; the SSD backward comes with zamba2's training, the next slice "
+                "in ROADMAP.md ('Next, in order')")
         return _ssd.ssd_chunk_scan_cuda(x, B, C, dt, loga, chunk, out_dtype)
     chunk = _ssd.check_shapes(x, B, C, dt, loga, chunk)
     return ref.ssd_chunk_scan_ref(x, B, C, dt, loga, chunk, out_dtype)
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches since the last reset, by kernel name."""
+    """Kernel launches since the last reset, by kernel name (a backward
+    counts one per call of its wrapper)."""
     return {"rmsnorm": _rms.launches, "flash_attention": _fa.launches,
-            "ssd_chunk_scan": _ssd.launches}
+            "ssd_chunk_scan": _ssd.launches, "rmsnorm_bwd": _rms.bwd_launches,
+            "flash_attention_bwd": _fa.bwd_launches}
 
 
 def reset_launch_counts() -> None:
-    _rms.launches = 0
-    _fa.launches = 0
+    _rms.launches = _rms.bwd_launches = 0
+    _fa.launches = _fa.bwd_launches = 0
     _ssd.launches = 0

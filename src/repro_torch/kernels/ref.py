@@ -13,21 +13,70 @@ import math
 import torch
 
 
+def _by_q_head(t: torch.Tensor, hq: int) -> torch.Tensor:
+    """k or v (b, hkv, s, hd) repeated to hq heads (GQA by grouping), fp32."""
+    return t.repeat_interleave(hq // t.shape[1], dim=1).float()
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """fp32 q k^T / sqrt(hd), (b, hq, sq, skv), -inf where the causal mask hides
+    a key (query i sees keys j <= i + (skv - sq))."""
+    sq, skv = q.shape[2], k.shape[2]
+    kq = _by_q_head(k, q.shape[1])
+    scores = torch.matmul(q.float(), kq.transpose(-1, -2)) / math.sqrt(q.shape[3])
+    if causal:
+        mask = torch.ones(sq, skv, dtype=torch.bool, device=q.device).tril(skv - sq)
+        scores = scores.masked_fill(~mask, float("-inf"))
+    return scores
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True) -> torch.Tensor:
     """q: (b, hq, sq, hd); k/v: (b, hkv, skv, hd); GQA by head grouping.
     fp32 softmax, output in q.dtype."""
+    probs = torch.softmax(_scores(q, k, causal), dim=-1)
+    return torch.matmul(probs, _by_q_head(v, q.shape[1])).to(q.dtype)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            causal: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Port-only: :func:`flash_attention_ref` and the log-sum-exp the
+    backward needs.  ``lse`` is ``(b, hq, sq)`` fp32, the natural log of the sum
+    of ``exp(qk^T / sqrt(hd))`` over the keys each query sees."""
+    scores = _scores(q, k, causal)
+    out = torch.matmul(torch.softmax(scores, dim=-1), _by_q_head(v, q.shape[1]))
+    return out.to(q.dtype), torch.logsumexp(scores, dim=-1)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                            causal: bool = True
+                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Port-only: the analytic gradient of :func:`flash_attention_ref` with
+    respect to q, k and v, given the forward's ``out`` and ``lse`` and the
+    gradient ``dout`` of its output.  In fp32: ``P = exp(s qk^T - lse)``
+    (0 where masked), ``dV = P^T dO``, ``dP = dO V^T``, ``D = rowsum(dO * O)``,
+    ``dS = P (dP - D)``, ``dQ = s dS K``, ``dK = s dS^T Q`` with s = 1/sqrt(hd);
+    dK and dV of a kv head are summed over its group of query heads.  Each
+    gradient in its input's dtype."""
     b, hq, sq, hd = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
-    kq = k.repeat_interleave(group, dim=1).float()
-    vq = v.repeat_interleave(group, dim=1).float()
-    scores = torch.matmul(q.float(), kq.transpose(-1, -2)) / math.sqrt(hd)
-    if causal:
-        mask = torch.ones(sq, skv, dtype=torch.bool, device=q.device).tril(skv - sq)
-        scores = scores.masked_fill(~mask, float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
-    return torch.matmul(probs, vq).to(q.dtype)
+    scale = 1.0 / math.sqrt(hd)
+    q32, do32 = q.float(), dout.float()
+    kq = _by_q_head(k, hq)
+    p = torch.exp(_scores(q, k, causal) - lse[..., None])   # exp(-inf) = 0 where masked
+    dv = torch.matmul(p.transpose(-1, -2), do32)
+    dp = torch.matmul(do32, _by_q_head(v, hq).transpose(-1, -2))
+    delta = (do32 * out.float()).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, kq) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q32) * scale
+
+    def by_kv_head(t: torch.Tensor) -> torch.Tensor:
+        return t.reshape(b, hkv, group, skv, hd).sum(dim=2)
+
+    return dq.to(q.dtype), by_kv_head(dk).to(k.dtype), by_kv_head(dv).to(v.dtype)
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -35,6 +84,20 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torc
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """Port-only: the analytic gradient of :func:`rmsnorm_ref` with respect to
+    x and scale, given the gradient ``dy`` of its output.  With ``r =
+    rsqrt(mean(x^2) + eps)`` in fp32 statistics and ``g = dy * scale``:
+    ``dx = r g - x r^3 mean(g x)`` in x.dtype, ``dscale = sum over rows of
+    dy x r`` in fp32."""
+    x32, g = x.float(), dy.float() * scale.float()
+    r = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    dx = r * g - x32 * (r * r * r) * (g * x32).mean(dim=-1, keepdim=True)
+    dscale = (dy.float() * x32 * r).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dscale
 
 
 def ssd_chunk_ref(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Wrapper of the CUDA RMSNorm kernels (``csrc/rmsnorm.cu``).
+"""Wrappers of the CUDA RMSNorm kernels (``csrc/rmsnorm.cu``): the forward
+and the backward.
 
 Counterpart of the reference's Pallas ``kernels/rmsnorm.py``.  ``rmsnorm_plan``
 chooses the route from what it can see of the tensors: ``"registers"`` (one
@@ -10,6 +11,12 @@ what the kernels take, allocates the output, launches on PyTorch's current
 stream and raises if the launch was refused.  It does not synchronise.
 ``launches`` counts kernel launches (and nothing else), so a run can show that
 it went through the kernel.
+
+The backward (``rmsnorm_bwd_cuda``, dx and an fp32 dscale) takes its route by
+the forward's rule, so each row's statistics are summed in the forward's
+order; ``rmsnorm_bwd_plan`` also fixes the grid of blocks whose per-block
+partial dscale rows a second kernel sums in order.  ``bwd_launches`` counts
+its calls (two kernels each).
 """
 
 from __future__ import annotations
@@ -29,8 +36,12 @@ ROUTES = ("block", "registers")   # index = the route's code in the C interface
 # 3072 -> 12, 4096 -> 16, 6144 -> 24).  A row takes the smallest that covers it.
 VECTORS_PER_LANE = (2, 4, 9, 10, 12, 16, 24)
 N_SM = 132   # streaming multiprocessors of an H100 SXM
+MAX_THREADS = 512           # the block route's largest block
+BWD_BLOCKS = 2 * N_SM       # blocks that walk the rows in the backward, at most
+MAX_BWD_WIDTH = 32768       # the block route keeps a row's dscale partials in shared memory
 
 launches = 0
+bwd_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +60,31 @@ def rmsnorm_plan(x: torch.Tensor, scale: torch.Tensor, out: torch.Tensor) -> RMS
             and d <= 256 * VECTORS_PER_LANE[-1]):
         return RMSNormPlan("registers", next(v for v in VECTORS_PER_LANE if 256 * v >= d))
     return RMSNormPlan("block")
+
+
+@dataclasses.dataclass(frozen=True)
+class RMSNormBwdPlan:
+    route: str
+    vectors_per_lane: int   # on the register route, as the forward's
+    blocks: int             # blocks walking the rows; rows of the dscale workspace
+    threads: int            # the block route's block: the forward's for this row (0 on "registers")
+
+
+def rmsnorm_bwd_plan(x: torch.Tensor, scale: torch.Tensor, dx: torch.Tensor) -> RMSNormBwdPlan:
+    """The launch of ``rmsnorm_bwd`` (x, dy and dx contiguous, dy 16-byte
+    aligned: the wrapper copies one that is not).  The route and the block
+    route's threads are the forward's for x (``rmsnorm_plan`` with dx in the
+    place of out), so that r is summed in the forward's order."""
+    d = x.shape[-1]
+    rows = x.numel() // d
+    fwd = rmsnorm_plan(x, scale, dx)
+    if fwd.route == "registers":
+        return RMSNormBwdPlan("registers", fwd.vectors_per_lane, min(-(-rows // 4), BWD_BLOCKS), 0)
+    vec = 16 // x.element_size()
+    aligned = d % vec == 0 and all(t.data_ptr() % 16 == 0 for t in (x, dx))
+    vectors = -(-d // (vec if aligned else 1))   # a thread per vector, in whole warps
+    threads = min(MAX_THREADS, -(-vectors // 32) * 32)
+    return RMSNormBwdPlan("block", 0, min(rows, BWD_BLOCKS), threads)
 
 
 @functools.cache
@@ -93,3 +129,59 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> tor
                            f"x {tuple(x.shape)} {x.dtype}")
     launches += 1
     return out
+
+
+@functools.cache
+def _bwd_fn():
+    fn = _build.load("rmsnorm").rmsnorm_bwd
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # x, scale, dy, dx
+        ctypes.c_void_p, ctypes.c_void_p,                                      # dscale, partials
+        ctypes.c_int, ctypes.c_int,                                            # dtype codes
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_float,                       # rows, d, eps
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,                # route, vpl, blocks, threads
+        ctypes.c_void_p,                                                       # stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                     eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of ``rmsnorm_cuda(x, scale, eps)`` given ``dy``: (dx in
+    x's dtype, dscale (d,) fp32).  dy takes x's shape and dtype."""
+    global bwd_launches
+    if not (x.is_cuda and scale.device == x.device and dy.device == x.device):
+        raise ValueError(f"rmsnorm_bwd_cuda needs CUDA tensors on one device, got {x.device}, "
+                         f"{scale.device}, {dy.device}")
+    if x.dtype not in DTYPE_CODES or scale.dtype not in DTYPE_CODES or dy.dtype != x.dtype:
+        raise TypeError(f"rmsnorm_bwd_cuda takes float32/bfloat16 x and dy of one type, got "
+                        f"x {x.dtype}, dy {dy.dtype}, scale {scale.dtype}")
+    if x.dim() < 1 or scale.shape != (x.shape[-1],) or dy.shape != x.shape:
+        raise ValueError(f"x {tuple(x.shape)}, scale {tuple(scale.shape)}, dy {tuple(dy.shape)} "
+                         "do not match")
+    d = x.shape[-1]
+    if x.numel() == 0 or d > MAX_BWD_WIDTH:
+        raise ValueError(f"rmsnorm_bwd_cuda takes 1 .. {MAX_BWD_WIDTH} columns and some rows, "
+                         f"got x {tuple(x.shape)}")
+    x = x.contiguous()
+    scale = scale.contiguous()
+    dy = dy.contiguous()
+    if dy.data_ptr() % 16:   # a copy is aligned: the route then follows x alone
+        dy = dy.clone()
+    dx = torch.empty_like(x)
+    plan = rmsnorm_bwd_plan(x, scale, dx)
+    dscale = torch.empty(d, dtype=torch.float32, device=x.device)
+    partials = torch.empty((plan.blocks, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _bwd_fn()(
+            x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+            partials.data_ptr(), DTYPE_CODES[x.dtype], DTYPE_CODES[scale.dtype],
+            x.numel() // d, d, float(eps), ROUTES.index(plan.route), plan.vectors_per_lane,
+            plan.blocks, plan.threads, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"rmsnorm backward ({plan.route}) launch failed (cudaError {err}) for "
+                           f"x {tuple(x.shape)} {x.dtype}")
+    bwd_launches += 1
+    return dx, dscale

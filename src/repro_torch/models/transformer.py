@@ -1,12 +1,14 @@
 """Decoder-only transformer LM, dense family (granite / minicpm / glm4 /
-phi4): the serving half of the reference's ``models/transformer.py``.
+phi4): the reference's ``models/transformer.py`` for training (``forward``,
+``loss``) and serving.
 
 Functional, like the reference: ``DecoderLM`` holds the configuration, the
 options and the device; parameters and caches are explicit dictionaries of
 tensors.  Layers are a Python list walked by a Python loop (the reference
-stacks them on a leading axis for ``lax.scan``).  KV caches and page pools are
-updated in place and returned.  ``forward``/``loss`` belong to the training
-slice (ROADMAP queue A, item 2).
+stacks them on a leading axis for ``lax.scan``), each under
+``torch.utils.checkpoint`` when ``remat`` is on and autograd is recording (the
+reference's per-layer ``jax.checkpoint``).  KV caches and page pools are
+updated in place and returned.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -37,10 +41,14 @@ def resolve_device(device: torch.device | str) -> torch.device:
 class ModelOptions:
     """Dtypes of the weights and of the activations.  For serving the weights
     are held once, in the compute dtype (the reference keeps fp32 masters and
-    casts at every use); norm scales are always fp32."""
+    casts at every use); training passes ``param_dtype="float32"``, the
+    reference's masters.  Norm scales are always fp32.  ``remat``: recompute
+    each layer's activations in the backward (the reference's ``"full"``
+    policy; its ``"save_tp_outputs"`` waits for the parallelism layer)."""
 
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    remat: bool = True
 
     @property
     def pdt(self) -> torch.dtype:
@@ -93,7 +101,8 @@ class DecoderLM:
 
     # --------------------------------------------------------------- pieces
     def embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"]["tokens"].to(self.opts.cdt)[tokens.long()]
+        # F.embedding: its CUDA backward sums a row's gradients in a fixed order
+        return F.embedding(tokens.long(), params["embed"]["tokens"].to(self.opts.cdt))
 
     def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         cfg, cdt = self.cfg, self.opts.cdt
@@ -105,18 +114,53 @@ class DecoderLM:
             out = torch.where(valid, out, L.MASK_VALUE)
         return out
 
+    # -------------------------------------------------------------- forward
+    def _layer(self, lp: dict, x: torch.Tensor, attn) -> torch.Tensor:
+        """One pre-norm block; ``attn(attn_params, normed_x) -> h``."""
+        eps = self.cfg.norm_eps
+        x = x + attn(lp["attn"], L.rmsnorm(lp["attn_norm"], x, eps))
+        return x + L.mlp_fwd(lp["mlp"], L.rmsnorm(lp["ffn_norm"], x, eps))
+
+    def forward(self, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """batch: {"tokens": (b, s) int} -> (logits (b, s, V), aux loss: a zero
+        fp32 scalar, as for the reference's dense family)."""
+        x = self.embed(params, batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        attn = lambda ap, normed: L.attention_fwd(ap, normed, positions, causal=True,
+                                                  **self._attn_kwargs())
+        remat = self.opts.remat and torch.is_grad_enabled()
+        for lp in params["layers"]:
+            if remat:
+                # a layer draws no random numbers: no RNG state to keep
+                x = checkpoint(self._layer, lp, x, attn, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = self._layer(lp, x, attn)
+        x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        return self.logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Next-token cross-entropy in fp32 over the padded vocab (the padding
+        masked in ``logits``); labels < 0 are not scored.  Returns (ce + 0.01
+        aux, {"ce", "aux", "tokens"}), as the reference's."""
+        logits, aux = self.forward(params, batch)
+        labels = batch["labels"].long()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        mask = (labels >= 0).float()
+        nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+        denom = mask.sum().clamp(min=1.0)
+        ce = (nll * mask).sum() / denom
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux, "tokens": denom}
+
     def _layer_stack(self, params: dict, x: torch.Tensor, attn_fn, caches: dict):
         """The reference's ``_paged_layer_stack`` (and the scan of its
         ``decode_step``): walk the layers, threading layer i's slice of every
         cache tensor through ``attn_fn(attn_params, normed_x, layer_cache) ->
         (h, cache)``; the slices are views, so the caches are updated in place."""
-        cfg = self.cfg
         for i, lp in enumerate(params["layers"]):
             layer_cache = {name: t[i] for name, t in caches.items()}
-            h, _ = attn_fn(lp["attn"], L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps), layer_cache)
-            x = x + h
-            x = x + L.mlp_fwd(lp["mlp"], L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps))
-        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            x = self._layer(lp, x, lambda ap, normed: attn_fn(ap, normed, layer_cache)[0])
+        x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         return self.logits(params, x)
 
     def _attn_kwargs(self) -> dict:

@@ -27,7 +27,8 @@ def imported_roots(path: Path) -> set[str]:
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"ops.py", "layers.py", "transformer.py", "engine.py", "chip_smoke.py"} <= names
+    assert {"ops.py", "layers.py", "transformer.py", "engine.py", "chip_smoke.py", "adamw.py",
+            "trainer.py", "checkpointer.py", "pipeline.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -49,7 +50,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
     code = (
         "import sys, shutil\n"
         "import repro_torch, repro_torch.serve, repro_torch.models, repro_torch.convert\n"
-        "import repro_torch.kernels.ops\n"
+        "import repro_torch.kernels.ops, repro_torch.train, repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))\n"
         "assert not bad, bad\n"
         "import repro_torch.kernels._build as b\n"

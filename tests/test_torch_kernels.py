@@ -8,6 +8,9 @@ the SSD chunk scan its own test's: y at 1e-4 (fp32) or 2e-2 with atol 1e-4
 (bf16), S_final at 1e-4, since the chunk products sum over up to 128 terms.
 """
 
+from unittest import mock
+
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -403,7 +406,8 @@ class TestOpsDispatch:
                                    rtol=0, atol=0)
         torch.testing.assert_close(ops.rmsnorm(x, scale, 1e-5), ref.rmsnorm_ref(x, scale, 1e-5),
                                    rtol=0, atol=0)
-        assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "ssd_chunk_scan": 0}
+        assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "ssd_chunk_scan": 0,
+                                       "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
 
     def test_causal_with_more_queries_than_keys_is_rejected(self):
         q = torch.zeros(1, 2, 8, 16)
@@ -421,7 +425,8 @@ class TestOpsDispatch:
 
     def test_launch_counts_name_every_kernel(self):
         ops.reset_launch_counts()
-        assert set(ops.launch_counts()) == {"rmsnorm", "flash_attention", "ssd_chunk_scan"}
+        assert set(ops.launch_counts()) == {"rmsnorm", "flash_attention", "ssd_chunk_scan",
+                                            "rmsnorm_bwd", "flash_attention_bwd"}
         x, B = torch.zeros(1, 1, 8, 4), torch.zeros(1, 1, 8, 4)
         ops.ssd_chunk_scan(x, B, B, torch.zeros(1, 1, 8), torch.zeros(1, 1, 8), chunk=4)
         assert ops.launch_counts()["ssd_chunk_scan"] == 0   # CPU: the plain version
@@ -459,6 +464,8 @@ PLAN_FLASH = [
     (1, 8, 2, 200, 200, 128, "bfloat16", False, 1),
     (1, 4, 2, 100, 70, 64, "bfloat16", False, 0),
     (1, 4, 2, 100, 70, 32, "float32", False, 0),
+    (4, 36, 36, 1024, 1024, 64, "bfloat16", True, 0),    # minicpm-2b's training step
+    (4, 36, 36, 1024, 1024, 64, "float32", True, 0),     # and in the launcher's fp32
 ]
 # Every RMSNorm case of chip_smoke.py: (shape, dtype)
 PLAN_RMS = [
@@ -474,6 +481,9 @@ PLAN_RMS = [
     ((256, 2304), "bfloat16"),
     ((256, 3072), "bfloat16"),
     ((256, 6144), "bfloat16"),
+    ((4, 1024, 2304), "bfloat16"),  # minicpm-2b's training step
+    ((4, 1024, 2304), "float32"),
+    ((8, 64, 64), "bfloat16"),
 ]
 
 
@@ -688,3 +698,278 @@ class TestSSDPlan:
         assert list(plan.as_array()) == [1, plan.heads_per_block, plan.segments, plan.threads,
                                          *plan.grid, plan.smem_bytes, plan.state_smem_bytes]
         assert len(plan.as_array()) == ssd_cuda.PLAN_LEN
+
+
+# ------------------------------------------------------------- backwards
+def grads_via_autograd(fn, inputs, dout):
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    return torch.autograd.grad(fn(*leaves), leaves, dout)
+
+
+FA_BWD_GRID = [              # b, hq, hkv, sq, skv, hd, causal
+    (2, 4, 2, 64, 64, 32, True),      # GQA
+    (1, 8, 1, 48, 48, 16, True),      # MQA
+    (1, 4, 2, 24, 80, 16, True),      # causal offset: sq < skv
+    (2, 4, 4, 37, 37, 64, True),      # ragged
+    (1, 4, 2, 40, 24, 32, False),     # non-causal, sq > skv
+]
+
+
+class TestFlashAttentionBwdRef:
+    """``ref.flash_attention_bwd_ref``, the plain version of the backward
+    kernel, against autograd through the plain forward and against
+    ``jax.grad`` of the reference's ``flash_attention_ref``."""
+
+    @staticmethod
+    def inputs(rng, dtype, b, hq, hkv, sq, skv, hd):
+        return [make(rng, s, dtype) for s in
+                [(b, hq, sq, hd), (b, hkv, skv, hd), (b, hkv, skv, hd), (b, hq, sq, hd)]]
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("b,hq,hkv,sq,skv,hd,causal", FA_BWD_GRID)
+    def test_matches_autograd_through_the_plain_forward(self, dtype, b, hq, hkv, sq, skv, hd,
+                                                        causal):
+        q, k, v, do = (t for _, t in self.inputs(np.random.default_rng(0), dtype, b, hq, hkv, sq,
+                                                  skv, hd))
+        want = grads_via_autograd(lambda *a: ref.flash_attention_ref(*a, causal), (q, k, v), do)
+        out, lse = ref.flash_attention_lse_ref(q, k, v, causal)
+        got = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
+        rtol, atol = TOL[dtype]
+        for g, w, x in zip(got, want, (q, k, v)):
+            assert g.dtype == x.dtype and g.shape == x.shape
+            np.testing.assert_allclose(to_np(g), to_np(w), rtol=rtol, atol=atol)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("b,hq,hkv,sq,skv,hd,causal", FA_BWD_GRID)
+    def test_matches_jax_grad_of_the_reference(self, dtype, b, hq, hkv, sq, skv, hd, causal):
+        (qj, qt), (kj, kt), (vj, vt), (doj, dot) = self.inputs(
+            np.random.default_rng(1), dtype, b, hq, hkv, sq, skv, hd)
+        _, vjp = jax.vjp(lambda q, k, v: jref.flash_attention_ref(q, k, v, causal), qj, kj, vj)
+        want = vjp(doj)
+        out, lse = ref.flash_attention_lse_ref(qt, kt, vt, causal)
+        got = ref.flash_attention_bwd_ref(qt, kt, vt, out, lse, dot, causal)
+        rtol, atol = TOL[dtype]
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(to_np(g), to_np(w), rtol=rtol, atol=atol)
+
+    @pytest.mark.parametrize("b,hq,hkv,sq,skv,hd,causal", FA_BWD_GRID)
+    def test_lse_is_the_log_sum_exp_of_the_visible_scores(self, b, hq, hkv, sq, skv, hd, causal):
+        rng = np.random.default_rng(2)
+        q, k, v = (rng.standard_normal(s) for s in [(b, hq, sq, hd), (b, hkv, skv, hd),
+                                                    (b, hkv, skv, hd)])
+        kq = np.repeat(k, hq // hkv, axis=1)
+        scores = np.einsum("bhqd,bhkd->bhqk", q, kq) / np.sqrt(hd)
+        if causal:
+            scores = np.where(np.tril(np.ones((sq, skv), bool), skv - sq), scores, -np.inf)
+        top = scores.max(-1, keepdims=True)
+        want = (top + np.log(np.exp(scores - top).sum(-1, keepdims=True)))[..., 0]
+        out, lse = ref.flash_attention_lse_ref(*(torch.tensor(t, dtype=torch.float32)
+                                                 for t in (q, k, v)), causal)
+        assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+        np.testing.assert_allclose(lse.numpy(), want, rtol=1e-5, atol=1e-5)
+        plain = ref.flash_attention_ref(*(torch.tensor(t, dtype=torch.float32) for t in (q, k, v)),
+                                        causal)
+        torch.testing.assert_close(out, plain, rtol=0, atol=0)
+
+    def test_strided_dout_gives_the_same_gradients(self):
+        """Autograd hands dout back as a transposed view of the model's
+        (b, s, h, hd) layout."""
+        g = torch.Generator().manual_seed(6)
+        q, k, v = (torch.randn(1, 2, 24, 16, generator=g) for _ in range(3))
+        do = torch.randn(1, 24, 2, 16, generator=g)
+        out, lse = ref.flash_attention_lse_ref(q, k, v)
+        a = ref.flash_attention_bwd_ref(q, k, v, out, lse, do.transpose(1, 2))
+        b = ref.flash_attention_bwd_ref(q, k, v, out, lse, do.transpose(1, 2).contiguous())
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+class TestRMSNormBwdRef:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("shape", RMS_SHAPES)
+    def test_matches_autograd_through_the_plain_forward(self, dtype, shape):
+        rng = np.random.default_rng(0)
+        (_, x), (_, dy) = make(rng, shape, dtype), make(rng, shape, dtype)
+        scale = torch.from_numpy((rng.standard_normal(shape[-1]) + 1.0).astype(np.float32))
+        want = grads_via_autograd(lambda a, s: ref.rmsnorm_ref(a, s, 1e-5), (x, scale), dy)
+        dx, dscale = ref.rmsnorm_bwd_ref(x, scale, dy, 1e-5)
+        assert dx.dtype == x.dtype and dscale.dtype == torch.float32
+        rtol, atol = TOL[dtype]
+        np.testing.assert_allclose(to_np(dx), to_np(want[0]), rtol=rtol, atol=atol)
+        # dscale sums over rows: bf16 rounds each row's product once, summed in fp32
+        np.testing.assert_allclose(to_np(dscale), to_np(want[1]), rtol=rtol, atol=atol * 4)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("shape", RMS_SHAPES)
+    def test_matches_jax_grad_of_the_reference(self, dtype, shape):
+        rng = np.random.default_rng(1)
+        (xj, xt), (dyj, dyt) = make(rng, shape, dtype), make(rng, shape, dtype)
+        s = (rng.standard_normal(shape[-1]) + 1.0).astype(np.float32)
+        _, vjp = jax.vjp(lambda x, sc: jref.rmsnorm_ref(x, sc, 1e-6), xj, jnp.asarray(s))
+        want_dx, want_ds = vjp(dyj)
+        dx, dscale = ref.rmsnorm_bwd_ref(xt, torch.from_numpy(s), dyt, 1e-6)
+        rtol, atol = TOL[dtype]
+        np.testing.assert_allclose(to_np(dx), to_np(want_dx), rtol=rtol, atol=atol)
+        np.testing.assert_allclose(to_np(dscale), to_np(want_ds), rtol=rtol, atol=atol * 4)
+
+
+# Every flash-attention backward case of chip_smoke.py's kernels phase:
+# (b, hq, hkv, sq, skv, hd, dtype, model layout, offset in elements)
+PLAN_FLASH_BWD = [
+    (4, 36, 36, 1024, 1024, 64, "bfloat16", True, 0),    # minicpm-2b's training step
+    (4, 36, 36, 1024, 1024, 64, "float32", True, 0),     # and in the launcher's fp32
+    (1, 32, 2, 1024, 1024, 128, "bfloat16", True, 0),    # GQA, hd 128
+    (2, 8, 8, 300, 300, 80, "bfloat16", True, 0),        # hd 80, ragged
+    (1, 4, 2, 75, 203, 64, "float32", False, 0),         # causal offset
+    (1, 4, 2, 100, 70, 32, "float32", False, 0),         # non-causal, sq > skv
+    (4, 36, 36, 1024, 1024, 64, "bfloat16", True, 1),    # unaligned bf16
+    (2, 4, 4, 16, 16, 16, "float32", True, 0),           # the launcher's reduced config
+]
+
+
+def meta_bwd(case):
+    """``flash_bwd_plan``'s arguments as meta tensors: q, k, v, out and dout
+    with chip_smoke.py's strides and offsets, and the wrapper's gradients."""
+    q, k, v, out = meta_attention(*case)
+    dout = meta_attention(*case)[0]
+    return q, k, v, out, dout, *(fa_cuda._dense_like(t) for t in (q, k, v))
+# Every RMSNorm backward case of chip_smoke.py: (shape, dtype)
+PLAN_RMS_BWD = [
+    ((4, 1024, 2304), "bfloat16"),
+    ((4, 1024, 2304), "float32"),
+    ((8, 64, 64), "bfloat16"),
+    ((3, 37, 1000), "float32"),
+    ((5, 4099), "bfloat16"),
+    ((2, 16, 64), "float32"),       # the launcher's reduced config
+]
+
+
+class TestFlashBwdPlan:
+    @pytest.mark.parametrize("case", PLAN_FLASH_BWD)
+    def test_route(self, case):
+        plan = fa_cuda.flash_bwd_plan(*meta_bwd(case))
+        dtype, offset = case[6], case[8]
+        assert plan.route == ("mma" if dtype == "bfloat16" and offset == 0 else "cuda_cores")
+
+    @pytest.mark.parametrize("case", PLAN_FLASH_BWD)
+    def test_grids_cover_every_tile(self, case):
+        b, hq, hkv, sq, skv, hd = case[:6]
+        plan = fa_cuda.flash_bwd_plan(*meta_bwd(case))
+        assert plan.grid_dq == (-(-sq // plan.rows), hq, b)
+        assert plan.grid_dkv == (-(-skv // plan.rows), hkv, b)
+        assert plan.dot_blocks * fa_cuda.DOT_ROWS >= b * hq * sq > (plan.dot_blocks - 1) * 8
+        # 16 x 16 threads of 4-row micro-tiles, or four warps of 16 rows
+        assert (plan.rows, plan.threads) == (64, 256 if plan.route == "cuda_cores" else 128)
+        assert plan.cols == (32 if hd >= 128 else 64) and plan.cols % 16 == 0
+
+    @pytest.mark.parametrize("case", PLAN_FLASH_BWD)
+    def test_shared_memory_fits_two_blocks(self, case):
+        plan = fa_cuda.flash_bwd_plan(*meta_bwd(case))
+        assert 0 < plan.smem_bytes <= fa_cuda.SMEM_LIMIT // 2 and plan.smem_bytes % 16 == 0
+
+    @pytest.mark.parametrize("hd", fa_cuda.HEAD_DIMS)
+    def test_every_head_dim_tiles_the_fragments(self, hd):
+        """CUDA cores: 16 x 16 threads take hd / 16 output columns each and
+        read fp32 rows of hd + 4 as 16-byte vectors.  Tensor cores: k-steps of
+        16 over hd and over the walked tile, 8-column tiles taken in pairs, and
+        bf16 rows of hd + 8 whose 8 ldmatrix rows fall in 8 16-byte bank groups."""
+        for dtype in ("float32", "bfloat16"):
+            plan = fa_cuda.flash_bwd_plan(*meta_bwd((1, 2, 2, 8, 8, hd, dtype, False, 0)))
+            assert hd % 16 == 0 and plan.cols % 16 == 0
+            if plan.route == "cuda_cores":
+                assert (hd + 4) * 4 % 16 == 0 and (plan.cols + 4) * 4 % 16 == 0
+            else:
+                row_bytes = 2 * (hd + 8)
+                assert row_bytes % 16 == 0 and (hd // 8) % 2 == 0
+                assert len({(r * row_bytes) % 128 // 16 for r in range(8)}) == 8
+
+    def test_plan_array_layout(self):
+        plan = fa_cuda.flash_bwd_plan(*meta_bwd(PLAN_FLASH_BWD[0]))
+        assert list(plan.as_array()) == [fa_cuda.BWD_ROUTES.index(plan.route), plan.rows,
+                                         plan.cols, plan.threads, *plan.grid_dq,
+                                         *plan.grid_dkv, plan.smem_bytes, plan.dot_blocks]
+
+
+class TestRMSNormBwdPlan:
+    @staticmethod
+    def plan(shape, dtype):
+        x = torch.empty(shape, dtype=getattr(torch, dtype), device="meta")
+        scale = torch.empty(shape[-1], dtype=torch.float32, device="meta")
+        return (rms_cuda.rmsnorm_bwd_plan(x, scale, torch.empty_like(x)),
+                rms_cuda.rmsnorm_plan(x, scale, torch.empty_like(x)))
+
+    @pytest.mark.parametrize("shape,dtype", PLAN_RMS_BWD)
+    def test_route_is_the_forwards(self, shape, dtype):
+        bwd, fwd = self.plan(shape, dtype)
+        assert bwd.route == fwd.route and bwd.vectors_per_lane == fwd.vectors_per_lane
+
+    @pytest.mark.parametrize("shape,dtype", PLAN_RMS_BWD)
+    def test_blocks_and_threads(self, shape, dtype):
+        bwd, _ = self.plan(shape, dtype)
+        rows, d = int(np.prod(shape[:-1])), shape[-1]
+        groups = -(-rows // 4) if bwd.route == "registers" else rows
+        assert 1 <= bwd.blocks == min(groups, rms_cuda.BWD_BLOCKS)
+        if bwd.route == "registers":
+            assert bwd.threads == 0
+        else:
+            # the forward block kernel's rule (csrc/rmsnorm.cu, launch)
+            vec = 16 // getattr(torch, dtype).itemsize
+            per_thread = vec if d % vec == 0 else 1
+            assert bwd.threads == min(512, -(-(-(-d // per_thread)) // 32) * 32)
+            assert bwd.threads % 32 == 0
+
+
+# --------------------------------------------------- autograd through ops
+class TestAutograd:
+    """``ops.rmsnorm`` and ``ops.flash_attention`` join autograd on every
+    device; on the CPU their backward is the plain analytic one."""
+
+    def test_every_parameter_of_a_reduced_model_gets_a_gradient(self):
+        from repro_torch.configs import get_config
+        from repro_torch.models import ModelOptions, build_model
+
+        cfg = get_config("glm4-9b").reduced()
+        model = build_model(cfg, ModelOptions("float32", "float32", remat=True), device="cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        leaves = jax.tree.leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        tokens = torch.randint(0, cfg.vocab, (2, 12), generator=torch.Generator().manual_seed(1))
+        ops.reset_launch_counts()
+        loss, _ = model.loss(params, {"tokens": tokens, "labels": tokens.roll(-1, 1)})
+        loss.backward()
+        assert all(p.grad is not None and p.grad.abs().sum() > 0 for p in leaves)
+        assert sum(ops.launch_counts().values()) == 0   # the CPU runs the plain versions
+
+    def test_ops_are_autograd_functions_with_the_plain_backward(self):
+        g = torch.Generator().manual_seed(7)
+        q, k, v = (torch.randn(1, 2, 8, 16, generator=g, requires_grad=True) for _ in range(3))
+        x = torch.randn(4, 16, generator=g, requires_grad=True)
+        scale = torch.ones(16, requires_grad=True)
+        out, y = ops.flash_attention(q, k, v), ops.rmsnorm(x, scale)
+        assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+        assert type(y.grad_fn).__name__ == "_RMSNormBackward"
+        with mock.patch.object(ref, "flash_attention_bwd_ref", wraps=ref.flash_attention_bwd_ref) as fa, \
+                mock.patch.object(ref, "rmsnorm_bwd_ref", wraps=ref.rmsnorm_bwd_ref) as rms:
+            (out.sum() + y.sum()).backward()
+        assert fa.call_count == 1 and rms.call_count == 1
+        assert all(t.grad is not None for t in (q, k, v, x, scale))
+
+    def test_without_grad_the_forward_runs_alone(self):
+        q = torch.randn(1, 2, 8, 16, requires_grad=True)
+        with torch.no_grad():
+            assert ops.flash_attention(q, q, q).grad_fn is None
+        assert ops.rmsnorm(torch.randn(2, 8), torch.ones(8)).grad_fn is None
+
+    def test_ssd_scan_on_a_cuda_tensor_that_requires_grad_raises(self):
+        """No backward kernel yet: the CUDA forward would cut the graph, so it
+        raises first (a tensor that reports itself as CUDA stands in for the
+        card; the kernel is never reached)."""
+
+        class OnCard(torch.Tensor):
+            is_cuda = property(lambda self: True)
+
+        x = torch.zeros(1, 1, 8, 4).as_subclass(OnCard).requires_grad_(True)
+        B = torch.zeros(1, 1, 8, 4)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ops.ssd_chunk_scan(x, B, B, torch.zeros(1, 1, 8), torch.zeros(1, 1, 8), chunk=4)
