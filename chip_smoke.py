@@ -18,8 +18,9 @@ raises and the script exits non-zero:
    scan; for a backward, its autograd backward with the forward outside the
    timed region) with CUDA events after warm-up; checks the route each launch
    plan took (flash, RMSNorm, and the SSD scan's route, sequence segments and
-   heads per block), and that the flash forward's out is bit-identical with
-   and without its log-sum-exp.
+   heads per block), that the flash forward's out is bit-identical with and
+   without its log-sum-exp, and that two flash backward calls on the same
+   inputs agree bit for bit.
 4. ``parity``  -- glm4-9b at full width, 4 layers: one padded prefill and a few
    decode steps, logits through the kernels against logits through the plain
    versions, in fp32 and in bf16.
@@ -77,6 +78,7 @@ from unittest import mock
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention.bias import causal_lower_right
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -323,9 +325,7 @@ def flash_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype: tor
         case,
         kernel=(lambda *a: ops.flash_attention(*a, causal=causal), args, iters),
         plain=(lambda *a: plain(*a, causal=causal), args, 1 if by_head else iters),
-        # the library's causal mask is aligned top-left: the same function only if sq == skv
-        library=(lambda *a: F.scaled_dot_product_attention(*a, is_causal=causal, enable_gqa=True),
-                 args, iters) if sq == skv or not causal else None,
+        library=(library_attention(sq, skv, causal, hq // hkv), args, iters),
     )
     # work this call needs: causal row i of q sees keys 0 .. i + (skv - sq)
     visible = sum(min(skv, i + skv - sq + 1) for i in range(sq)) if causal else sq * skv
@@ -370,6 +370,20 @@ def timed_grad_ms(forward, inputs: list[torch.Tensor], dout: torch.Tensor, iters
     return times["both"] - times["fwd"]
 
 
+def library_attention(sq: int, skv: int, causal: bool, group: int):
+    """SDPA as one PyTorch call computing the kernels' function (a yardstick
+    the port never calls).  Its ``is_causal`` mask is aligned top-left, the
+    kernels' bottom-right, so where ``sq != skv`` it takes
+    ``causal_lower_right(sq, skv)``, with K and V repeated to the q heads
+    inside the call (the bias does not take ``enable_gqa``)."""
+    if not causal or sq == skv:
+        return lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                              enable_gqa=True)
+    bias = causal_lower_right(sq, skv)
+    return lambda q, k, v: F.scaled_dot_product_attention(
+        q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1), attn_mask=bias)
+
+
 def flash_bwd_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype: torch.dtype,
                    gen: torch.Generator, iters: int, model_layout: bool,
                    causal: bool = True, offset: int = 0) -> dict:
@@ -390,23 +404,31 @@ def flash_bwd_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype:
     q, k, v, dout = rand(hq, sq), rand(hkv, skv), rand(hkv, skv), rand(hq, sq)
     out, lse = _fa.flash_attention_cuda(q, k, v, causal, with_lse=True)
     got = _fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal)
+    again = _fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal)
     torch.cuda.synchronize()
     want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal)
     what = f"flash_attention_bwd q{tuple(q.shape)} kv{tuple(k.shape)} {dtype}"
     errs = {name: compare(g, w, f"{what} {name}") for name, g, w in zip(("dq", "dk", "dv"), got, want)}
-    # aligned bf16 runs on the tensor cores, fp32 and offset bf16 on the CUDA cores
+    # no atomics and a fixed order for every sum: two calls agree bit for bit
+    for name, a, b2 in zip(("dq", "dk", "dv"), got, again):
+        if not torch.equal(a, b2):
+            raise AssertionError(f"{what} {name}: two calls on the same inputs differ")
+    # aligned bf16 runs on wgmma/TMA, fp32 and offset bf16 on the CUDA cores
     plan = _fa.flash_bwd_plan(q, k, v, out, dout, *got)
-    if plan.route != ("mma" if dtype == torch.bfloat16 and offset == 0 else "cuda_cores"):
+    if plan.route != ("wgmma" if dtype == torch.bfloat16 and offset == 0 else "cuda_cores"):
         raise AssertionError(f"{what} offset {offset} took the {plan.route!r} route")
     case = {
         "kernel": "flash_attention_bwd", "q": list(q.shape), "kv": list(k.shape),
         "layout": "(b,s,h,hd) strided" if model_layout else "(b,h,s,hd) contiguous",
         "route": plan.route, "block_rows": plan.rows, "block_cols": plan.cols,
-        "smem_bytes": plan.smem_bytes, "causal": causal, "dtype": str(dtype).removeprefix("torch."),
+        "block_cols_dq": plan.cols_dq, "splits": plan.splits,
+        "workspace_bytes": plan.workspace_bytes, "grid_dkv": list(plan.grid_dkv),
+        "smem_bytes": plan.smem_bytes, "smem_dq_bytes": plan.smem_dq_bytes, "causal": causal,
+        "dtype": str(dtype).removeprefix("torch."), "bit_identical_twice": True,
         "max_abs_err": max(errs.values()), "max_abs_err_each": errs, "tol": TOL[dtype],
         "max_abs_plain": max(w.float().abs().max().item() for w in want),
     }
-    del got, want
+    del got, again, want
     args = [(q, k, v, out, lse, dout)]
     timings(
         case,
@@ -414,12 +436,10 @@ def flash_bwd_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype:
         plain=(lambda *a: ref.flash_attention_bwd_ref(*a, causal), args, max(1, iters // 4)),
         library=None,
     )
-    # the library's causal mask is aligned top-left: the same function only if
-    # sq == skv; its backward faults on inputs shifted off 16 bytes, so it gets
-    # aligned copies of the same values
-    case["library_ms"] = timed_grad_ms(
-        lambda *a: F.scaled_dot_product_attention(*a, is_causal=causal, enable_gqa=True),
-        [t.clone() for t in (q, k, v)], dout.clone(), iters) if sq == skv or not causal else None
+    # its backward faults on inputs shifted off 16 bytes, so it gets aligned
+    # copies of the same values
+    case["library_ms"] = timed_grad_ms(library_attention(sq, skv, causal, hq // hkv),
+                                       [t.clone() for t in (q, k, v)], dout.clone(), iters)
     visible = sum(min(skv, i + skv - sq + 1) for i in range(sq)) if causal else sq * skv
     # five products of 2 hd flops per visible pair: S (recomputed), dP, dV, dQ, dK
     flops = 10 * b * hq * visible * hd

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times the port's RMSNorm, flash-attention and SSD chunk-scan kernels of
+"""Times the port's RMSNorm, flash-attention (forward and backward) and SSD chunk-scan kernels of
 several checkouts one after the other on one NVIDIA GPU, so that two versions
 are compared on the same card, in the same run.
 
@@ -13,7 +13,10 @@ events around a CUDA-graph replay of ``ITERS`` calls, after warm-up; bf16,
 inputs from a seed; RMSNorm with an fp32 scale, as the models pass it;
 causal flash attention's forward with q, k, v contiguous ``(b, h, s, hd)``
 at glm4-9b's and minicpm-2b's shapes and in zamba2's model layout ``(b, s, h,
-hd)`` at its 4096- and 32768-token shapes (``FLASH_LONG_ITERS`` calls); the SSD
+hd)`` at its 4096- and 32768-token shapes (``FLASH_LONG_ITERS`` calls); the causal
+flash backward in model layout (q, k, v and dout as transposed views of ``(b,
+s, h, hd)`` tensors, out and lse from the forward kernel) at minicpm-2b's
+training step and glm4-9b's GQA 16:1 shape (``FLASH_BWD_ITERS`` calls); the SSD
 scan in zamba2's model layout -- x ``(b, s, H, P)`` bf16 as a transposed
 view, B/C ``(b, s, N)`` shared by the heads, dt/loga fp32, y fp32 -- over
 ``SSD_ITERS`` calls).
@@ -35,6 +38,8 @@ FLASH = [  # (b, hq, hkv, s, hd): glm4-9b's smallest and largest prefill, zamba2
     (4, 36, 36, 1024, 64),   # minicpm-2b's training step
 ]
 FLASH_ZAMBA = [(1, 32, 4096, 80), (1, 32, 32768, 80)]   # (b, h, s, hd) in model layout
+FLASH_BWD = [(4, 36, 36, 1024, 64), (1, 32, 2, 1024, 128)]   # (b, hq, hkv, s, hd), model layout
+FLASH_BWD_ITERS = 50
 SSD = [(1, 80, 32768, 64, 64), (2, 80, 1024, 64, 64)]   # (b, H, s, P, N): zamba2's 32k forward, b = 2
 
 
@@ -42,6 +47,7 @@ def child(root: str) -> dict:
     import torch
 
     sys.path.insert(0, os.path.join(root, "src"))
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
 
     dev = torch.device("cuda", 0)
@@ -78,6 +84,12 @@ def child(root: str) -> dict:
         q, k, v = (rand(b, s, h, hd).transpose(1, 2) for _ in range(3))
         out["ms"][f"flash (b,s,h,hd) {(b, s, h, hd)}"] = device_ms(
             ops.flash_attention, q, k, v, True, iters=FLASH_LONG_ITERS)
+    for b, hq, hkv, s, hd in FLASH_BWD:
+        q, dout = (rand(b, s, hq, hd).transpose(1, 2) for _ in range(2))
+        k, v = (rand(b, s, hkv, hd).transpose(1, 2) for _ in range(2))
+        o, lse = fa.flash_attention_cuda(q, k, v, True, with_lse=True)
+        out["ms"][f"flash_bwd (b,s,h,hd) q{(b, s, hq, hd)} kv{(b, s, hkv, hd)}"] = device_ms(
+            fa.flash_attention_bwd_cuda, q, k, v, o, lse, dout, True, iters=FLASH_BWD_ITERS)
     for b, H, s, P, N in SSD:
         x = rand(b, s, H, P).transpose(1, 2)
         B, C = ((rand(b, s, N) * 0.5)[:, None].expand(b, H, s, N) for _ in range(2))

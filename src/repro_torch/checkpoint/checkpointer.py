@@ -126,7 +126,9 @@ class Checkpointer:
 
     def restore(self, template, step: int | None = None):
         """Restore into the structure of ``template`` (a tree of tensors and
-        ints); each tensor goes to its template leaf's device and dtype."""
+        ints) as new tensors; each goes to its template leaf's device and
+        dtype.  Only a leaf's shape, dtype and device are read, so fake
+        tensors with no storage make a template."""
         if step is None:
             step = self.latest_step()
         if step is None:

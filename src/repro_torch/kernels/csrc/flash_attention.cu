@@ -74,6 +74,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int BM = 64;         // query rows per block
@@ -337,6 +339,24 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
             : "=r"(done)
             : "r"(bar), "r"(parity)
             : "memory");
+    } while (!done);
+}
+
+// mbar_wait that traps, rather than hang the card, if the phase has not
+// completed after 2^34 cycles (about 9 s): a load that never lands becomes
+// an error at the next synchronisation.
+__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
+    const long long start = clock64();
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+        if (!done && clock64() - start > (1LL << 34)) __trap();
     } while (!done);
 }
 
@@ -974,7 +994,9 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, fl
 //
 // The TPU kernel has no backward (the reference differentiates its plain jnp
 // attention), so this is the port's own: FlashAttention-2's recomputation
-// scheme, three kernels a call, no atomics, so every result is deterministic.
+// scheme, no atomics and a fixed order for every sum, so every result is
+// deterministic.  Aligned bf16 runs on `wgmma` (described at its section
+// below); fp32 and unaligned bf16 run these three kernels a call:
 //
 //  * flash_bwd_dot_kernel -- D = rowsum(dO * O) in fp32, one warp per row.
 //  * flash_bwd_dkv_kernel -- one block per (kv tile of 64 keys, kv head,
@@ -992,8 +1014,8 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, fl
 // What bounds it on this card: operations (five products of 2 hd flops per
 // visible (query, key) pair).  Two routes, chosen in Python (`flash_bwd_plan`)
 // as the forward's are: bf16 whose rows are 16-byte aligned runs its products
-// on the tensor cores (the *_mma_kernel pair below); fp32 and unaligned bf16
-// run them in fp32 on the CUDA cores (the two kernels that follow), from fp32
+// on the tensor cores (`wgmma`, below); fp32 and unaligned bf16 run them in
+// fp32 on the CUDA cores (the two kernels that follow), from fp32
 // shared-memory tiles (bf16 widened as it is loaded) with the forward
 // CUDA-core kernel's 4-row micro-tiles and 16-byte shared-memory reads, so
 // they cannot pass the card's 67 TFLOP/s fp32 rate.  Inputs are read through
@@ -1277,305 +1299,662 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 // ---------------------------------------------------------------------------
-// Backward, bf16 on the tensor cores: mma.sync.m16n8k16, fp32 accumulators
+// Backward, bf16 on the tensor cores: wgmma, TMA, warp specialisation
 // ---------------------------------------------------------------------------
 //
-// Aligned bf16 (the training path) takes these two kernels in place of the
-// CUDA-core ones, with the same blocks, loops and masks: four warps own 16 of
-// the block's 64 rows each; Q, K, V, dO tiles sit in shared memory as bf16 in
-// rows of hd + 8 elements (16-byte rows whose 8 ldmatrix rows fall in 8 bank
-// groups); S and dP (fp32) come from ldmatrix fragments, and P and dS are
-// rounded to bf16 and become the A fragments of the next products without
-// leaving registers (the accumulator of two neighbouring 8-column tiles is one
-// 16-wide A fragment), as FlashAttention-2 does.  Tiles are loaded with
-// 16-byte loads and no pipelining: a simple first version.
+// Aligned bf16 (the training path) takes this route, built from the
+// forward's pieces.  Two launches of one kernel template, each block owning
+// 128 rows of one side (two consumer warpgroups of 64) and walking tiles of
+// the other side, and for a split GQA group a sum after them:
+//
+//  * flash_bwd_wgmma_kernel<HD, false> (dQ), first -- owns 128 queries of a
+//    q head (Q and dO), computes their D = rowsum(dO * O) and lse * log2(e)
+//    and stores them, zeros past sq, in a (b, hq, sq_pad) workspace whose
+//    rows are padded to the block's 128, so that a walked tile's lse and D
+//    are one 16-byte-aligned bulk copy for the dK/dV kernel.  It walks the
+//    key tiles up to the forward's causal limit (64 keys a tile): S = Q K^T
+//    and dP = dO V^T (SS), dQ += dS K (RS, K read MN-major).
+//  * flash_bwd_wgmma_kernel<HD, true> (dK/dV), second -- owns 128 keys of
+//    a kv head (K and V loaded once), walks the query heads of its share of
+//    the group and, in each, the query tiles that see its keys (64 queries a
+//    tile, 32 at hd 128).  Per tile: S^T = K Q^T and dP^T = V dO^T are SS products (both
+//    operands K-major, as the forward's Q K^T); P^T = exp2(S^T scale2 - lse2)
+//    masked and dS^T = P^T (dP^T - D) are rounded to bf16 in registers as A
+//    fragments (the accumulator layout is the A layout, as the forward's P);
+//    dV += P^T dO and dK += dS^T Q are RS products with dO and Q read
+//    MN-major, as V in the forward's P V.
+//  * flash_bwd_sum_kernel -- only when the plan splits a GQA group's query
+//    heads over `splits` dK/dV blocks (so that the blocks fill the card: 16
+//    of glm4-9b's 1024-key tiles x kv heads would leave 116 of 132 SMs idle):
+//    each block then writes fp32 partial dK/dV into a workspace, and this
+//    pass sums the splits in order and stores dk/dv in bf16.
+//
+// Each kernel runs a persistent grid, a block an SM walking work items (row
+// tiles x heads x batch) heavy first; an item's owned rows load into one of
+// two buffers while the other's item is computed.  One producer warp keeps
+// the walked tiles in flight through a ring of BW_STAGES stages with
+// full/empty mbarriers (Q, dO, lse and D for dK/dV; K and V for dQ), and
+// `setmaxnreg` hands the producer's registers to the two consumer
+// warpgroups, as in the forward.  ptxas allocates at most 168 registers a
+// thread (384 threads a block) whatever `setmaxnreg` grants, and that sets
+// the walked tiles' widths (64 rows; 32 queries in the dK/dV kernel at hd
+// 128) and how a warpgroup runs them: in the dQ kernel a tile's RS product
+// is issued with the next tile's S and dP and runs while its exponentials
+// are computed, the two warpgroups taking turns to issue (ping-pong); the
+// dK/dV kernel, whose dK and dV accumulators leave no room for that, runs
+// its tiles one after the other.  No product is issued on a path that only
+// some threads of a warpgroup take: every walked tile is computed, masked
+// whole where none of a warpgroup's pairs sees it (a conditional issue made
+// ptxas serialise every product, C7520).
+//
+// dQ has a kernel of its own so that no sum crosses blocks: the result is
+// deterministic without a per-key-tile dQ workspace (16 tiles x 37.7 MB at
+// minicpm-2b's step) and without atomics.  The cost is that S and dP are
+// computed twice, seven products where five would do: the bound below counts
+// five, so this design can reach at most 5/7 of it.  Heavy tiles go first:
+// dK/dV blocks start at key tile 0 (which every query sees), dQ blocks at
+// the last query tile; dK/dV starts at the first query tile that sees its
+// keys (max(0, k0 - (skv - sq))), and dQ stops at the forward's limit.  Only
+// tiles that cross the diagonal or a ragged end are masked.
 
-constexpr int MMA_WARPS = 4;
-constexpr int MMA_THREADS = 32 * MMA_WARPS;   // 64 rows: 16 a warp
+constexpr int BW_ROWS = 128;      // rows a block owns: two consumer warpgroups of 64
+constexpr int BW_STAGES = 3;      // walked tiles in flight
+constexpr int BW_THREADS = 384;   // the two consumers and the producer
 
-template <int HD>
-struct MmaSmem {
-    static constexpr int C = HD >= 128 ? 32 : 64;   // walked rows per tile (registers at hd 128)
-    static constexpr int RS = HD + 8;               // bf16 row stride
-    static constexpr int elems = 2 * BWD_ROWS * RS + 2 * C * RS;
-    static constexpr size_t bytes = 2 * elems + 2 * C * sizeof(float);   // + lse and D of the walked rows
+// Shared memory in bytes from a 1024-byte-aligned base: the two owned
+// tensors (BW_ROWS rows each; slab 0, then slab 1), then BW_STAGES stages of
+// [walked tensor 0 slab 0, slab 1, walked tensor 1 slab 0, slab 1, lse2, D].
+// dK/dV: owned K, V; walked Q, dO and their lse2 and D.  dQ: owned Q, dO;
+// walked K, V (the widths: `bwd_cols` in kernels/flash_attention.py).
+template <int HD, bool kDKV>
+struct BwLayout {
+    static constexpr int W0 = Slabs<HD>::W0, W1 = Slabs<HD>::W1;
+    static constexpr int COLS = kDKV && HD >= 128 ? 32 : 64;
+    // dQ: a tile's products overlap the next tile's S, dP and exponentials.
+    // dK/dV, whose dK and dV accumulators leave no room for a second tile's
+    // (ptxas gives a thread 168 registers at 384 a block), runs its tiles one
+    // after the other, 64 queries wide, which on an H100 was faster than
+    // 32-query tiles overlapped.
+    static constexpr bool overlap = !kDKV;
+    static constexpr int OWN1 = BW_ROWS * W0 * 2;    // slab 1 of an owned tensor
+    static constexpr int OWN_B = BW_ROWS * HD * 2;   // owned tensor 1
+    static constexpr int OWN = 2 * OWN_B;
+    static constexpr int T1 = COLS * W0 * 2;         // slab 1 of a walked tensor
+    static constexpr int TB = COLS * HD * 2;         // walked tensor 1
+    static constexpr int VEC = 2 * TB;               // lse2, then D (dK/dV)
+    static constexpr int LOADED = 2 * TB + (kDKV ? 2 * COLS * 4 : 0);
+    static constexpr int STAGE = (LOADED + 1023) / 1024 * 1024;
+    static constexpr int smem = 1024 + 2 * OWN + BW_STAGES * STAGE;
 };
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
+struct BwdMaps {
+    CUtensorMap own[2][2], walk[2][2];   // [tensor][slab]
+};
 
-// D (16 x 8, fp32) += A (16 x 16, bf16) B (16 x 8, bf16); with g = lane / 4 and
-// i = lane % 4: A a0 (g, 2i..2i+1), a1 (g + 8, 2i..), a2 (g, 8 + 2i..),
-// a3 (g + 8, 8 + 2i..); B b0 (k 2i..2i+1, n g), b1 (k 8 + 2i.., n g);
-// D d0, d1 (g, 2i..2i+1), d2, d3 (g + 8, 2i..2i+1).
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
     asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+            "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+        : "memory");
 }
 
-// Rows r0 .. r0 + n of a head's (s, hd) bf16 slice into shared memory (row
-// stride hd + 8), 16 bytes a load, zeros past `limit`.
-template <int HD>
-__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
-                                               long long s_stride, int r0, int n, int limit) {
-    constexpr int RS = HD + 8, V = HD / 8;
-    for (int idx = threadIdx.x; idx < n * V; idx += MMA_THREADS) {
-        const int r = idx / V, c = (idx % V) * 8;
-        const int row = r0 + r;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (row < limit) val = *reinterpret_cast<const uint4*>(src + row * s_stride + c);
-        *reinterpret_cast<uint4*>(dst + r * RS + c) = val;
+// D (64 x 64, fp32) {+}= A (64 x 16) * B (16 x 64); A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x 32, fp32) {+}= A (64 x 16) * B (16 x 32); A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+    if constexpr (N == 64) {
+        wgmma_ss_n64(d, desc_a, desc_b, accumulate);
+    } else {
+        static_assert(N == 32, "walked tiles are 32 or 64 rows");
+        wgmma_ss_n32(d, desc_a, desc_b, accumulate);
     }
 }
 
-// acc[j] = A[16 rows from a] . B[rows 8 j .. 8 j + 7 from b] over hd, for the
-// NT 16 x 8 tiles of A B^T; A and B (rows, hd) bf16 in shared memory.
-template <int HD, int NT>
-__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], uint32_t a, uint32_t b) {
-    constexpr int RS = HD + 8;
-    const int lane = threadIdx.x % 32;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-        uint32_t af[4];
-        ldsm_x4(af, a + 2 * ((lane % 16) * RS + kk + (lane / 16) * 8));
-#pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-            uint32_t bf[4];   // b0, b1 of tile j, then of tile j + 1
-            ldsm_x4(bf, b + 2 * ((8 * j + (lane & 7) + (lane >> 4) * 8) * RS + kk +
-                                 ((lane >> 3) & 1) * 8));
-            mma16816(acc[j], af, bf[0], bf[1]);
-            mma16816(acc[j + 1], af, bf[2], bf[3]);
+// 2^x on the special-function unit (relative error 2^-22; results below
+// 2^-126 flush to zero, where a probability no longer counts).
+__device__ __forceinline__ float fast_exp2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// kDKV: the dK/dV kernel (out0 = dk, out1 = dv, grid (key tiles, hkv *
+// splits, b)); else the dQ kernel (out0 = dq, grid (query tiles, hq, b)).
+// `partial`: null, or (splits > 1) the fp32 [2][splits][b][hkv][skv][hd]
+// workspace of dK, then dV.  Accumulator fragments as in the forward: thread
+// `lane` of warp w holds, for each 8-column chunk c, elements 4c + e at row
+// w * 16 + lane / 4 + 8 (e >> 1) and column 8c + 2 (lane % 4) + (e & 1).
+template <int HD, bool kDKV>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+flash_bwd_wgmma_kernel(const __grid_constant__ BwdMaps maps, float* __restrict__ stats,
+                       const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse, Strides os, Strides dos,
+                       __nv_bfloat16* __restrict__ out0, __nv_bfloat16* __restrict__ out1,
+                       float* __restrict__ partial, Strides s0, Strides s1, int group, int splits,
+                       int hq, int sq, int skv, int sq_pad, long long rows_pad, float scale2,
+                       float sm_scale, int causal, int work_x, int work_y, int work_z) {
+    using L = BwLayout<HD, kDKV>;
+    constexpr int W0 = L::W0, W1 = L::W1, COLS = L::COLS;
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    // owned full[2], owned empty[2], walked full[], walked empty[]
+    __shared__ __align__(8) uint64_t bars[4 + 2 * BW_STAGES];
+
+    const uint32_t raw = smem_u32(smem_raw);
+    const uint32_t base = (raw + 1023u) & ~1023u;
+    unsigned char* const base_ptr = smem_raw + (base - raw);
+    const uint32_t stages = base + 2 * L::OWN;   // the walked tiles' ring, after two owned buffers
+    const uint32_t own_full0 = smem_u32(&bars[0]);
+    const uint32_t own_empty0 = smem_u32(&bars[2]);
+    const uint32_t full0 = smem_u32(&bars[4]);
+    const uint32_t empty0 = smem_u32(&bars[4 + BW_STAGES]);
+    const int tid = threadIdx.x;
+    const int off = skv - sq;   // causal offset: query i sees keys <= i + off
+    // The work is a grid of items (row tiles, heads [x splits], batch), walked
+    // by a persistent grid: block k takes items k, k + gridDim.x, ...; item
+    // order is batch by batch, and in a batch the heavy row tiles of every
+    // head first.  An item's owned rows load into one of two buffers while
+    // the other's item is computed.
+    struct Item {
+        int b, r0, hk, split, h0, first, per_head, n_steps;
+    };
+    const int n_items = work_x * work_y * work_z;
+    const int n_heads = kDKV ? group / splits : 1;
+    const int hkv = kDKV ? work_y / splits : hq / group;
+    auto decode = [&](int item) {
+        Item it;
+        it.b = item / (work_x * work_y);
+        const int lin = item % (work_x * work_y);
+        const int tile = kDKV ? lin / work_y : work_x - 1 - lin / work_y;
+        it.r0 = tile * BW_ROWS;
+        const int idx = lin % work_y;
+        // dK/dV: kv head and split; dQ: q head and its kv head
+        it.hk = kDKV ? idx / splits : idx / group;
+        it.split = kDKV ? idx % splits : 0;
+        it.h0 = kDKV ? it.hk * group + it.split * n_heads : idx;
+        // the walked tiles: dK/dV, in each of its heads, the query tiles from
+        // the first that sees key r0; dQ, the key tiles up to its last row's limit
+        int n_walk;
+        it.first = 0;
+        if (kDKV) {
+            it.first = causal ? max(0, it.r0 - off) / COLS : 0;
+            n_walk = (sq + COLS - 1) / COLS;
+        } else {
+            const int end = causal ? min(skv, min(it.r0 + BW_ROWS, sq) + off) : skv;
+            n_walk = (end + COLS - 1) / COLS;
         }
-    }
-}
+        // step u walks tile first + u % per_head of head h0 + u / per_head
+        it.per_head = max(0, n_walk - it.first);
+        it.n_steps = n_heads * it.per_head;
+        return it;
+    };
 
-// out (16 x hd) += P (16 x C, bf16 A fragments) M (C x hd, row-major bf16 in
-// shared memory at m).
-template <int HD, int C>
-__device__ __forceinline__ void mma_pm(float (&out)[HD / 8][4], const uint32_t (&pa)[C / 16][4],
-                                       uint32_t m) {
-    constexpr int RS = HD + 8;
-    const int lane = threadIdx.x % 32;
-#pragma unroll
-    for (int kk = 0; kk < C / 16; ++kk)
-#pragma unroll
-        for (int n = 0; n < HD / 8; n += 2) {
-            uint32_t bf[4];   // b0, b1 of column tile n, then of n + 1 (transposed loads)
-            ldsm_x4_t(bf, m + 2 * ((16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * RS + 8 * n +
-                                   (lane >> 4) * 8));
-            mma16816(out[n], pa[kk], bf[0], bf[1]);
-            mma16816(out[n + 1], pa[kk], bf[2], bf[3]);
+    if (tid == 0) {
+        for (int i = 0; i < 2; ++i) {
+            mbar_init(own_full0 + 8 * i, 1);
+            mbar_init(own_empty0 + 8 * i, 256);
         }
-}
-
-// The accumulators of tiles 2 kk and 2 kk + 1 as the bf16 A fragment kk.
-template <int NT>
-__device__ __forceinline__ void to_a_frags(uint32_t (&pa)[NT / 2][4], const float (&acc)[NT][4]) {
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-        pa[kk][0] = pack_bf16(acc[2 * kk][0], acc[2 * kk][1]);
-        pa[kk][1] = pack_bf16(acc[2 * kk][2], acc[2 * kk][3]);
-        pa[kk][2] = pack_bf16(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
-        pa[kk][3] = pack_bf16(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
-    }
-}
-
-// A warp's 16 x hd accumulator rows (row0, row0 + 8) times `mul` to bf16 rows
-// of `dst` (head slice, row stride s) below `limit`.
-template <int HD>
-__device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* dst, long long s, int row0, int limit,
-                                                const float (&acc)[HD / 8][4], float mul) {
-    const int col = 2 * (threadIdx.x % 4);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int row = row0 + 8 * r;
-        if (row < limit) {
-#pragma unroll
-            for (int n = 0; n < HD / 8; ++n)
-                *reinterpret_cast<__nv_bfloat162*>(dst + row * s + 8 * n + col) =
-                    __floats2bfloat162_rn(acc[n][2 * r] * mul, acc[n][2 * r + 1] * mul);
+        for (int s = 0; s < BW_STAGES; ++s) {
+            mbar_init(full0 + 8 * s, 1);
+            mbar_init(empty0 + 8 * s, 256);   // every consumer thread releases a stage
         }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-}
+    __syncthreads();
 
-template <int HD>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Strides qs,
-                         Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs, int group,
-                         int hq, int sq, int skv, float sm_scale, int causal) {
-    using L = MmaSmem<HD>;
-    constexpr int C = L::C, NT = C / 8, RS = L::RS;
-    extern __shared__ __align__(16) __nv_bfloat16 smem_bf[];
-    __nv_bfloat16* Ks = smem_bf;
-    __nv_bfloat16* Vs = Ks + BWD_ROWS * RS;
-    __nv_bfloat16* Qs = Vs + BWD_ROWS * RS;
-    __nv_bfloat16* dOs = Qs + C * RS;
-    float* lse_s = reinterpret_cast<float*>(dOs + C * RS);
-    float* d_s = lse_s + C;
-
-    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-    const int hk = blockIdx.y, b = blockIdx.z;
-    const int k0 = blockIdx.x * BWD_ROWS;
-    const int off = skv - sq;
-    load_rows_bf16<HD>(Ks, k + b * ks.b + hk * ks.h, ks.s, k0, BWD_ROWS, skv);
-    load_rows_bf16<HD>(Vs, v + b * vs.b + hk * vs.h, vs.s, k0, BWD_ROWS, skv);
-    const int row0 = k0 + 16 * warp + lane / 4;   // this thread's keys: row0, row0 + 8
-    const uint32_t k_frag = smem_u32(Ks + 16 * warp * RS);
-    const uint32_t v_frag = smem_u32(Vs + 16 * warp * RS);
-
-    float acc_k[HD / 8][4], acc_v[HD / 8][4];
+    // One if/else for the whole kernel: `setmaxnreg` is ignored where the
+    // roles' paths meet again.
+    if (tid >= 256) {
+        // ---- producer warpgroup: its first thread issues every load ----
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+        if (tid == 256) {
+            int t = 0;   // the ring's step, across items
+            for (int item = blockIdx.x, j = 0; item < n_items; item += gridDim.x, ++j) {
+                const Item it = decode(item);
+                // owned rows: dK/dV K, V of kv head hk; dQ Q, dO of q head h0
+                const int ob = j & 1;
+                if (j >= 2) mbar_wait_or_trap(own_empty0 + 8 * ob, ((j >> 1) - 1) & 1);
+                const uint32_t own_full = own_full0 + 8 * ob;
+                const uint32_t ow = base + ob * L::OWN;
+                const int oh = kDKV ? it.hk : it.h0;
+                mbar_expect_tx(own_full, L::OWN);
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
-
-    const int first_tile = causal ? max(0, k0 - off) / C : 0;
-    const int n_q_tiles = (sq + C - 1) / C;
-    for (int g = 0; g < group; ++g) {
-        const int h = hk * group + g;
-        const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-        const __nv_bfloat16* dob = dout + b * dos.b + h * dos.h;
-        const long long rows0 = (static_cast<long long>(b) * hq + h) * sq;
-        for (int u = first_tile; u < n_q_tiles; ++u) {
-            const int c0 = u * C;
-            __syncthreads();   // every warp is done with the previous tile
-            load_rows_bf16<HD>(Qs, qb, qs.s, c0, C, sq);
-            load_rows_bf16<HD>(dOs, dob, dos.s, c0, C, sq);
-            for (int j = tid; j < C; j += MMA_THREADS) {
-                const bool in = c0 + j < sq;
-                lse_s[j] = in ? lse[rows0 + c0 + j] : 0.f;
-                d_s[j] = in ? delta[rows0 + c0 + j] : 0.f;
-            }
-            __syncthreads();
-
-            float s[NT][4], dp[NT][4];
-            mma_abt<HD, NT>(s, k_frag, smem_u32(Qs));    // S^T: keys x queries
-            mma_abt<HD, NT>(dp, v_frag, smem_u32(dOs));  // dP^T
-#pragma unroll
-            for (int j = 0; j < NT; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int k_pos = row0 + 8 * (e >> 1);
-                    const int qc = 8 * j + 2 * (lane % 4) + (e & 1);
-                    const int q_pos = c0 + qc;
-                    const bool valid = k_pos < skv && q_pos < sq && (!causal || q_pos + off >= k_pos);
-                    const float p = valid ? expf(fmaf(s[j][e], sm_scale, -lse_s[qc])) : 0.f;
-                    s[j][e] = p;
-                    dp[j][e] = p * (dp[j][e] - d_s[qc]);
+                for (int i = 0; i < 2; ++i) {
+                    tma_load_4d(ow + i * L::OWN_B, &maps.own[i][0], own_full, 0, it.r0, oh, it.b);
+                    if constexpr (W1 > 0)
+                        tma_load_4d(ow + i * L::OWN_B + L::OWN1, &maps.own[i][1], own_full, W0, it.r0,
+                                    oh, it.b);
                 }
-            uint32_t pa[NT / 2][4], da[NT / 2][4];
-            to_a_frags<NT>(pa, s);
-            to_a_frags<NT>(da, dp);
-            mma_pm<HD, C>(acc_v, pa, smem_u32(dOs));   // dV += P^T dO
-            mma_pm<HD, C>(acc_k, da, smem_u32(Qs));    // dK += dS^T Q
+                for (int u = 0; u < it.n_steps; ++u, ++t) {
+                    const int wh = kDKV ? it.h0 + u / it.per_head : it.hk;   // the walked head
+                    const int s = t % BW_STAGES;
+                    if (t >= BW_STAGES) mbar_wait_or_trap(empty0 + 8 * s, (t / BW_STAGES - 1) & 1);
+                    const uint32_t full = full0 + 8 * s;
+                    const uint32_t st = stages + s * L::STAGE;
+                    const int c0 = (it.first + u % it.per_head) * COLS;
+                    mbar_expect_tx(full, L::LOADED);
+#pragma unroll
+                    for (int i = 0; i < 2; ++i) {
+                        tma_load_4d(st + i * L::TB, &maps.walk[i][0], full, 0, c0, wh, it.b);
+                        if constexpr (W1 > 0)
+                            tma_load_4d(st + i * L::TB + L::T1, &maps.walk[i][1], full, W0, c0, wh, it.b);
+                    }
+                    if constexpr (kDKV) {
+                        const float* lse_row =
+                            stats + (static_cast<long long>(it.b) * hq + wh) * sq_pad + c0;
+                        bulk_load(st + L::VEC, lse_row, COLS * 4, full);
+                        bulk_load(st + L::VEC + COLS * 4, lse_row + rows_pad, COLS * 4, full);
+                    }
+                }
+            }
+        }
+    } else {
+        // ---- consumer warpgroups: 64 owned rows each ----
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+        const int wg = tid / 128;
+        const int warp = (tid % 128) / 32, lane = tid % 32;
+        const int row0 = warp * 16 + lane / 4;   // this thread's rows: row0, row0 + 8
+        const int col = 2 * (lane % 4);          // its first column in each 8-column chunk
+        const int rows_end = kDKV ? skv : sq;
+        int t0 = 0;   // the ring's step of the item's first tile
+        for (int item = blockIdx.x, j = 0; item < n_items; item += gridDim.x, ++j) {
+            const Item it = decode(item);
+            const int b = it.b, hk = it.hk, split = it.split, h0 = it.h0;
+            const int first = it.first, per_head = it.per_head, n_steps = it.n_steps;
+            const int rw0 = it.r0 + 64 * wg;         // the warpgroup's first owned row
+            const uint32_t ow = base + (j & 1) * L::OWN;
+            const uint32_t a0 = ow + 64 * wg * W0 * 2;              // owned tensor 0 (K or Q)
+            const uint32_t a1 = ow + L::OWN1 + 64 * wg * W1 * 2;
+            const uint32_t b0 = a0 + L::OWN_B;                      // owned tensor 1 (V or dO)
+            const uint32_t b1 = a1 + L::OWN_B;
+
+            float s[COLS / 2], dp[COLS / 2];
+            uint32_t pa[COLS / 4], da[COLS / 4];
+#pragma unroll
+            for (int i = 0; i < COLS / 2; ++i) s[i] = dp[i] = 0.f;
+            float acc0_lo[W0 / 2], acc0_hi[W1 > 0 ? W1 / 2 : 1];   // dK or dQ
+            float acc1_lo[kDKV ? W0 / 2 : 1], acc1_hi[kDKV && W1 > 0 ? W1 / 2 : 1];   // dV
+#pragma unroll
+            for (int i = 0; i < W0 / 2; ++i) acc0_lo[i] = 0.f;
+#pragma unroll
+            for (int i = 0; i < (W1 > 0 ? W1 / 2 : 1); ++i) acc0_hi[i] = 0.f;
+#pragma unroll
+            for (int i = 0; i < (kDKV ? W0 / 2 : 1); ++i) acc1_lo[i] = 0.f;
+#pragma unroll
+            for (int i = 0; i < (kDKV && W1 > 0 ? W1 / 2 : 1); ++i) acc1_hi[i] = 0.f;
+            // dQ: lse2 = lse log2(e) and D = rowsum(dO * O) of this thread's two
+            // rows (zeros past sq), each lane of a quad summing a quarter of the
+            // row in order; stored in the padded workspace for the dK/dV kernel,
+            // which runs after this one
+            float row_l2[2] = {0.f, 0.f}, row_d[2] = {0.f, 0.f};
+            if constexpr (!kDKV) {
+                const int quarter = (lane % 4) * (HD / 4);
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int row = rw0 + row0 + 8 * e;
+                    float sum = 0.f;
+                    if (row < sq) {
+                        const __nv_bfloat16* orow = o + b * os.b + h0 * os.h + row * os.s + quarter;
+                        const __nv_bfloat16* drow = dout + b * dos.b + h0 * dos.h + row * dos.s + quarter;
+#pragma unroll
+                        for (int p = 0; p < HD / 8; ++p) {
+                            const float2 x = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(orow)[p]);
+                            const float2 d = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(drow)[p]);
+                            sum = fmaf(d.y, x.y, fmaf(d.x, x.x, sum));
+                        }
+                        row_l2[e] = lse[(static_cast<long long>(b) * hq + h0) * sq + row] * LOG2E;
+                    }
+                    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+                    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+                    row_d[e] = sum;
+                    if (lane % 4 == 0) {
+                        const long long r = (static_cast<long long>(b) * hq + h0) * sq_pad + row;
+                        stats[r] = row_l2[e];
+                        stats[rows_pad + r] = sum;
+                    }
+                }
+            }
+
+            // S (S^T) and dP (dP^T) of the tile in stage `st`, one k-step per 16
+            // columns of each head-dim slab.  A descriptor's low 14 bits are the
+            // address in 16-byte units, so a k-step (32 bytes) adds 2 to it.
+            const uint64_t own_a0 = desc_k_major(a0, W0), own_a1 = desc_k_major(a1, W1);
+            const uint64_t own_b0 = desc_k_major(b0, W0), own_b1 = desc_k_major(b1, W1);
+            auto issue_ss = [&](uint32_t st) {
+                const uint64_t w0 = desc_k_major(st, W0), w1 = desc_k_major(st + L::T1, W1);
+                const uint64_t x0 = desc_k_major(st + L::TB, W0), x1 = desc_k_major(st + L::TB + L::T1, W1);
+#pragma unroll
+                for (int kk = 0; kk < W0 / 16; ++kk)
+                    wgmma_ss<COLS>(s, own_a0 + 2 * kk, w0 + 2 * kk, kk > 0);
+                if constexpr (W1 > 0) {
+#pragma unroll
+                    for (int kk = 0; kk < W1 / 16; ++kk) wgmma_ss<COLS>(s, own_a1 + 2 * kk, w1 + 2 * kk, 1);
+                }
+                wgmma_commit();
+#pragma unroll
+                for (int kk = 0; kk < W0 / 16; ++kk)
+                    wgmma_ss<COLS>(dp, own_b0 + 2 * kk, x0 + 2 * kk, kk > 0);
+                if constexpr (W1 > 0) {
+#pragma unroll
+                    for (int kk = 0; kk < W1 / 16; ++kk) wgmma_ss<COLS>(dp, own_b1 + 2 * kk, x1 + 2 * kk, 1);
+                }
+                wgmma_commit();
+            };
+            // acc {+}= frag (64 x COLS, bf16 A fragments) times the walked tensor
+            // at `addr` (COLS x HD, read MN-major), one product per slab and 16
+            // rows (16 rows of a slab of width w: 32 w bytes, 2 w in the descriptor)
+            auto issue_rs = [&](float (&lo)[W0 / 2], float (&hi)[W1 > 0 ? W1 / 2 : 1],
+                                const uint32_t* frag, uint32_t addr) {
+                const uint64_t m0 = desc_mn_major(addr, W0), m1 = desc_mn_major(addr + L::T1, W1);
+#pragma unroll
+                for (int kk = 0; kk < COLS / 16; ++kk) {
+                    wgmma_rs<W0>(lo, frag + 4 * kk, m0 + 2 * W0 * kk);
+                    if constexpr (W1 > 0) wgmma_rs<W1>(hi, frag + 4 * kk, m1 + 2 * W1 * kk);
+                }
+            };
+            auto pack = [&](uint32_t (&frag)[COLS / 4], const float (&x)[COLS / 2]) {
+#pragma unroll
+                for (int kk = 0; kk < COLS / 16; ++kk) {
+                    frag[4 * kk + 0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
+                    frag[4 * kk + 1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+                    frag[4 * kk + 2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+                    frag[4 * kk + 3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+                }
+            };
+
+            // Ping-pong, as in the forward: the two consumer warpgroups take turns
+            // to issue their products (named barriers 1 and 2), so that one's
+            // exponentials run while the other's products hold the tensor cores.
+            // Each takes one turn a walked tile and one to finish; warpgroup 0
+            // takes the first, warpgroup 1 skips its last hand-over.
+            constexpr bool ping_pong = L::overlap;
+            int turns_left = n_steps + 1;
+            auto begin_turn = [&]() {
+                if constexpr (ping_pong) named_sync(1 + wg);
+            };
+            auto end_turn = [&]() {
+                if constexpr (ping_pong) {
+                    if (wg == 0 || --turns_left > 0) named_arrive(2 - wg);
+                }
+            };
+            if constexpr (ping_pong) {
+                if (wg == 1) named_arrive(1);
+            }
+            auto fence_all = [&]() {
+                fence_regs(pa);
+                fence_regs(da);
+                fence_regs(acc0_lo);
+                fence_regs(acc0_hi);
+                fence_regs(acc1_lo);
+                fence_regs(acc1_hi);
+            };
+            // step u of the item is the ring's step t0 + u
+            auto stage_addr = [&](int u) { return stages + ((t0 + u) % BW_STAGES) * L::STAGE; };
+            // dV += P^T dO and dK += dS^T Q, or dQ += dS K, from step u's tile
+            auto issue_products = [&](int u) {
+                const uint32_t st = stage_addr(u);
+                if constexpr (kDKV) issue_rs(acc1_lo, acc1_hi, pa, st + L::TB);
+                issue_rs(acc0_lo, acc0_hi, da, st);
+                wgmma_commit();
+            };
+            auto wait_full = [&](int u) {
+                const int t = t0 + u;
+                mbar_wait_or_trap(full0 + 8 * (t % BW_STAGES), (t / BW_STAGES) & 1);
+            };
+            auto release = [&](int u) { mbar_arrive(empty0 + 8 * ((t0 + u) % BW_STAGES)); };
+            auto issue_ss_of = [&](int u) { issue_ss(stage_addr(u)); };
+            // Once step t's S is ready (dP may still run): P, then dS, both packed
+            // as bf16 A fragments.  Every tile is computed: one that none of this
+            // warpgroup's pairs sees is masked whole, so that no product is
+            // issued on a path that only some warpgroups take (ptxas would then
+            // serialise every product, C7520).
+            auto grads = [&](int u) {
+                const int c0 = (first + u % per_head) * COLS;   // the tile's first walked row
+                const float* vec = reinterpret_cast<const float*>(
+                    base_ptr + (stage_addr(u) - base) + L::VEC);
+                const bool masked = kDKV ? c0 + COLS > sq || (causal && c0 + off < rw0 + 63)
+                                         : c0 + COLS > skv || (causal && c0 + COLS - 1 > rw0 + off);
+                fence_regs(s);
+                // P = exp2(S scale2 - lse2)
+#pragma unroll
+                for (int c = 0; c < COLS / 8; ++c) {
+                    float2 l2 = make_float2(row_l2[0], row_l2[1]);
+                    if constexpr (kDKV) l2 = *reinterpret_cast<const float2*>(vec + 8 * c + col);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const float lv = kDKV ? ((e & 1) ? l2.y : l2.x) : ((e >> 1) ? l2.y : l2.x);
+                        s[4 * c + e] = fast_exp2(fmaf(s[4 * c + e], scale2, -lv));
+                    }
+                }
+                // zero where masked, only in tiles that cross the diagonal or an end
+                if (masked) {
+#pragma unroll
+                    for (int c = 0; c < COLS / 8; ++c)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            const int r = rw0 + row0 + 8 * (e >> 1);
+                            const int w = c0 + 8 * c + col + (e & 1);
+                            // dK/dV: r is a key, w a query; dQ: r a query, w a key
+                            const int qp = kDKV ? w : r, kp = kDKV ? r : w;
+                            const bool out = kDKV ? qp >= sq : kp >= skv;
+                            if (out || (causal && qp + off < kp)) s[4 * c + e] = 0.f;
+                        }
+                }
+                wgmma_wait<0>();
+                fence_regs(dp);
+                // dS = P (dP - D)
+#pragma unroll
+                for (int c = 0; c < COLS / 8; ++c) {
+                    float2 dd = make_float2(row_d[0], row_d[1]);
+                    if constexpr (kDKV) dd = *reinterpret_cast<const float2*>(vec + COLS + 8 * c + col);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const float dv = kDKV ? ((e & 1) ? dd.y : dd.x) : ((e >> 1) ? dd.y : dd.x);
+                        dp[4 * c + e] = s[4 * c + e] * (dp[4 * c + e] - dv);
+                    }
+                }
+                pack(da, dp);
+                if constexpr (kDKV) pack(pa, s);
+            };
+
+            mbar_wait_or_trap(own_full0 + 8 * (j & 1), (j >> 1) & 1);
+            if (n_steps == 0) {
+                begin_turn();
+                end_turn();
+            } else if constexpr (L::overlap) {
+                // Step u's products are issued with step u + 1's S and dP and run
+                // while its exponentials are computed.
+                wait_full(0);
+                fence_all();
+                begin_turn();
+                wgmma_fence();
+                issue_ss_of(0);
+                end_turn();
+                wgmma_wait<1>();
+                grads(0);
+                for (int u = 1; u < n_steps; ++u) {
+                    wait_full(u);
+                    fence_all();
+                    begin_turn();
+                    wgmma_fence();
+                    issue_products(u - 1);
+                    issue_ss_of(u);
+                    end_turn();
+                    wgmma_wait<1>();   // step u - 1's products and step u's S are done
+                    fence_all();
+                    release(u - 1);
+                    grads(u);
+                }
+                fence_all();
+                begin_turn();
+                wgmma_fence();
+                issue_products(n_steps - 1);
+                end_turn();
+                wgmma_wait<0>();
+                fence_all();
+                release(n_steps - 1);
+            } else {
+                // One tile after the other: S and dP, P and dS, then the products.
+                for (int u = 0; u < n_steps; ++u) {
+                    wait_full(u);
+                    fence_all();
+                    wgmma_fence();
+                    issue_ss_of(u);
+                    wgmma_wait<1>();
+                    grads(u);
+                    fence_all();
+                    wgmma_fence();
+                    issue_products(u);
+                    wgmma_wait<0>();
+                    fence_all();
+                    release(u);
+                }
+            }
+            // the owned buffer is free: every product that read it has completed
+            mbar_arrive(own_empty0 + 8 * (j & 1));
+            t0 += n_steps;
+
+            // epilogue: rows below rows_end; dK and dQ carry the softmax scale
+            const int hb = kDKV ? hk : h0;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const int row = rw0 + row0 + 8 * r;
+                if (row >= rows_end) continue;
+                if constexpr (kDKV) {
+                    if (partial != nullptr) {
+                        const long long elems = static_cast<long long>(work_z) * hkv * skv * HD;
+                        float* pk = partial + split * elems +
+                                    ((static_cast<long long>(b) * hkv + hk) * skv + row) * HD;
+                        float* pv = pk + splits * elems;
+#pragma unroll
+                        for (int c = 0; c < W0 / 8; ++c) {
+                            *reinterpret_cast<float2*>(pk + 8 * c + col) =
+                                make_float2(acc0_lo[4 * c + 2 * r], acc0_lo[4 * c + 2 * r + 1]);
+                            *reinterpret_cast<float2*>(pv + 8 * c + col) =
+                                make_float2(acc1_lo[4 * c + 2 * r], acc1_lo[4 * c + 2 * r + 1]);
+                        }
+                        if constexpr (W1 > 0) {
+#pragma unroll
+                            for (int c = 0; c < W1 / 8; ++c) {
+                                *reinterpret_cast<float2*>(pk + W0 + 8 * c + col) =
+                                    make_float2(acc0_hi[4 * c + 2 * r], acc0_hi[4 * c + 2 * r + 1]);
+                                *reinterpret_cast<float2*>(pv + W0 + 8 * c + col) =
+                                    make_float2(acc1_hi[4 * c + 2 * r], acc1_hi[4 * c + 2 * r + 1]);
+                            }
+                        }
+                        continue;
+                    }
+                }
+                __nv_bfloat16* o0 = out0 + b * s0.b + hb * s0.h + row * s0.s + col;
+#pragma unroll
+                for (int c = 0; c < W0 / 8; ++c)
+                    *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * c) = __floats2bfloat162_rn(
+                        acc0_lo[4 * c + 2 * r] * sm_scale, acc0_lo[4 * c + 2 * r + 1] * sm_scale);
+                if constexpr (W1 > 0) {
+#pragma unroll
+                    for (int c = 0; c < W1 / 8; ++c)
+                        *reinterpret_cast<__nv_bfloat162*>(o0 + W0 + 8 * c) = __floats2bfloat162_rn(
+                            acc0_hi[4 * c + 2 * r] * sm_scale, acc0_hi[4 * c + 2 * r + 1] * sm_scale);
+                }
+                if constexpr (kDKV) {
+                    __nv_bfloat16* o1 = out1 + b * s1.b + hb * s1.h + row * s1.s + col;
+#pragma unroll
+                    for (int c = 0; c < W0 / 8; ++c)
+                        *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * c) =
+                            __floats2bfloat162_rn(acc1_lo[4 * c + 2 * r], acc1_lo[4 * c + 2 * r + 1]);
+                    if constexpr (W1 > 0) {
+#pragma unroll
+                        for (int c = 0; c < W1 / 8; ++c)
+                            *reinterpret_cast<__nv_bfloat162*>(o1 + W0 + 8 * c) =
+                                __floats2bfloat162_rn(acc1_hi[4 * c + 2 * r], acc1_hi[4 * c + 2 * r + 1]);
+                    }
+                }
+            }
         }
     }
-    store_rows_bf16<HD>(dk + b * dks.b + hk * dks.h, dks.s, row0, skv, acc_k, sm_scale);
-    store_rows_bf16<HD>(dv + b * dvs.b + hk * dvs.h, dvs.s, row0, skv, acc_v, 1.f);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq, Strides qs, Strides ks, Strides vs,
-                        Strides dos, Strides dqs, int group, int sq, int skv, int n_q_tiles,
-                        float sm_scale, int causal) {
-    using L = MmaSmem<HD>;
-    constexpr int C = L::C, NT = C / 8, RS = L::RS;
-    extern __shared__ __align__(16) __nv_bfloat16 smem_bf[];
-    __nv_bfloat16* Qs = smem_bf;
-    __nv_bfloat16* dOs = Qs + BWD_ROWS * RS;
-    __nv_bfloat16* Ks = dOs + BWD_ROWS * RS;
-    __nv_bfloat16* Vs = Ks + C * RS;
-
-    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-    const int q_tile = n_q_tiles - 1 - static_cast<int>(blockIdx.x);   // heaviest first
-    const int h = blockIdx.y, b = blockIdx.z;
-    const int hk = h / group;
-    const int q0 = q_tile * BWD_ROWS;
-    const int off = skv - sq;
-    load_rows_bf16<HD>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, BWD_ROWS, sq);
-    load_rows_bf16<HD>(dOs, dout + b * dos.b + h * dos.h, dos.s, q0, BWD_ROWS, sq);
-    const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
-    const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
-    const int row0 = q0 + 16 * warp + lane / 4;   // this thread's queries: row0, row0 + 8
-    const long long rows0 = (static_cast<long long>(b) * gridDim.y + h) * sq;
-    float lse_r[2], d_r[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int row = row0 + 8 * r;
-        lse_r[r] = row < sq ? lse[rows0 + row] : 0.f;
-        d_r[r] = row < sq ? delta[rows0 + row] : 0.f;
+// dk = bf16(sm_scale * sum_j partial_k[j]) and dv = bf16(sum_j partial_v[j]),
+// the splits summed in order; one thread per pair of columns.
+__global__ void __launch_bounds__(256)
+flash_bwd_sum_kernel(const float* __restrict__ partial, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, Strides dks, Strides dvs, int splits, int hkv,
+                     int skv, int hd, long long pairs, float sm_scale) {
+    const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+    if (i >= pairs) return;
+    const long long e = 2 * i, elems = 2 * pairs;
+    const int d = static_cast<int>(e % hd);
+    const long long rest = e / hd;
+    const int row = static_cast<int>(rest % skv);
+    const int hk = static_cast<int>((rest / skv) % hkv);
+    const long long b = rest / (static_cast<long long>(skv) * hkv);
+    float2 sk = make_float2(0.f, 0.f), sv = make_float2(0.f, 0.f);
+    for (int j = 0; j < splits; ++j) {
+        const float2 pk = *reinterpret_cast<const float2*>(partial + j * elems + e);
+        const float2 pv = *reinterpret_cast<const float2*>(partial + (splits + j) * elems + e);
+        sk.x += pk.x;
+        sk.y += pk.y;
+        sv.x += pv.x;
+        sv.y += pv.y;
     }
-    const uint32_t q_frag = smem_u32(Qs + 16 * warp * RS);
-    const uint32_t do_frag = smem_u32(dOs + 16 * warp * RS);
-
-    float acc[HD / 8][4];
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-    const int kv_end = causal ? min(skv, min(q0 + BWD_ROWS, sq) + off) : skv;
-    const int n_tiles = (kv_end + C - 1) / C;
-    for (int t = 0; t < n_tiles; ++t) {
-        const int k0 = t * C;
-        __syncthreads();   // every warp is done with the previous tile
-        load_rows_bf16<HD>(Ks, kb, ks.s, k0, C, skv);
-        load_rows_bf16<HD>(Vs, vb, vs.s, k0, C, skv);
-        __syncthreads();
-
-        float s[NT][4], dp[NT][4];
-        mma_abt<HD, NT>(s, q_frag, smem_u32(Ks));
-        mma_abt<HD, NT>(dp, do_frag, smem_u32(Vs));
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int q_pos = row0 + 8 * (e >> 1);
-                const int k_pos = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
-                const bool valid = q_pos < sq && k_pos < skv && (!causal || q_pos + off >= k_pos);
-                const float p = valid ? expf(fmaf(s[j][e], sm_scale, -lse_r[e >> 1])) : 0.f;
-                s[j][e] = p * (dp[j][e] - d_r[e >> 1]);
-            }
-        uint32_t da[NT / 2][4];
-        to_a_frags<NT>(da, s);
-        mma_pm<HD, C>(acc, da, smem_u32(Ks));   // dQ += dS K
-    }
-    store_rows_bf16<HD>(dq + b * dqs.b + h * dqs.h, dqs.s, row0, sq, acc, sm_scale);
+    *reinterpret_cast<__nv_bfloat162*>(dk + b * dks.b + hk * dks.h + row * dks.s + d) =
+        __floats2bfloat162_rn(sk.x * sm_scale, sk.y * sm_scale);
+    *reinterpret_cast<__nv_bfloat162*>(dv + b * dvs.b + hk * dvs.h + row * dvs.s + d) =
+        __floats2bfloat162_rn(sv.x, sv.y);
 }
 
 // The backward's launch plan (kernels/flash_attention.py, `FlashBwdPlan.as_array`),
-// int64: [0] route (0 = CUDA cores, 1 = mma), [1] rows a block owns (64), [2] C,
-// [3] threads, [4..6] the dQ grid, [7..9] the dK/dV grid, [10] dynamic shared
-// memory bytes, [11] D-pass blocks.
-constexpr int BWD_PLAN_LEN = 12;
+// int64: [0] route (0 = CUDA cores, 1 = wgmma), [1] rows a block owns, [2]
+// queries of a tile the dK/dV kernel walks, [3] keys of a tile the dQ kernel
+// walks, [4] stages, [5] threads, [6..8] the dQ grid, [9..11] the dK/dV grid,
+// [12] / [13] the dK/dV / dQ kernel's dynamic shared memory bytes, [14] D-pass
+// blocks, [15] splits of a GQA group, [16] sq_pad (the lse / D row stride),
+// [17] workspace bytes of the partial dK/dV, then on the wgmma route 8 tensor
+// maps of 16 values each (PLAN_OPERANDS's layout): the dK/dV kernel's k, v,
+// q, dout, then the dQ kernel's q, dout, k, v.
+constexpr int BWD_MAPS = 18;
+constexpr int BWD_PLAN_LEN = BWD_MAPS + 8 * 16;
 
 struct BwdArgs {
     const void *q, *k, *v, *o, *dout;
     const float* lse;
     float* delta;
+    float* workspace;
     void *dq, *dk, *dv;
     Strides qs, ks, vs, os, dos, dqs, dks, dvs;
     int b, hq, hkv, sq, skv, hd;
@@ -1583,15 +1962,12 @@ struct BwdArgs {
     int causal;
 };
 
-// The plan must describe the kernels built for this route and HD.
-bool bwd_plan_ok(const long long* plan, const BwdArgs& a, int route, int cols, int threads,
-                 size_t smem) {
-    const long long rows = static_cast<long long>(a.b) * a.hq * a.sq;
-    return plan[0] == route && plan[1] == BWD_ROWS && plan[2] == cols && plan[3] == threads &&
-           plan[4] == (a.sq + BWD_ROWS - 1) / BWD_ROWS && plan[5] == a.hq && plan[6] == a.b &&
-           plan[7] == (a.skv + BWD_ROWS - 1) / BWD_ROWS && plan[8] == a.hkv && plan[9] == a.b &&
-           plan[10] == static_cast<long long>(smem) && plan[11] == (rows + DOT_ROWS - 1) / DOT_ROWS &&
-           plan[11] <= 2147483647LL;
+// The plan's shared entries: grids and the D pass.
+bool bwd_plan_grids_ok(const long long* plan, const BwdArgs& a, int rows, int dkv_y,
+                       long long dot_blocks) {
+    return plan[1] == rows && plan[6] == (a.sq + rows - 1) / rows && plan[7] == a.hq &&
+           plan[8] == a.b && plan[9] == (a.skv + rows - 1) / rows && plan[10] == dkv_y &&
+           plan[11] == a.b && plan[14] == dot_blocks && plan[14] <= 2147483647LL;
 }
 
 template <typename K>
@@ -1603,7 +1979,7 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 template <typename T>
 cudaError_t launch_dot(const BwdArgs& a, const long long* plan, cudaStream_t stream) {
-    flash_bwd_dot_kernel<T><<<static_cast<unsigned>(plan[11]), 32 * DOT_ROWS, 0, stream>>>(
+    flash_bwd_dot_kernel<T><<<static_cast<unsigned>(plan[14]), 32 * DOT_ROWS, 0, stream>>>(
         static_cast<const T*>(a.dout), static_cast<const T*>(a.o), a.delta, a.dos, a.os, a.hq,
         a.sq, a.hd, static_cast<long long>(a.b) * a.hq * a.sq);
     return cudaGetLastError();
@@ -1612,7 +1988,12 @@ cudaError_t launch_dot(const BwdArgs& a, const long long* plan, cudaStream_t str
 template <typename T, int HD>
 int launch_bwd(const BwdArgs& a, const long long* plan, cudaStream_t stream) {
     using L = BwdSmem<HD>;
-    if (!bwd_plan_ok(plan, a, 0, L::C, BWD_THREADS, L::bytes)) return cudaErrorInvalidValue;
+    const long long smem = static_cast<long long>(L::bytes);
+    const long long rows = static_cast<long long>(a.b) * a.hq * a.sq;
+    if (plan[0] != 0 || !bwd_plan_grids_ok(plan, a, BWD_ROWS, a.hkv, (rows + DOT_ROWS - 1) / DOT_ROWS) ||
+        plan[2] != L::C || plan[3] != L::C || plan[4] != 1 || plan[5] != BWD_THREADS ||
+        plan[12] != smem || plan[13] != smem || plan[15] != 1 || plan[16] != a.sq || plan[17] != 0)
+        return cudaErrorInvalidValue;
     auto dkv = flash_bwd_dkv_kernel<T, HD>;
     auto dq = flash_bwd_dq_kernel<T, HD>;
     cudaError_t err = allow_smem(dkv, L::bytes);
@@ -1623,40 +2004,113 @@ int launch_bwd(const BwdArgs& a, const long long* plan, cudaStream_t stream) {
     const T* k = static_cast<const T*>(a.k);
     const T* v = static_cast<const T*>(a.v);
     const T* dout = static_cast<const T*>(a.dout);
-    dkv<<<dim3(plan[7], a.hkv, a.b), BWD_THREADS, L::bytes, stream>>>(
+    dkv<<<dim3(plan[9], a.hkv, a.b), BWD_THREADS, L::bytes, stream>>>(
         q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.qs, a.ks,
         a.vs, a.dos, a.dks, a.dvs, a.hq / a.hkv, a.hq, a.sq, a.skv, a.sm_scale, a.causal);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    dq<<<dim3(plan[4], a.hq, a.b), BWD_THREADS, L::bytes, stream>>>(
+    dq<<<dim3(plan[6], a.hq, a.b), BWD_THREADS, L::bytes, stream>>>(
         q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq), a.qs, a.ks, a.vs, a.dos, a.dqs,
-        a.hq / a.hkv, a.sq, a.skv, static_cast<int>(plan[4]), a.sm_scale, a.causal);
+        a.hq / a.hkv, a.sq, a.skv, static_cast<int>(plan[6]), a.sm_scale, a.causal);
     return cudaGetLastError();
 }
 
+// The wgmma route's plan must describe exactly the kernels built for HD.
 template <int HD>
-int launch_bwd_mma(const BwdArgs& a, const long long* plan, cudaStream_t stream) {
-    using L = MmaSmem<HD>;
-    using B = __nv_bfloat16;
-    if (!bwd_plan_ok(plan, a, 1, L::C, MMA_THREADS, L::bytes)) return cudaErrorInvalidValue;
-    auto dkv = flash_bwd_dkv_mma_kernel<HD>;
-    auto dq = flash_bwd_dq_mma_kernel<HD>;
-    cudaError_t err = allow_smem(dkv, L::bytes);
-    if (err == cudaSuccess) err = allow_smem(dq, L::bytes);
-    if (err == cudaSuccess) err = launch_dot<B>(a, plan, stream);
+bool bwd_wgmma_plan_ok(const long long* plan, const BwdArgs& a) {
+    using KV = BwLayout<HD, true>;
+    using Q = BwLayout<HD, false>;
+    const int group = a.hq / a.hkv;
+    const long long splits = plan[15];
+    const long long sq_pad = (a.sq + BW_ROWS - 1) / BW_ROWS * BW_ROWS;
+    if (splits < 1 || group % splits != 0 || a.hkv * splits > 65535) return false;
+    const long long workspace =
+        splits > 1 ? 2 * splits * a.b * a.hkv * static_cast<long long>(a.skv) * HD * 4 : 0;
+    if (plan[0] != 1 || !bwd_plan_grids_ok(plan, a, BW_ROWS, static_cast<int>(a.hkv * splits), 0) ||
+        plan[2] != KV::COLS || plan[3] != Q::COLS || plan[4] != BW_STAGES ||
+        plan[5] != BW_THREADS || plan[12] != KV::smem || plan[13] != Q::smem ||
+        plan[16] != sq_pad || plan[17] != workspace)
+        return false;
+    // per map: its tensor's rows and heads, and the box rows of its kernel
+    const long long seq[8] = {a.skv, a.skv, a.sq, a.sq, a.sq, a.sq, a.skv, a.skv};
+    const long long heads[8] = {a.hkv, a.hkv, a.hq, a.hq, a.hq, a.hq, a.hkv, a.hkv};
+    const long long box[8] = {BW_ROWS, BW_ROWS, KV::COLS, KV::COLS, BW_ROWS, BW_ROWS, Q::COLS, Q::COLS};
+    const int n_slabs = KV::W1 > 0 ? 2 : 1;
+    for (int i = 0; i < 8; ++i) {
+        const long long* op = plan + BWD_MAPS + 16 * i;
+        if (op[0] != HD || op[1] != seq[i] || op[2] != heads[i] || op[3] != a.b || op[7] != n_slabs)
+            return false;
+        for (int j = 4; j < 7; ++j)
+            if (op[j] <= 0 || op[j] % 16 != 0 || op[j] >= (1LL << 40)) return false;
+        for (int j = 0; j < n_slabs; ++j) {
+            const long long* sl = op + 8 + 4 * j;
+            const int width = j == 0 ? KV::W0 : KV::W1;
+            if (sl[0] != (j == 0 ? 0 : KV::W0) || sl[1] != width || sl[2] != 2 * width ||
+                sl[3] != box[i])
+                return false;
+        }
+    }
+    return true;
+}
+
+template <int HD>
+int launch_bwd_wgmma(const BwdArgs& a, const long long* plan, cudaStream_t stream) {
+    using KV = BwLayout<HD, true>;
+    using Q = BwLayout<HD, false>;
+    if (!bwd_wgmma_plan_ok<HD>(plan, a)) return cudaErrorInvalidValue;
+    const int splits = static_cast<int>(plan[15]);
+    if ((splits > 1) != (a.workspace != nullptr)) return cudaErrorInvalidValue;
+    const EncodeTiledFn encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorSymbolNotFound;
+    BwdMaps maps[2];   // the dK/dV kernel's, the dQ kernel's
+    memset(maps, 0, sizeof(maps));
+    const void* bases[8] = {a.k, a.v, a.q, a.dout, a.q, a.dout, a.k, a.v};
+    for (int i = 0; i < 8; ++i) {
+        const long long* op = plan + BWD_MAPS + 16 * i;
+        BwdMaps& m = maps[i / 4];
+        CUtensorMap* dst = i % 4 < 2 ? m.own[i % 2] : m.walk[i % 2];
+        for (int j = 0; j < op[7]; ++j) {
+            const CUresult res = encode_map(encode, &dst[j], bases[i], op, j);
+            if (res != CUDA_SUCCESS) return ENCODE_FAILED + static_cast<int>(res);
+        }
+    }
+    auto dkv = flash_bwd_wgmma_kernel<HD, true>;
+    auto dq = flash_bwd_wgmma_kernel<HD, false>;
+    cudaError_t err = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, KV::smem);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, Q::smem);
     if (err != cudaSuccess) return err;
-    const B* q = static_cast<const B*>(a.q);
-    const B* k = static_cast<const B*>(a.k);
-    const B* v = static_cast<const B*>(a.v);
-    const B* dout = static_cast<const B*>(a.dout);
-    dkv<<<dim3(plan[7], a.hkv, a.b), MMA_THREADS, L::bytes, stream>>>(
-        q, k, v, dout, a.lse, a.delta, static_cast<B*>(a.dk), static_cast<B*>(a.dv), a.qs, a.ks,
-        a.vs, a.dos, a.dks, a.dvs, a.hq / a.hkv, a.hq, a.sq, a.skv, a.sm_scale, a.causal);
+    const int sq_pad = static_cast<int>(plan[16]);
+    const long long rows_pad = static_cast<long long>(a.b) * a.hq * sq_pad;
+    using B = __nv_bfloat16;
+    const int group = a.hq / a.hkv;
+    const float scale2 = a.sm_scale * LOG2E;
+    // persistent grids: one block an SM, or one an item where there are fewer
+    int device = 0, sms = 0;
+    err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    const long long dq_items = plan[6] * plan[7] * plan[8], dkv_items = plan[9] * plan[10] * plan[11];
+    if (dq_items > 2147483647LL || dkv_items > 2147483647LL) return cudaErrorInvalidValue;
+    // dQ first: it also writes lse2 and D, which the dK/dV kernel reads
+    dq<<<static_cast<unsigned>(std::min<long long>(dq_items, sms)), BW_THREADS, Q::smem, stream>>>(
+        maps[1], a.delta, static_cast<const B*>(a.o), static_cast<const B*>(a.dout), a.lse, a.os,
+        a.dos, static_cast<B*>(a.dq), nullptr, nullptr, a.dqs, a.dqs, group, 1, a.hq, a.sq, a.skv,
+        sq_pad, rows_pad, scale2, a.sm_scale, a.causal, static_cast<int>(plan[6]),
+        static_cast<int>(plan[7]), static_cast<int>(plan[8]));
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    dq<<<dim3(plan[4], a.hq, a.b), MMA_THREADS, L::bytes, stream>>>(
-        q, k, v, dout, a.lse, a.delta, static_cast<B*>(a.dq), a.qs, a.ks, a.vs, a.dos, a.dqs,
-        a.hq / a.hkv, a.sq, a.skv, static_cast<int>(plan[4]), a.sm_scale, a.causal);
+    dkv<<<static_cast<unsigned>(std::min<long long>(dkv_items, sms)), BW_THREADS, KV::smem, stream>>>(
+        maps[0], a.delta, nullptr, nullptr, nullptr, a.os, a.dos, static_cast<B*>(a.dk),
+        static_cast<B*>(a.dv), a.workspace, a.dks, a.dvs, group, splits, a.hq, a.sq, a.skv, sq_pad,
+        rows_pad, scale2, a.sm_scale, a.causal, static_cast<int>(plan[9]),
+        static_cast<int>(plan[10]), static_cast<int>(plan[11]));
+    err = cudaGetLastError();
+    if (err != cudaSuccess || splits == 1) return err;
+    const long long pairs = static_cast<long long>(a.b) * a.hkv * a.skv * HD / 2;
+    flash_bwd_sum_kernel<<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, stream>>>(
+        a.workspace, static_cast<B*>(a.dk), static_cast<B*>(a.dv), a.dks, a.dvs, splits, a.hkv,
+        a.skv, HD, pairs, a.sm_scale);
     return cudaGetLastError();
 }
 
@@ -1672,18 +2126,19 @@ int dispatch_bwd(const BwdArgs& a, const long long* plan, cudaStream_t stream) {
     }
 }
 
-int dispatch_bwd_mma(const BwdArgs& a, const long long* plan, cudaStream_t stream) {
+int dispatch_bwd_wgmma(const BwdArgs& a, const long long* plan, cudaStream_t stream) {
     switch (a.hd) {
-        case 16: return launch_bwd_mma<16>(a, plan, stream);
-        case 32: return launch_bwd_mma<32>(a, plan, stream);
-        case 64: return launch_bwd_mma<64>(a, plan, stream);
-        case 80: return launch_bwd_mma<80>(a, plan, stream);
-        case 128: return launch_bwd_mma<128>(a, plan, stream);
+        case 16: return launch_bwd_wgmma<16>(a, plan, stream);
+        case 32: return launch_bwd_wgmma<32>(a, plan, stream);
+        case 64: return launch_bwd_wgmma<64>(a, plan, stream);
+        case 80: return launch_bwd_wgmma<80>(a, plan, stream);
+        case 128: return launch_bwd_wgmma<128>(a, plan, stream);
         default: return cudaErrorInvalidValue;
     }
 }
 
 }  // namespace
+
 
 // dtype codes: 0 = float32, 1 = bfloat16.  `strides` holds (batch, head, seq)
 // element strides of q, k, v, o in that order (12 values); the head_dim stride
@@ -1725,36 +2180,41 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     return cudaErrorInvalidValue;
 }
 
+
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, o, dout and the gradients
 // share it).  `strides` holds (batch, head, seq) element strides of q, k, v,
 // o, dout, dq, dk, dv in that order (24 values); the head_dim stride is 1.
-// `lse`: the forward's (b, hq, sq) fp32 log-sum-exp; `delta`: a (b, hq, sq)
-// fp32 workspace for D.  `plan`: see BWD_PLAN_LEN above (route 1, the tensor
-// cores, takes bf16 whose rows are 16-byte aligned).  Returns 0 when the three
-// kernels were launched, else a cudaError_t.
+// `lse`: the forward's (b, hq, sq) fp32 log-sum-exp.  `delta`: an fp32
+// workspace for D, (b, hq, sq) on the CUDA cores and 2 x (b, hq, sq_pad) on
+// the wgmma route (lse * log2(e), then D).  `workspace`: null, or the fp32
+// partial dK/dV of a split GQA group (the plan's bytes).  `plan`: see
+// BWD_PLAN_LEN above (route 1, wgmma, takes bf16 whose rows are 16-byte
+// aligned).  Returns 0 when every kernel was launched, else a cudaError_t, or
+// ENCODE_FAILED + the CUresult of a failed tensor-map encode.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                                   const void* dout, const float* lse, float* delta, void* dq,
-                                   void* dk, void* dv, int dtype, int b, int hq, int hkv, int sq,
-                                   int skv, int hd, const long long* strides, float sm_scale,
-                                   int causal, const long long* plan, void* stream) {
+                                   const void* dout, const float* lse, float* delta,
+                                   float* workspace, void* dq, void* dk, void* dv, int dtype, int b,
+                                   int hq, int hkv, int sq, int skv, int hd,
+                                   const long long* strides, float sm_scale, int causal,
+                                   const long long* plan, void* stream) {
     if (b <= 0 || hq <= 0 || hkv <= 0 || sq <= 0 || skv <= 0 || hq % hkv != 0 || hq > 65535 ||
         b > 65535 || (causal && sq > skv))
         return static_cast<int>(cudaErrorInvalidValue);
     auto st = [&](int i) { return Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]}; };
-    const BwdArgs a{q, k, v, o, dout, lse, delta, dq, dk, dv,
+    const BwdArgs a{q, k, v, o, dout, lse, delta, workspace, dq, dk, dv,
                     st(0), st(1), st(2), st(3), st(4), st(5), st(6), st(7),
                     b, hq, hkv, sq, skv, hd, sm_scale, causal};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (plan[0] == 1) {   // the mma route: bf16 rows in 16-byte pieces, bf16 pairs stored
+    if (plan[0] == 1) {   // the wgmma route: bf16 rows in 16-byte pieces, bf16 pairs stored
         const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
         for (int i = 0; i < 8; ++i)
             if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return cudaErrorInvalidValue;
         for (int i = 0; i < 24; ++i)
             if (strides[i] % 8 != 0) return cudaErrorInvalidValue;
         if (dtype != 1) return cudaErrorInvalidValue;
-        return dispatch_bwd_mma(a, plan, s);
+        return dispatch_bwd_wgmma(a, plan, s);
     }
-    if (plan[0] != 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (plan[0] != 0 || workspace != nullptr) return static_cast<int>(cudaErrorInvalidValue);
     if (dtype == 0) return dispatch_bwd<float>(a, plan, s);
     if (dtype == 1) return dispatch_bwd<__nv_bfloat16>(a, plan, s);
     return static_cast<int>(cudaErrorInvalidValue);

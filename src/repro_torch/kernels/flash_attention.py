@@ -17,11 +17,15 @@ swizzle).  The C entry point validates the plan against the kernel it built
 and encodes the tensor maps.  ``launches`` counts kernel launches.
 
 The backward (``flash_attention_bwd_cuda``: dq, dk, dv from q, k, v, the
-forward's out and lse, and dout) is three kernels a call -- D = rowsum(dO *
-O), then dK/dV and dQ, each recomputing P -- on the tensor cores
-(``mma.sync``) for bf16 whose rows are 16-byte aligned and on the CUDA cores
-for everything else; ``flash_bwd_plan`` fixes its route, tiles, grids and
-shared memory and ``bwd_launches`` counts its calls.
+forward's out and lse, and dout) is a dK/dV and a dQ kernel, each
+recomputing P from lse, and D = rowsum(dO * O).  bf16 whose rows are 16-byte
+aligned takes the ``"wgmma"`` route (TMA, warp specialisation; the dQ kernel
+runs first and also computes D; a GQA group's query heads split over
+``splits`` dK/dV blocks when the kv heads alone would leave SMs idle, with a
+third kernel summing the splits' fp32 partials in order); everything else
+runs on the CUDA cores, after a D pass.  ``flash_bwd_plan`` fixes
+its route, tiles, grids, shared memory, splits, workspaces and tensor maps,
+and ``bwd_launches`` counts its calls.
 """
 
 from __future__ import annotations
@@ -47,10 +51,14 @@ WGMMA_STAGES = 3                # K/V tiles in flight
 CORE_BM, CORE_THREADS = 64, 256  # the CUDA-core kernel's query tile and block
 ENCODE_FAILED = 10000           # the C side's code for a failed tensor-map encode
 PLAN_LEN = 9 + 3 * 16
-BWD_ROWS = 64                   # the backward's block: 64 queries (dQ) or keys (dK/dV)
-BWD_THREADS = {"cuda_cores": 256, "mma": 128}   # 16 x 16 micro-tiles; four warps of 16 rows
-BWD_ROUTES = ("cuda_cores", "mma")  # index = the route's code in the plan
+BWD_ROUTES = ("cuda_cores", "wgmma")  # index = the route's code in the plan
+BWD_ROWS = {"cuda_cores": 64, "wgmma": 128}   # queries (dQ) or keys (dK/dV) a block owns
+BWD_THREADS = {"cuda_cores": 256, "wgmma": 384}   # 16 x 16 micro-tiles; two consumer
+                                                  # warpgroups and the producer
+BWD_STAGES = 3                  # walked tiles in flight on the wgmma route
+BWD_PLAN_LEN = 18 + 8 * 16      # plan values, then 8 tensor maps
 DOT_ROWS = 8                    # rows of D = rowsum(dO * O) per block, a warp each
+SMS = 132                       # the H100's streaming multiprocessors
 
 launches = 0
 bwd_launches = 0
@@ -142,18 +150,56 @@ def flash_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Ten
 class FlashBwdPlan:
     route: str
     rows: int                        # queries (dQ) or keys (dK/dV) a block owns
-    cols: int                        # keys or queries of the tiles it walks
+    cols: int                        # queries of a tile the dK/dV kernel walks
+    cols_dq: int                     # keys of a tile the dQ kernel walks
+    stages: int                      # walked tiles in flight (1: loaded in place)
     threads: int
+    # the work: one item a block, or (wgmma) the items a persistent grid of a
+    # block an SM walks
     grid_dq: tuple[int, int, int]    # (query tiles, q heads, batch)
-    grid_dkv: tuple[int, int, int]   # (key tiles, kv heads, batch)
-    smem_bytes: int                  # either kernel's dynamic shared memory
-    dot_blocks: int                  # blocks of the D pass
+    grid_dkv: tuple[int, int, int]   # (key tiles, kv heads x splits, batch)
+    smem_bytes: int                  # the dK/dV kernel's dynamic shared memory
+    smem_dq_bytes: int               # the dQ kernel's
+    dot_blocks: int                  # blocks of the D pass (wgmma: 0, the dQ kernel's work)
+    splits: int                      # dK/dV blocks sharing a kv head's query heads
+    sq_pad: int                      # row stride of the D (and lse) workspace
+    stats_floats: int                # that workspace's fp32 values (wgmma: lse2, then D)
+    workspace_bytes: int             # the splits' fp32 partial dK/dV (0: none)
+    maps: tuple[TensorMap, ...] = ()  # wgmma: dK/dV's k, v, q, dout; dQ's q, dout, k, v
 
     def as_array(self):
         """The int64 layout the C entry point reads (``BWD_PLAN_LEN``)."""
-        values = [BWD_ROUTES.index(self.route), self.rows, self.cols, self.threads,
-                  *self.grid_dq, *self.grid_dkv, self.smem_bytes, self.dot_blocks]
-        return (ctypes.c_longlong * len(values))(*values)
+        values = [BWD_ROUTES.index(self.route), self.rows, self.cols, self.cols_dq, self.stages,
+                  self.threads, *self.grid_dq, *self.grid_dkv, self.smem_bytes,
+                  self.smem_dq_bytes, self.dot_blocks, self.splits, self.sq_pad,
+                  self.workspace_bytes]
+        for m in self.maps:
+            values += m.values()
+        values += [0] * (BWD_PLAN_LEN - len(values))
+        return (ctypes.c_longlong * BWD_PLAN_LEN)(*values)
+
+
+def bwd_cols(hd: int) -> tuple[int, int]:
+    """Rows of a tile the wgmma dK/dV and dQ kernels walk: 64 queries (32 at
+    hd 128) and 64 keys.  A thread has 168 registers (384 a block) for S, dP,
+    bf16 P and dS and the fp32 accumulators: dK and dV at hd 128 take 128."""
+    return 32 if hd >= 128 else 64, 64
+
+
+def bwd_wgmma_smem(hd: int, cols: int, with_stats: bool) -> int:
+    """1024 bytes to align the base, two buffers of the two owned (128, hd)
+    bf16 tensors (a persistent block loads its next item's while it computes
+    one), then ``BWD_STAGES`` stages of two walked (cols, hd) tensors (and
+    their lse and D), each stage rounded up to 1024 bytes (the swizzle's
+    period)."""
+    loaded = 2 * cols * hd * 2 + (2 * cols * 4 if with_stats else 0)
+    return 1024 + 2 * 2 * BWD_ROWS["wgmma"] * hd * 2 + BWD_STAGES * (-(-loaded // 1024) * 1024)
+
+
+def gqa_splits(group: int, blocks: int) -> int:
+    """The fewest splits of a GQA group's query heads (a divisor of the
+    group) that give every SM a dK/dV block, or the whole group."""
+    return next((d for d in range(1, group + 1) if group % d == 0 and blocks * d >= SMS), group)
 
 
 def flash_bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
@@ -164,20 +210,33 @@ def flash_bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
     reads dtypes, shapes, strides and addresses only."""
     b, hq, sq, hd = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    cols = 32 if hd >= 128 else 64   # walked rows per tile (registers at hd 128)
-    tensors = (q, k, v, out, dout, dq, dk, dv)
-    if q.dtype == torch.bfloat16 and rows_16_byte_aligned(tensors):
-        # four bf16 tiles with rows of hd + 8, and lse and D of the walked rows
-        route, smem = "mma", 2 * (2 * BWD_ROWS + 2 * cols) * (hd + 8) + 8 * cols
-    else:
-        # two (64, hd) and two (cols, hd) fp32 tiles with padded rows, the
-        # (64, cols) P / dS tile, and lse and D of the walked rows
-        route = "cuda_cores"
-        smem = 4 * (2 * BWD_ROWS * (hd + 4) + 2 * cols * (hd + 4) + BWD_ROWS * (cols + 4) + 2 * cols)
+    if q.dtype == torch.bfloat16 and rows_16_byte_aligned((q, k, v, out, dout, dq, dk, dv)):
+        rows, (cols, cols_dq) = BWD_ROWS["wgmma"], bwd_cols(hd)
+        key_tiles = -(-skv // rows)
+        splits = gqa_splits(hq // hkv, key_tiles * hkv * b)
+        sq_pad = -(-sq // rows) * rows
+        return FlashBwdPlan(
+            route="wgmma", rows=rows, cols=cols, cols_dq=cols_dq, stages=BWD_STAGES,
+            threads=BWD_THREADS["wgmma"], grid_dq=(-(-sq // rows), hq, b),
+            grid_dkv=(key_tiles, hkv * splits, b), smem_bytes=bwd_wgmma_smem(hd, cols, True),
+            smem_dq_bytes=bwd_wgmma_smem(hd, cols_dq, False),
+            dot_blocks=0, splits=splits, sq_pad=sq_pad,
+            stats_floats=2 * b * hq * sq_pad,
+            workspace_bytes=2 * splits * b * hkv * skv * hd * 4 if splits > 1 else 0,
+            maps=(_tensor_map(k, rows), _tensor_map(v, rows), _tensor_map(q, cols),
+                  _tensor_map(dout, cols), _tensor_map(q, rows), _tensor_map(dout, rows),
+                  _tensor_map(k, cols_dq), _tensor_map(v, cols_dq)),
+        )
+    # two (64, hd) and two (cols, hd) fp32 tiles with padded rows, the (64,
+    # cols) P / dS tile, and lse and D of the walked rows
+    rows, cols = BWD_ROWS["cuda_cores"], 32 if hd >= 128 else 64
+    smem = 4 * (2 * rows * (hd + 4) + 2 * cols * (hd + 4) + rows * (cols + 4) + 2 * cols)
     return FlashBwdPlan(
-        route=route, rows=BWD_ROWS, cols=cols, threads=BWD_THREADS[route],
-        grid_dq=(-(-sq // BWD_ROWS), hq, b), grid_dkv=(-(-skv // BWD_ROWS), hkv, b),
-        smem_bytes=smem, dot_blocks=-(-(b * hq * sq) // DOT_ROWS),
+        route="cuda_cores", rows=rows, cols=cols, cols_dq=cols, stages=1,
+        threads=BWD_THREADS["cuda_cores"], grid_dq=(-(-sq // rows), hq, b),
+        grid_dkv=(-(-skv // rows), hkv, b), smem_bytes=smem, smem_dq_bytes=smem,
+        dot_blocks=-(-(b * hq * sq) // DOT_ROWS), splits=1, sq_pad=sq,
+        stats_floats=b * hq * sq, workspace_bytes=0,
     )
 
 
@@ -242,6 +301,13 @@ def _check_cuda(what: str, tensors, causal: bool) -> None:
         raise ValueError(f"empty attention problem: q {tuple(q.shape)}, k {tuple(k.shape)}")
 
 
+def _describe(err: int) -> str:
+    """A C entry point's error code in words."""
+    if err >= ENCODE_FAILED:
+        return f"tensor-map encode failed (CUresult {err - ENCODE_FAILED})"
+    return f"cudaError {err}"
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, with_lse: bool = False):
     """out (b, hq, sq, hd) in q's dtype and memory layout; with ``with_lse``,
@@ -267,10 +333,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
-        what = (f"tensor-map encode failed (CUresult {err - ENCODE_FAILED})"
-                if err >= ENCODE_FAILED else f"cudaError {err}")
-        raise RuntimeError(f"flash attention kernel ({plan.route}) launch failed ({what}) for "
-                           f"q {tuple(q.shape)}, k {tuple(k.shape)} {q.dtype}")
+        raise RuntimeError(f"flash attention kernel ({plan.route}) launch failed "
+                           f"({_describe(err)}) for q {tuple(q.shape)}, k {tuple(k.shape)} {q.dtype}")
     launches += 1
     return (out, lse) if with_lse else out
 
@@ -281,6 +345,7 @@ def _bwd_fn():
     fn.argtypes = [
         *[ctypes.c_void_p] * 5,                   # q k v o dout
         ctypes.c_void_p, ctypes.c_void_p,         # lse, the D workspace
+        ctypes.c_void_p,                          # the partial dK/dV workspace or null
         *[ctypes.c_void_p] * 3,                   # dq dk dv
         ctypes.c_int,                             # dtype
         *[ctypes.c_int] * 6,                      # b hq hkv sq skv hd
@@ -315,21 +380,24 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           for t in (q, k, v, out, dout))
     lse = lse.contiguous()
     dq, dk, dv = _dense_like(q), _dense_like(k), _dense_like(v)
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     plan = flash_bwd_plan(q, k, v, out, dout, dq, dk, dv)
+    delta = torch.empty(plan.stats_floats, dtype=torch.float32, device=q.device)
+    workspace = (torch.empty(plan.workspace_bytes // 4, dtype=torch.float32, device=q.device)
+                 if plan.workspace_bytes else None)
     strides = (ctypes.c_longlong * 24)(
         *(s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3])
     )
     with torch.cuda.device(q.device):
         err = _bwd_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), None if workspace is None else workspace.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             DTYPE_CODES[q.dtype], b, hq, hkv, sq, skv, hd, strides,
             1.0 / math.sqrt(hd), int(causal), plan.as_array(),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash attention backward ({plan.route}) launch failed (cudaError {err}) for "
-                           f"q {tuple(q.shape)}, k {tuple(k.shape)} {q.dtype}")
+        raise RuntimeError(f"flash attention backward ({plan.route}) launch failed "
+                           f"({_describe(err)}) for q {tuple(q.shape)}, k {tuple(k.shape)} {q.dtype}")
     bwd_launches += 1
     return dq, dk, dv

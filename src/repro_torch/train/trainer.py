@@ -15,6 +15,7 @@ import time
 from typing import Callable, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.data import Prefetcher, SyntheticDataset
@@ -86,10 +87,14 @@ class Trainer:
         return params, init_opt_state(params)
 
     def _restore_or_init(self):
-        params, opt_state = self._init_state()   # also the template of a restore
         latest = self.ckpt.latest_step()
         if latest is None:
-            return params, opt_state, 0
+            return *self._init_state(), 0
+        # The template: the state's tree, shapes, dtypes and devices with no
+        # storage (the reference's jax.eval_shape).  Under fake tensors
+        # model.init allocates nothing and draws nothing from its generator.
+        with FakeTensorMode():
+            params, opt_state = self._init_state()
         state = self.ckpt.restore({"params": params, "opt": opt_state}, step=latest)
         return state["params"], state["opt"], latest
 

@@ -845,49 +845,141 @@ PLAN_RMS_BWD = [
 
 
 class TestFlashBwdPlan:
+    """``flash_bwd_plan`` on the CPU at every shape the chip smoke gives the
+    backward: aligned bf16 on ``wgmma`` (TMA, a GQA split that fills the
+    card), everything else on the CUDA cores."""
+
     @pytest.mark.parametrize("case", PLAN_FLASH_BWD)
     def test_route(self, case):
         plan = fa_cuda.flash_bwd_plan(*meta_bwd(case))
         dtype, offset = case[6], case[8]
-        assert plan.route == ("mma" if dtype == "bfloat16" and offset == 0 else "cuda_cores")
+        assert plan.route == ("wgmma" if dtype == "bfloat16" and offset == 0 else "cuda_cores")
 
     @pytest.mark.parametrize("case", PLAN_FLASH_BWD)
     def test_grids_cover_every_tile(self, case):
+        """Both grids cover every row tile once, and the dK/dV grid's splits
+        cover every query head of each kv head's group once."""
         b, hq, hkv, sq, skv, hd = case[:6]
         plan = fa_cuda.flash_bwd_plan(*meta_bwd(case))
         assert plan.grid_dq == (-(-sq // plan.rows), hq, b)
-        assert plan.grid_dkv == (-(-skv // plan.rows), hkv, b)
-        assert plan.dot_blocks * fa_cuda.DOT_ROWS >= b * hq * sq > (plan.dot_blocks - 1) * 8
-        # 16 x 16 threads of 4-row micro-tiles, or four warps of 16 rows
-        assert (plan.rows, plan.threads) == (64, 256 if plan.route == "cuda_cores" else 128)
-        assert plan.cols == (32 if hd >= 128 else 64) and plan.cols % 16 == 0
+        assert plan.grid_dkv == (-(-skv // plan.rows), hkv * plan.splits, b)
+        group = hq // hkv
+        share = group // plan.splits
+        heads = sorted(hk * group + split * share + g
+                       for y in range(plan.grid_dkv[1]) for hk, split in [divmod(y, plan.splits)]
+                       for g in range(share))
+        assert heads == list(range(hq))
+        stats_rows = b * hq * plan.sq_pad
+        if plan.route == "cuda_cores":
+            # a D pass of a warp a row; 16 x 16 threads of 4-row micro-tiles
+            assert plan.dot_blocks * fa_cuda.DOT_ROWS >= stats_rows > (plan.dot_blocks - 1) * 8
+            assert (plan.rows, plan.threads, plan.stages, plan.sq_pad) == (64, 256, 1, sq)
+            assert plan.cols == plan.cols_dq == (32 if hd >= 128 else 64)
+            assert plan.stats_floats == b * hq * sq
+        else:
+            # two consumer warpgroups of 64 rows and a producer; the dQ kernel
+            # computes D and stores it with lse in rows padded to the block, so
+            # every walked tile's pair is in bounds
+            assert (plan.rows, plan.threads, plan.stages) == (128, 384, fa_cuda.BWD_STAGES)
+            assert plan.dot_blocks == 0
+            assert plan.cols == (32 if hd >= 128 else 64) and plan.cols_dq == 64
+            assert plan.sq_pad % plan.rows == 0 and 0 <= plan.sq_pad - sq < plan.rows
+            assert plan.stats_floats == 2 * stats_rows
+        assert plan.cols % 16 == 0 and plan.cols_dq % 16 == 0 and plan.rows % plan.cols == 0
+
+    @pytest.mark.parametrize("case", PLAN_FLASH_BWD)
+    def test_gqa_split_fills_the_card(self, case):
+        """``splits`` divides the group and is 1 at MHA (no workspace, no
+        second pass); a split GQA group gives every SM a dK/dV block and
+        its fp32 partial dK/dV a workspace of the stated size."""
+        b, hq, hkv, sq, skv, hd = case[:6]
+        plan = fa_cuda.flash_bwd_plan(*meta_bwd(case))
+        group = hq // hkv
+        assert group % plan.splits == 0
+        blocks = int(np.prod(plan.grid_dkv))
+        if group == 1 or plan.route == "cuda_cores":
+            assert plan.splits == 1 and plan.workspace_bytes == 0
+        else:
+            base = blocks // plan.splits
+            assert blocks >= fa_cuda.SMS or plan.splits == group
+            # the fewest splits that do it
+            assert all(base * d < fa_cuda.SMS for d in range(1, plan.splits) if group % d == 0)
+            assert plan.workspace_bytes == (2 * plan.splits * b * hkv * skv * hd * 4
+                                            if plan.splits > 1 else 0)
+        if (hq, hkv, hd, plan.route) == (32, 2, 128, "wgmma"):   # glm4-9b's GQA 16:1
+            assert blocks >= fa_cuda.SMS and plan.splits == 16
+            assert plan.workspace_bytes == 2 * 16 * 2 * 1024 * 128 * 4
 
     @pytest.mark.parametrize("case", PLAN_FLASH_BWD)
     def test_shared_memory_fits_two_blocks(self, case):
+        """The CUDA-core kernels fit two blocks an SM; a wgmma block (one an
+        SM, 384 threads) fits the opt-in limit beside its mbarriers."""
         plan = fa_cuda.flash_bwd_plan(*meta_bwd(case))
-        assert 0 < plan.smem_bytes <= fa_cuda.SMEM_LIMIT // 2 and plan.smem_bytes % 16 == 0
+        for smem in (plan.smem_bytes, plan.smem_dq_bytes):
+            limit = fa_cuda.SMEM_LIMIT // 2 if plan.route == "cuda_cores" else fa_cuda.SMEM_LIMIT - 64
+            assert 0 < smem <= limit and smem % 16 == 0
 
     @pytest.mark.parametrize("hd", fa_cuda.HEAD_DIMS)
     def test_every_head_dim_tiles_the_fragments(self, hd):
         """CUDA cores: 16 x 16 threads take hd / 16 output columns each and
-        read fp32 rows of hd + 4 as 16-byte vectors.  Tensor cores: k-steps of
-        16 over hd and over the walked tile, 8-column tiles taken in pairs, and
-        bf16 rows of hd + 8 whose 8 ldmatrix rows fall in 8 16-byte bank groups."""
+        read fp32 rows of hd + 4 as 16-byte vectors.  wgmma: k-steps of 16
+        over each head-dim slab of at most 64 columns and over the walked
+        tiles, and every slab of the shared-memory layout starting on its
+        swizzle's period (8 rows of its width), in the owned tensors, the
+        two warpgroups' halves and every stage."""
         for dtype in ("float32", "bfloat16"):
             plan = fa_cuda.flash_bwd_plan(*meta_bwd((1, 2, 2, 8, 8, hd, dtype, False, 0)))
             assert hd % 16 == 0 and plan.cols % 16 == 0
             if plan.route == "cuda_cores":
                 assert (hd + 4) * 4 % 16 == 0 and (plan.cols + 4) * 4 % 16 == 0
-            else:
-                row_bytes = 2 * (hd + 8)
-                assert row_bytes % 16 == 0 and (hd // 8) % 2 == 0
-                assert len({(r * row_bytes) % 128 // 16 for r in range(8)}) == 8
+                continue
+            slabs = fa_cuda.head_dim_slabs(hd)
+            assert all(w <= 64 and w % 16 == 0 for _, w, _ in slabs)
+            assert [m.slabs for m in plan.maps] == [slabs] * 8
+            for cols, stats in ((plan.cols, True), (plan.cols_dq, False)):
+                own, tile = plan.rows * hd * 2, cols * hd * 2   # one owned / walked tensor
+                loaded = 2 * tile + (8 * cols if stats else 0)
+                stage = -(-loaded // 1024) * 1024
+                assert fa_cuda.bwd_wgmma_smem(hd, cols, stats) == 1024 + 4 * own + 3 * stage
+                for first, rows in ((0, plan.rows), (2 * own, plan.rows), (4 * own, cols),
+                                    (4 * own + stage, cols)):
+                    for tensor in range(2):
+                        at = first + tensor * (own if rows == plan.rows else tile)
+                        for col, w, swz in slabs:
+                            start = at + rows * col * 2   # slab 1 after slab 0's rows
+                            assert start % (8 * swz) == 0
+                            if rows == plan.rows:         # warpgroup 1's 64 rows
+                                assert (start + 64 * w * 2) % (8 * swz) == 0
+                if stats:   # lse and D after the two walked tensors, 16-byte aligned
+                    assert 2 * tile % 16 == 0 and (2 * tile + 4 * cols) % 16 == 0
 
     def test_plan_array_layout(self):
-        plan = fa_cuda.flash_bwd_plan(*meta_bwd(PLAN_FLASH_BWD[0]))
-        assert list(plan.as_array()) == [fa_cuda.BWD_ROUTES.index(plan.route), plan.rows,
-                                         plan.cols, plan.threads, *plan.grid_dq,
-                                         *plan.grid_dkv, plan.smem_bytes, plan.dot_blocks]
+        """MHA and GQA on wgmma (eight tensor maps), and the CUDA cores (none)."""
+        for case in PLAN_FLASH_BWD[:3]:
+            plan = fa_cuda.flash_bwd_plan(*meta_bwd(case))
+            values = [fa_cuda.BWD_ROUTES.index(plan.route), plan.rows, plan.cols, plan.cols_dq,
+                      plan.stages, plan.threads, *plan.grid_dq, *plan.grid_dkv, plan.smem_bytes,
+                      plan.smem_dq_bytes, plan.dot_blocks, plan.splits, plan.sq_pad,
+                      plan.workspace_bytes]
+            for m in plan.maps:
+                values += m.values()
+            assert len(plan.maps) == (8 if plan.route == "wgmma" else 0)
+            assert list(plan.as_array()) == values + [0] * (fa_cuda.BWD_PLAN_LEN - len(values))
+
+    @pytest.mark.parametrize("case", [c for c in PLAN_FLASH_BWD if c[6] == "bfloat16" and not c[8]])
+    def test_tensor_maps(self, case):
+        """dK/dV owns k, v (boxes of 128 keys) and walks q, dout (tiles of
+        ``cols`` queries); dQ owns q, dout and walks k, v (``cols_dq`` keys):
+        each map has its tensor's dims and 16-byte strides."""
+        b, hq, hkv, sq, skv, hd = case[:6]
+        q, k, v, out, dout, *_ = meta_bwd(case)
+        plan = fa_cuda.flash_bwd_plan(q, k, v, out, dout, *(fa_cuda._dense_like(t) for t in (q, k, v)))
+        tensors = (k, v, q, dout, q, dout, k, v)
+        boxes = (128, 128, plan.cols, plan.cols, 128, 128, plan.cols_dq, plan.cols_dq)
+        for m, t, box in zip(plan.maps, tensors, boxes, strict=True):
+            assert m == fa_cuda._tensor_map(t, box)
+            assert m.dims == (hd, t.shape[2], t.shape[1], b)
+            assert all(st % 16 == 0 for st in m.strides)
 
 
 class TestRMSNormBwdPlan:
