@@ -49,10 +49,11 @@ raises and the script exits non-zero:
    ``FaultInjector`` against an uninterrupted one (final checkpoints
    bit-identical).
 
-With ``--profile`` three further phases, after ``serve``, ``zamba`` and
-``train``, trace a decode step and a prefill of each served model and one
-full-depth train step with ``torch.profiler`` (device-busy time against the
-host's wall clock).
+With ``--profile`` four further phases, after ``serve``, ``zamba``,
+``train_parity`` and ``train``, trace a decode step and a prefill of each
+served model, one fp32-compute ``loss_and_grads`` of ``train_parity``'s model
+(the launcher's dtype) and one full-depth train step with ``torch.profiler``
+(device-busy time against the host's wall clock, and the flash kernels' share).
 
 Then the ``kernels`` summary line (the three forwards and the two backwards:
 launches over the serve, zamba and train paths, error, times and roofline
@@ -282,14 +283,17 @@ def flash_ref_by_head(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype: torch.dtype,
                gen: torch.Generator, iters: int, model_layout: bool, offset: int = 0,
-               causal: bool = True, q_scale: float = 1.0, by_head: bool = False) -> dict:
+               causal: bool = True, q_scale: float = 1.0, by_head: bool = False,
+               with_lse: bool = False) -> dict:
     """``model_layout``: tensors held as (b, s, h, hd) and passed as transposed
     views, as the model does.  ``offset``: elements by which each tensor's
     storage is shifted (1 breaks the 16-byte alignment of bf16 rows).
     ``q_scale`` > 1 sharpens the softmax, so that each output row is led by a
     few keys and a key tile missed anywhere in a long row shows in the result
     (with unit scores a row of 32k keys averages v towards 0, inside the
-    absolute tolerance).  ``by_head``: the plain version runs head by head."""
+    absolute tolerance).  ``by_head``: the plain version runs head by head.
+    ``with_lse``: the kernel also writes lse, as the training forward does,
+    held against the plain version's and timed with it."""
     dev = gen.device
 
     def rand(h: int, s: int, scale: float = 1.0) -> torch.Tensor:
@@ -301,10 +305,19 @@ def flash_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype: tor
 
     plain = flash_ref_by_head if by_head else ref.flash_attention_ref
     q, k, v = rand(hq, sq, q_scale), rand(hkv, skv), rand(hkv, skv)
-    got = ops.flash_attention(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    want = plain(q, k, v, causal=causal)
-    err = compare(got, want, f"flash_attention q{tuple(q.shape)} kv{tuple(k.shape)} {dtype}")
+    what = f"flash_attention q{tuple(q.shape)} kv{tuple(k.shape)} {dtype}"
+    lse_err = None
+    if with_lse:
+        got, lse = _fa.flash_attention_cuda(q, k, v, causal, with_lse=True)
+        torch.cuda.synchronize()
+        want, want_lse = ref.flash_attention_lse_ref(q, k, v, causal)
+        lse_err = compare(lse, want_lse, f"{what} lse")
+        del lse, want_lse
+    else:
+        got = ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = plain(q, k, v, causal=causal)
+    err = compare(got, want, what)
     # aligned bf16 runs on wgmma/TMA, fp32 and offset bf16 on the CUDA cores
     plan = _fa.flash_plan(q, k, v, got)
     if plan.route != ("wgmma" if dtype == torch.bfloat16 and offset == 0 else "cuda_cores"):
@@ -314,17 +327,22 @@ def flash_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype: tor
     case = {
         "kernel": "flash_attention", "q": list(q.shape), "kv": list(k.shape),
         "layout": "(b,s,h,hd) strided" if model_layout else "(b,h,s,hd) contiguous",
-        "route": plan.route, "block_q": plan.bm, "smem_bytes": plan.smem_bytes,
+        "route": plan.route, "block_q": plan.bm, "block_kv": plan.bn, "stages": plan.stages,
+        "vector_loads": plan.vector_loads, "smem_bytes": plan.smem_bytes, "with_lse": with_lse,
+        "lse_max_abs_err": lse_err,
         "rows_16_byte_aligned": q.data_ptr() % 16 == 0, "causal": causal, "q_scale": q_scale,
         "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err, "tol": TOL[dtype],
         "max_abs_plain": want.abs().max().item(),
         "mean_abs_plain_last_row": want[:, :, -1].float().abs().mean().item(),
     }
     del got, want
+    kernel = ((lambda *a: _fa.flash_attention_cuda(*a, causal, with_lse=True)) if with_lse
+              else (lambda *a: ops.flash_attention(*a, causal=causal)))
     timings(
         case,
-        kernel=(lambda *a: ops.flash_attention(*a, causal=causal), args, iters),
-        plain=(lambda *a: plain(*a, causal=causal), args, 1 if by_head else iters),
+        kernel=(kernel, args, iters),
+        plain=((lambda *a: ref.flash_attention_lse_ref(*a, causal)) if with_lse
+               else (lambda *a: plain(*a, causal=causal)), args, 1 if by_head else iters),
         library=(library_attention(sq, skv, causal, hq // hkv), args, iters),
     )
     # work this call needs: causal row i of q sees keys 0 .. i + (skv - sq)
@@ -417,11 +435,14 @@ def flash_bwd_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype:
     plan = _fa.flash_bwd_plan(q, k, v, out, dout, *got)
     if plan.route != ("wgmma" if dtype == torch.bfloat16 and offset == 0 else "cuda_cores"):
         raise AssertionError(f"{what} offset {offset} took the {plan.route!r} route")
+    if plan.dot_blocks != 0:   # both routes compute D in the dQ kernel
+        raise AssertionError(f"{what}: the plan launches a D pass ({plan.dot_blocks} blocks)")
     case = {
         "kernel": "flash_attention_bwd", "q": list(q.shape), "kv": list(k.shape),
         "layout": "(b,s,h,hd) strided" if model_layout else "(b,h,s,hd) contiguous",
         "route": plan.route, "block_rows": plan.rows, "block_cols": plan.cols,
-        "block_cols_dq": plan.cols_dq, "splits": plan.splits,
+        "block_cols_dq": plan.cols_dq, "stages": plan.stages, "splits": plan.splits,
+        "vector_loads": plan.vector_loads, "d_pass_blocks": plan.dot_blocks,
         "workspace_bytes": plan.workspace_bytes, "grid_dkv": list(plan.grid_dkv),
         "smem_bytes": plan.smem_bytes, "smem_dq_bytes": plan.smem_dq_bytes, "causal": causal,
         "dtype": str(dtype).removeprefix("torch."), "bit_identical_twice": True,
@@ -680,8 +701,10 @@ def kernels_phase(cfg, zcfg, mcfg, dev: torch.device) -> dict[str, dict]:
         flash_lse_case(4, mh, mh, 1024, mhd, bf16, gen),
         flash_lse_case(4, mh, mh, 1024, mhd, fp32, gen),
         flash_lse_case(2, 8, 8, 300, 80, bf16, gen),
-        # the forwards at the training step's shapes
+        # the forwards at the training step's shapes: bf16, and fp32 with lse
+        # (the launcher's dtype, as its training forward calls it)
         flash_case(4, mh, mh, 1024, 1024, mhd, bf16, gen, 10, True),
+        flash_case(4, mh, mh, 1024, 1024, mhd, fp32, gen, 10, True, with_lse=True),
         rmsnorm_case((4, 1024, md), bf16, gen, 50),
         rmsnorm_bwd_main,
         rmsnorm_bwd_case((4, 1024, md), fp32, gen, 50),
@@ -1191,9 +1214,11 @@ def _profiled(fn, repeats: int) -> dict:
     if busy_ms <= 0:
         raise AssertionError("the profiler recorded no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    flash_ms = sum(ms for name, (ms, _) in by_name.items() if "flash_" in name)
     return {
         "wall_ms": wall_ms / repeats, "device_busy_ms": busy_ms / repeats,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "flash_kernels_ms": flash_ms / repeats, "flash_kernels_share": flash_ms / busy_ms,
         "device_ops": sum(n for _, n in by_name.values()) / repeats,
         "top_kernels": [{"name": name[:80], "ms": ms / repeats, "calls": n / repeats}
                         for name, (ms, n) in top],
@@ -1241,6 +1266,24 @@ def profile_train_phase(model, params, opt_state, step_fn, data) -> None:
 
     emit({"phase": "profile_train", "n_layers": model.cfg.n_layers,
           "tokens": TRAIN_BATCH * TRAIN_SEQ, "train_step": _profiled(step, 1)})
+
+
+def profile_fp32_step_phase(cfg, dev: torch.device, n_layers: int = 4) -> None:
+    """Where one fp32-compute ``loss_and_grads`` of ``train_parity``'s model
+    (full width, ``n_layers`` layers, 4 x 1024 tokens, no remat) spends its
+    device time: the launcher's dtype, whose flash forward and backward run on
+    the CUDA cores."""
+    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    batch = batch_to_device(SyntheticDataset(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0).batch(0), dev)
+    model = build_model(cfg, ModelOptions("float32", "float32", remat=False), dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(4))
+
+    def step():
+        loss, _, _ = loss_and_grads(model, params, batch)
+        return loss.item()
+
+    emit({"phase": "profile_fp32_step", "n_layers": n_layers, "tokens": TRAIN_BATCH * TRAIN_SEQ,
+          "loss_and_grads": _profiled(step, 2)})
 
 
 @torch.no_grad()
@@ -1315,6 +1358,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_parity_phase(mcfg, dev)
     torch.cuda.empty_cache()
+    if args.profile:
+        profile_fp32_step_phase(mcfg, dev)
+        torch.cuda.empty_cache()
     train_counts, *train_state = train_phase(mcfg, dev)
     if args.profile:
         profile_train_phase(*train_state)

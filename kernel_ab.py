@@ -16,10 +16,15 @@ at glm4-9b's and minicpm-2b's shapes and in zamba2's model layout ``(b, s, h,
 hd)`` at its 4096- and 32768-token shapes (``FLASH_LONG_ITERS`` calls); the causal
 flash backward in model layout (q, k, v and dout as transposed views of ``(b,
 s, h, hd)`` tensors, out and lse from the forward kernel) at minicpm-2b's
-training step and glm4-9b's GQA 16:1 shape (``FLASH_BWD_ITERS`` calls); the SSD
+training step and glm4-9b's GQA 16:1 shape (``FLASH_BWD_ITERS`` calls); the
+CUDA-core route of both (``FLASH_CORE``: fp32, the forward with lse as the
+training forward calls it, and bf16 rows shifted one element off 16 bytes, as
+``chip_smoke.py`` runs them); the SSD
 scan in zamba2's model layout -- x ``(b, s, H, P)`` bf16 as a transposed
 view, B/C ``(b, s, N)`` shared by the heads, dt/loga fp32, y fp32 -- over
-``SSD_ITERS`` calls).
+``SSD_ITERS`` calls); and one fp32-compute ``loss_and_grads`` of minicpm-2b
+at 4 layers under ``torch.profiler`` (device-busy ms and the flash kernels'
+share).
 """
 
 from __future__ import annotations
@@ -40,6 +45,13 @@ FLASH = [  # (b, hq, hkv, s, hd): glm4-9b's smallest and largest prefill, zamba2
 FLASH_ZAMBA = [(1, 32, 4096, 80), (1, 32, 32768, 80)]   # (b, h, s, hd) in model layout
 FLASH_BWD = [(4, 36, 36, 1024, 64), (1, 32, 2, 1024, 128)]   # (b, hq, hkv, s, hd), model layout
 FLASH_BWD_ITERS = 50
+FLASH_CORE = [  # (b, hq, hkv, s, hd, dtype, element offset, model layout, backward too)
+    (4, 36, 36, 1024, 64, "float32", 0, True, True),     # minicpm-2b's step in the launcher's fp32
+    (4, 36, 36, 1024, 64, "bfloat16", 1, True, True),    # the same, bf16 off by one element
+    (1, 4, 4, 150, 80, "float32", 0, False, False),
+    (1, 4, 2, 130, 80, "bfloat16", 1, False, False),
+]
+FLASH_CORE_ITERS = 10
 SSD = [(1, 80, 32768, 64, 64), (2, 80, 1024, 64, 64)]   # (b, H, s, P, N): zamba2's 32k forward, b = 2
 
 
@@ -90,6 +102,22 @@ def child(root: str) -> dict:
         o, lse = fa.flash_attention_cuda(q, k, v, True, with_lse=True)
         out["ms"][f"flash_bwd (b,s,h,hd) q{(b, s, hq, hd)} kv{(b, s, hkv, hd)}"] = device_ms(
             fa.flash_attention_bwd_cuda, q, k, v, o, lse, dout, True, iters=FLASH_BWD_ITERS)
+    for b, hq, hkv, s, hd, dtype, offset, model, bwd in FLASH_CORE:
+        def shifted(h):
+            shape = (b, s, h, hd) if model else (b, h, s, hd)
+            n = shape[0] * shape[1] * shape[2] * shape[3]
+            t = torch.randn(n + offset, device=dev, generator=gen).to(getattr(torch, dtype))
+            t = t[offset:].view(shape)
+            return t.transpose(1, 2) if model else t
+
+        q, dout, k, v = shifted(hq), shifted(hq), shifted(hkv), shifted(hkv)
+        name = f"q{(b, hq, s, hd)} kv{(b, hkv, s, hd)} {dtype} offset {offset}"
+        out["ms"][f"flash_core lse {name}"] = device_ms(
+            fa.flash_attention_cuda, q, k, v, True, True, iters=FLASH_CORE_ITERS)
+        if bwd:
+            o, lse = fa.flash_attention_cuda(q, k, v, True, with_lse=True)
+            out["ms"][f"flash_core_bwd {name}"] = device_ms(
+                fa.flash_attention_bwd_cuda, q, k, v, o, lse, dout, True, iters=FLASH_CORE_ITERS)
     for b, H, s, P, N in SSD:
         x = rand(b, s, H, P).transpose(1, 2)
         B, C = ((rand(b, s, N) * 0.5)[:, None].expand(b, H, s, N) for _ in range(2))
@@ -97,7 +125,42 @@ def child(root: str) -> dict:
         loga = -torch.nn.functional.softplus(rand(b, s, H, dtype=torch.float32)).transpose(1, 2)
         out["ms"][f"ssd x{(b, H, s, P)} N {N}"] = device_ms(
             ops.ssd_chunk_scan, x, B, C, dt, loga, 128, torch.float32, iters=SSD_ITERS)
+    out["fp32_step"] = fp32_step_profile(dev)
     return out
+
+
+def fp32_step_profile(dev) -> dict:
+    """One fp32-compute ``loss_and_grads`` of minicpm-2b at full width, 4
+    layers, 4 x 1024 tokens (``chip_smoke.py``'s ``train_parity`` model, the
+    launcher's dtype) under ``torch.profiler``, after one untraced call:
+    device-busy milliseconds and the flash kernels' share of them."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.models import ModelOptions, build_model
+    from repro_torch.train import loss_and_grads
+    from repro_torch.train.train_step import batch_to_device
+
+    cfg = dataclasses.replace(get_config("minicpm-2b"), n_layers=4)
+    batch = batch_to_device(SyntheticDataset(cfg.vocab, 1024, 4, seed=0).batch(0), dev)
+    model = build_model(cfg, ModelOptions("float32", "float32", remat=False), dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(4))
+    loss_and_grads(model, params, batch)[0].item()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loss_and_grads(model, params, batch)[0].item()
+        torch.cuda.synchronize()
+    busy = flash = 0.0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(evt, "device_time", None)
+            ms = (evt.cuda_time if us is None else us) / 1e3
+            busy += ms
+            flash += ms if "flash_" in evt.name else 0.0
+    return {"device_busy_ms": busy, "flash_kernels_ms": flash, "flash_share": flash / busy}
 
 
 def main() -> None:

@@ -54,12 +54,10 @@
 //    `cuTensorMapEncodeTiled` is a driver function; it is reached at run time
 //    through `cudaGetDriverEntryPoint(ByVersion)`, so nothing links libcuda.
 //  * flash_fwd_kernel -- everything else (fp32 inputs, unaligned bf16).  The
-//    products run in fp32 on the CUDA cores from fp32 shared-memory tiles,
-//    with a 4-row micro-tile per thread and 16-byte shared-memory reads along
-//    the contraction, padded against bank conflicts; p stays fp32 like the
-//    TPU kernel.  It cannot pass the card's 67 TFLOP/s fp32 rate.  Its fp32
-//    rows of hd + 4 floats (84 at hd 80) keep float4 reads aligned and put 8
-//    rows in 8 distinct bank groups.
+//    products run in exact fp32 on the CUDA cores (no TF32), whose 67 TFLOP/s
+//    bound it: 4 x 8 register micro-tiles (4 x 4 beyond hd 64) read by
+//    broadcast 16-byte shared-memory reads, K/V tiles in a two-stage cp.async
+//    ring, P in fp32 like the TPU kernel (described at its section below).
 //
 // Layout: logical (b, h, s, hd) with the strides of b, h and s passed in
 // (elements) and hd contiguous.  Head dims 16, 32, 64, 80 (zamba2's shared
@@ -78,11 +76,6 @@
 
 namespace {
 
-constexpr int BM = 64;         // query rows per block
-constexpr int TX = 16;         // threads along the key / output-column axis
-constexpr int TY = 16;         // threads along the query-row axis
-constexpr int NT = TX * TY;    // 256 threads
-constexpr int RI = BM / TY;    // 4 query rows per thread: ty + TY * i
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -98,169 +91,391 @@ struct Strides {
     long long b, h, s;
 };
 
-template <int HD, int BN>
-struct Smem {
-    static constexpr int QS = HD + 4;   // row strides in floats, padded so that
-    static constexpr int KS = HD + 4;   // 16-byte reads of 8 rows hit 8 bank groups
-    static constexpr int VS = HD;
-    static constexpr int PS = BN + 4;
-    static constexpr int floats = BM * QS + BN * KS + BN * VS + BM * PS;
+// ---------------------------------------------------------------------------
+// fp32 on the CUDA cores: register micro-tiles fed by a cp.async ring
+// ---------------------------------------------------------------------------
+//
+// The forward and the backward's two kernels share these pieces.  A block is
+// 128 threads, a 16 x 8 grid (ty, tx) in which a warp holds 4 rows of 8
+// threads, and owns 64 rows; thread (ty, tx) owns rows ty + 16 i (i < 4).
+//  * Products of two row-major tiles over the head dim (S = Q K^T, dP = dO V^T
+//    and their transposes) give a thread the columns tx + 8 j of its rows and
+//    read both operands as float4 along the head dim.  A warp's 4 rows of one
+//    operand and 8 rows of the other are 12 distinct 16-byte groups, and its
+//    threads broadcast them, so a read is one shared-memory wavefront and
+//    feeds 4 x CJ (a 4 x 8 tile: 32, a 4 x 4 tile: 16) FMAs.
+//  * Products of the P / dS tile with a walked or owned tile (O += P V, dQ +=
+//    dS K, dV += P^T dO, dK += dS^T Q) give a thread hd / 8 output columns,
+//    VW-vectors at VW tx + 8 VW g, and read P along its rows as float4.  A
+//    step of 4 keys reads 4 float4 of P and 4 x hd / (8 VW) vectors of the
+//    other tile for 16 hd / 8 FMAs: 10.7 FMAs a read at hd 64.
+//  * The P / dS rows a thread reads are the ones its own warp wrote, so the
+//    softmax needs __syncwarp and no block barrier.
+//  * Rows are fp32 in shared memory, hd + 4 floats apart (an odd number of
+//    16-byte groups: 8 consecutive rows at one column fall in 8 distinct
+//    groups of banks); the P tile's rows are C + 8 apart (8 banks mod 32: a
+//    warp's 4 rows x 8 columns of stores hit 32 distinct banks, its 4 rows'
+//    float4 reads groups 0, 2, 4 and 6).
+//  * Walked tiles arrive through a ring of STAGES stages: fp32 rows in
+//    16-byte pieces (the plan's `vector_loads`) by cp.async, zero-filled past
+//    the sequence.  One commit group a tile; at tile t a thread waits for its
+//    own group t, then one __syncthreads makes every thread's copies visible
+//    and frees the stage of tile t - 1, into which tile t + STAGES - 1 is
+//    issued before tile t is computed.  bf16 rows (here never 16-byte
+//    aligned) are copied element by element: loaded into registers where
+//    cp.async would be issued and widened into the ring after the tile's
+//    products, so their loads overlap the products too (up to hd 80);
+//    unaligned fp32 (rare) is copied element by element in place.
+//  * Arithmetic is fp32 FMA throughout (no TF32); e^x is ex2.approx of x
+//    log2 e (relative error 2^-22), as on the wgmma route.  Masks are
+//    selects, applied only in the tiles that cross the diagonal or a ragged
+//    end.
+//  * Measured choices (an H100, fp32 at minicpm-2b's (4, 36, 1024, 64)):
+//    16-byte reads beat 8- and 4-byte ones; 4 x 8 tiles at one block of 4 or
+//    8 warps an SM lost to 4 x 4 tiles at two blocks of 4; two or three
+//    stages timed the same; full unrolling lost (code size); fusing the two
+//    S-side products into one loop, or launch bounds of two or three blocks
+//    an SM, gained nothing.
+constexpr int CORE_ROWS = 64;                   // rows a block owns
+constexpr int CORE_TY = 16, CORE_TX = 8;        // the thread grid
+constexpr int CORE_NT = CORE_TY * CORE_TX;      // 128 threads
+constexpr int CORE_RI = CORE_ROWS / CORE_TY;    // 4 owned rows a thread
+
+// A thread's hd / 8 output columns: G vectors of VW, at VW tx + 8 VW g.
+template <int HD>
+struct CoreCols {
+    static constexpr int N = HD / CORE_TX;
+    static constexpr int VW = N % 4 == 0 ? 4 : 2;
+    static constexpr int G = N / VW;
+    static __device__ __forceinline__ int col(int tx, int c) {
+        return VW * tx + CORE_TX * VW * (c / VW) + c % VW;
+    }
+};
+
+__device__ __forceinline__ void core_cp16(float* dst, const float* src, bool in) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(in ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void core_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void core_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows r0 .. r0 + ROWS of a head's (s, hd) slice into a shared tile of fp32
+// rows hd + 4 apart, zeros past `limit`: by 16-byte cp.async where `vec`,
+// else element by element.
+template <typename T, int HD, int ROWS>
+__device__ __forceinline__ void core_load(float* dst, const T* __restrict__ src, long long s_stride,
+                                          int r0, int limit, bool vec) {
+    constexpr int RS = HD + 4;
+    if constexpr (sizeof(T) == 4) {
+        if (vec) {
+            constexpr int CH = HD / 4;   // 16-byte pieces a row
+            static_assert(ROWS * CH % CORE_NT == 0, "pieces split evenly over the threads");
+#pragma unroll
+            for (int n = 0; n < ROWS * CH / CORE_NT; ++n) {
+                const int idx = static_cast<int>(threadIdx.x) + CORE_NT * n;
+                const int r = idx / CH, c = idx % CH;
+                const int row = r0 + r;
+                const bool in = row < limit;
+                core_cp16(dst + r * RS + 4 * c,
+                          reinterpret_cast<const float*>(src) + (in ? row * s_stride + 4 * c : 0), in);
+            }
+            return;
+        }
+    }
+    static_assert(ROWS * HD % CORE_NT == 0, "elements split evenly over the threads");
+#pragma unroll 8
+    for (int n = 0; n < ROWS * HD / CORE_NT; ++n) {
+        const int idx = static_cast<int>(threadIdx.x) + CORE_NT * n;
+        const int r = idx / HD, d = idx % HD;
+        const int row = r0 + r;
+        dst[r * RS + d] = row < limit ? to_f32(src[row * s_stride + d]) : 0.f;
+    }
+}
+
+// e^x as 2^(x log2 e) on the special-function unit (ex2.approx: relative
+// error 2^-22, results below 2^-126 flushed to zero, where a probability no
+// longer counts), as on the wgmma route.
+__device__ __forceinline__ float core_exp(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+    return y;
+}
+
+// bf16 rows of two walked tensors held in registers, two elements a register,
+// from their loads (issued before a tile's products) to their stores into
+// the ring as fp32 (after them), so that element copies overlap the products.
+// Up to hd 80: at hd 128 the backward's kernels would spill (ptxas), so its
+// bf16 rows are copied in place as unaligned fp32 rows are.
+template <typename T, int HD, int ROWS>
+struct CoreHeld {
+    static constexpr bool used = sizeof(T) == 2 && HD <= 80;
+    static_assert(ROWS * HD % (2 * CORE_NT) == 0, "pairs of elements split evenly over the threads");
+    static constexpr int N = used ? ROWS * HD / CORE_NT : 2;   // elements a tensor a thread
+    unsigned v[2][N / 2];
+
+    template <int WHICH>
+    __device__ __forceinline__ void fetch(const T* __restrict__ src, long long s_stride, int r0,
+                                          int limit) {
+        const unsigned short* bits = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+            const int idx = static_cast<int>(threadIdx.x) + CORE_NT * n;
+            const int row = r0 + idx / HD;
+            const unsigned u = row < limit ? bits[row * s_stride + idx % HD] : 0u;
+            if (n % 2 == 0)
+                v[WHICH][n / 2] = u;
+            else
+                v[WHICH][n / 2] |= u << 16;
+        }
+    }
+
+    template <int WHICH>
+    __device__ __forceinline__ void put(float* dst) const {
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+            const int idx = static_cast<int>(threadIdx.x) + CORE_NT * n;
+            const unsigned u = n % 2 == 0 ? v[WHICH][n / 2] & 0xffffu : v[WHICH][n / 2] >> 16;
+            dst[idx / HD * (HD + 4) + idx % HD] = __uint_as_float(u << 16);
+        }
+    }
+};
+
+// acc[i][j] += sum_{d < K} A[ty + 16 i][d] B[tx + 8 j][d]: rows of two tiles,
+// summed in order of d.
+template <int CJ, int K, int AS, int BS>
+__device__ __forceinline__ void core_dot(float (&acc)[CORE_RI][CJ], const float* A, const float* B,
+                                         int ty, int tx) {
+#pragma unroll 4
+    for (int d = 0; d < K; d += 4) {
+        float4 a[CORE_RI], b[CJ];
+#pragma unroll
+        for (int i = 0; i < CORE_RI; ++i)
+            a[i] = *reinterpret_cast<const float4*>(A + (ty + CORE_TY * i) * AS + d);
+#pragma unroll
+        for (int j = 0; j < CJ; ++j)
+            b[j] = *reinterpret_cast<const float4*>(B + (tx + CORE_TX * j) * BS + d);
+#pragma unroll
+        for (int i = 0; i < CORE_RI; ++i)
+#pragma unroll
+            for (int j = 0; j < CJ; ++j) {
+                acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+                acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+                acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+                acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+            }
+    }
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+    return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// acc[i][c] += sum_{k < K} P[ty + 16 i][k] M[k][col(c)]: the (64, K) tile P
+// times the (K, hd) tile M, summed in order of k.
+template <int HD, int K, int PS, int MS>
+__device__ __forceinline__ void core_mul(float (&acc)[CORE_RI][HD / CORE_TX], const float* P,
+                                         const float* M, int ty, int tx) {
+    using CC = CoreCols<HD>;
+#pragma unroll 2
+    for (int k = 0; k < K; k += 4) {
+        float4 p[CORE_RI];
+#pragma unroll
+        for (int i = 0; i < CORE_RI; ++i)
+            p[i] = *reinterpret_cast<const float4*>(P + (ty + CORE_TY * i) * PS + k);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            float m[CC::N];
+            const float* row = M + (k + e) * MS + CC::VW * tx;
+#pragma unroll
+            for (int g = 0; g < CC::G; ++g) {
+                if constexpr (CC::VW == 4) {
+                    const float4 t = *reinterpret_cast<const float4*>(row + CORE_TX * 4 * g);
+                    m[4 * g] = t.x, m[4 * g + 1] = t.y, m[4 * g + 2] = t.z, m[4 * g + 3] = t.w;
+                } else {
+                    const float2 t = *reinterpret_cast<const float2*>(row + CORE_TX * 2 * g);
+                    m[2 * g] = t.x, m[2 * g + 1] = t.y;
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < CORE_RI; ++i) {
+                const float pv = lane_of(p[i], e);
+#pragma unroll
+                for (int c = 0; c < CC::N; ++c) acc[i][c] = fmaf(pv, m[c], acc[i][c]);
+            }
+        }
+    }
+}
+
+// One output row's hd / 8 columns of this thread, times `scale`: vectors
+// where `vec` (fp32 rows in 16-byte pieces), else element by element.
+template <typename T, int HD>
+__device__ __forceinline__ void core_store(T* row, const float (&v)[HD / CORE_TX], float scale,
+                                           int tx, bool vec) {
+    using CC = CoreCols<HD>;
+    if constexpr (sizeof(T) == 4) {
+        if (vec) {
+#pragma unroll
+            for (int g = 0; g < CC::G; ++g) {
+                float* dst = reinterpret_cast<float*>(row) + CoreCols<HD>::col(tx, CC::VW * g);
+                if constexpr (CC::VW == 4)
+                    *reinterpret_cast<float4*>(dst) = make_float4(
+                        v[4 * g] * scale, v[4 * g + 1] * scale, v[4 * g + 2] * scale,
+                        v[4 * g + 3] * scale);
+                else
+                    *reinterpret_cast<float2*>(dst) = make_float2(v[2 * g] * scale,
+                                                                  v[2 * g + 1] * scale);
+            }
+            return;
+        }
+    }
+#pragma unroll
+    for (int c = 0; c < CC::N; ++c) row[CC::col(tx, c)] = from_f32<T>(v[c] * scale);
+}
+
+// The forward's shared memory in floats: the owned Q tile, STAGES stages of
+// [K, V] of C keys, the (64, C) P tile (kernels/flash_attention.py,
+// `core_fwd_layout`).  C = 64 keys up to hd 64, 32 beyond: two blocks an SM.
+template <int HD>
+struct CoreFwd {
+    static constexpr int C = HD <= 64 ? 64 : 32;
+    static constexpr int STAGES = 2;
+    static constexpr int RS = HD + 4, PS = C + 8;
+    static constexpr int STAGE = 2 * C * RS;
+    static constexpr int floats = CORE_ROWS * RS + STAGES * STAGE + CORE_ROWS * PS;
     static constexpr size_t bytes = sizeof(float) * floats;
 };
 
-template <typename T, int HD, int BN>
-__global__ void __launch_bounds__(NT)
+// One block a (64-query tile, q head, batch), heavy tiles first: S = Q K^T
+// (4 x C / 8 micro-tiles), the online softmax on the 8 lanes that share a
+// row, P into the warp's rows of the P tile, O += P V (4 x hd / 8).
+template <typename T, int HD>
+__global__ void __launch_bounds__(CORE_NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, Strides qs, Strides ks, Strides vs,
                  Strides os, int group, int sq, int skv, int n_q_tiles, float sm_scale,
-                 int causal) {
-    using L = Smem<HD, BN>;
-    constexpr int NJ = BN / TX;   // score columns per thread: tx + TX * j
-    constexpr int NC = HD / TX;   // output columns per thread: tx + TX * c
+                 int causal, int vec) {
+    using L = CoreFwd<HD>;
+    constexpr int C = L::C, CJ = C / CORE_TX, NC = HD / CORE_TX, RS = L::RS, PS = L::PS;
 
     extern __shared__ __align__(16) float smem[];
     float* Qs = smem;
-    float* Ks = Qs + BM * L::QS;
-    float* Vs = Ks + BN * L::KS;
-    float* Ps = Vs + BN * L::VS;
+    float* ring = Qs + CORE_ROWS * RS;
+    float* Ps = ring + L::STAGES * L::STAGE;
 
-    const int tid = threadIdx.x;
-    const int tx = tid % TX, ty = tid / TX;
-    const int q_tile = n_q_tiles - 1 - static_cast<int>(blockIdx.x);
+    const int tid = threadIdx.x, tx = tid % CORE_TX, ty = tid / CORE_TX;
+    const int q_tile = n_q_tiles - 1 - static_cast<int>(blockIdx.x);   // heaviest first
     const int h = blockIdx.y, b = blockIdx.z;
-    const int hk = h / group;
-    const int q0 = q_tile * BM;
+    const int q0 = q_tile * CORE_ROWS;
     const int off = skv - sq;   // causal offset: query i sees keys <= i + off
-
     const T* qb = q + b * qs.b + h * qs.h;
-    const T* kb = k + b * ks.b + hk * ks.h;
-    const T* vb = v + b * vs.b + hk * vs.h;
-    T* ob = o + b * os.b + h * os.h;
+    const T* kb = k + b * ks.b + (h / group) * ks.h;
+    const T* vb = v + b * vs.b + (h / group) * vs.h;
+    const int kv_end = causal ? min(skv, min(q0 + CORE_ROWS, sq) + off) : skv;
+    const int n_tiles = (kv_end + C - 1) / C;
 
-    for (int idx = tid; idx < BM * HD; idx += NT) {
-        const int r = idx / HD, d = idx % HD;
-        const int row = q0 + r;
-        Qs[r * L::QS + d] = row < sq ? to_f32(qb[row * qs.s + d]) : 0.f;
+    // K/V tile t into its stage, one commit group a call; bf16 rows are only
+    // fetched into `held` here, and stored by place(t)
+    CoreHeld<T, HD, C> held;
+    auto issue = [&](int t) {
+        if (t < n_tiles) {
+            if constexpr (CoreHeld<T, HD, C>::used) {
+                held.template fetch<0>(kb, ks.s, t * C, skv);
+                held.template fetch<1>(vb, vs.s, t * C, skv);
+            } else {
+                float* st = ring + (t % L::STAGES) * L::STAGE;
+                core_load<T, HD, C>(st, kb, ks.s, t * C, skv, vec);
+                core_load<T, HD, C>(st + C * RS, vb, vs.s, t * C, skv, vec);
+            }
+        }
+        core_commit();
+    };
+    auto place = [&](int t) {
+        if constexpr (CoreHeld<T, HD, C>::used) {
+            if (t < n_tiles) {
+                float* st = ring + (t % L::STAGES) * L::STAGE;
+                held.template put<0>(st);
+                held.template put<1>(st + C * RS);
+            }
+        }
+    };
+    core_load<T, HD, CORE_ROWS>(Qs, qb, qs.s, q0, sq, vec);   // in tile 0's group
+#pragma unroll
+    for (int t = 0; t < L::STAGES - 1; ++t) {
+        issue(t);
+        place(t);
     }
 
-    float m[RI], l[RI], acc[RI][NC];
+    float m[CORE_RI], l[CORE_RI], acc[CORE_RI][NC];
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
+    for (int i = 0; i < CORE_RI; ++i) {
         m[i] = NEG_INF;
         l[i] = 0.f;
 #pragma unroll
         for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
     }
 
-    int kv_end = skv;
-    if (causal) {
-        const int last_q = min(q0 + BM, sq) - 1;
-        kv_end = min(skv, last_q + off + 1);
-    }
-    const int n_tiles = (kv_end + BN - 1) / BN;
-
     for (int t = 0; t < n_tiles; ++t) {
-        const int k0 = t * BN;
-        __syncthreads();   // the previous tile's products are done with Ks, Vs, Ps
-        for (int idx = tid; idx < BN * HD; idx += NT) {
-            const int r = idx / HD, d = idx % HD;
-            const int row = k0 + r;
-            const bool in = row < skv;
-            Ks[r * L::KS + d] = in ? to_f32(kb[row * ks.s + d]) : 0.f;
-            Vs[r * L::VS + d] = in ? to_f32(vb[row * vs.s + d]) : 0.f;
-        }
-        __syncthreads();
+        core_wait<L::STAGES - 2>();
+        __syncthreads();   // tile t has landed; every thread is done with tile t - 1
+        issue(t + L::STAGES - 1);
+        const float* Ks = ring + (t % L::STAGES) * L::STAGE;
+        const float* Vs = Ks + C * RS;
+        const int k0 = t * C;
 
-        // scores of this thread's RI x NJ micro-tile
-        float s[RI][NJ];
+        float s[CORE_RI][CJ];
 #pragma unroll
-        for (int i = 0; i < RI; ++i)
+        for (int i = 0; i < CORE_RI; ++i)
 #pragma unroll
-            for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-        for (int d = 0; d < HD; d += 4) {
-            float4 qv[RI], kv[NJ];
-#pragma unroll
-            for (int i = 0; i < RI; ++i)
-                qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty + TY * i) * L::QS + d]);
-#pragma unroll
-            for (int j = 0; j < NJ; ++j)
-                kv[j] = *reinterpret_cast<const float4*>(&Ks[(tx + TX * j) * L::KS + d]);
-#pragma unroll
-            for (int i = 0; i < RI; ++i)
-#pragma unroll
-                for (int j = 0; j < NJ; ++j) {
-                    s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-                    s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-                    s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-                    s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
-                }
-        }
+            for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
+        core_dot<CJ, HD, RS, RS>(s, Qs, Ks, ty, tx);
 
-        // online softmax; the 16 threads sharing a row are 16 neighbouring lanes
+        // every query of the tile sees every key of it: no mask
+        const bool full = k0 + C <= skv && (!causal || k0 + C - 1 <= q0 + off);
 #pragma unroll
-        for (int i = 0; i < RI; ++i) {
-            const int q_pos = q0 + ty + TY * i;
+        for (int i = 0; i < CORE_RI; ++i) {
+            const int q_pos = q0 + ty + CORE_TY * i;
             float mx = NEG_INF;
 #pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-                const int k_pos = k0 + tx + TX * j;
-                const bool valid = k_pos < skv && (!causal || q_pos + off >= k_pos);
+            for (int j = 0; j < CJ; ++j) {
+                const int k_pos = k0 + tx + CORE_TX * j;
+                const bool valid = full || (k_pos < skv && (!causal || q_pos + off >= k_pos));
                 s[i][j] = valid ? s[i][j] * sm_scale : NEG_INF;
                 mx = fmaxf(mx, s[i][j]);
             }
-            for (int w = TX / 2; w > 0; w >>= 1)
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+#pragma unroll
+            for (int w = 1; w < CORE_TX; w <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
             const float m_new = fmaxf(m[i], mx);
-            const float corr = expf(m[i] - m_new);
+            const float corr = core_exp(m[i] - m_new);
             float row_sum = 0.f;
 #pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-                const float p = expf(s[i][j] - m_new);
-                Ps[(ty + TY * i) * L::PS + tx + TX * j] = p;
+            for (int j = 0; j < CJ; ++j) {
+                const float p = core_exp(s[i][j] - m_new);
+                Ps[(ty + CORE_TY * i) * PS + tx + CORE_TX * j] = p;
                 row_sum += p;
             }
-            for (int w = TX / 2; w > 0; w >>= 1)
+#pragma unroll
+            for (int w = 1; w < CORE_TX; w <<= 1)
                 row_sum += __shfl_xor_sync(0xffffffffu, row_sum, w);
             l[i] = l[i] * corr + row_sum;
             m[i] = m_new;
 #pragma unroll
             for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
         }
-        __syncthreads();
-
-        // acc += P V
-#pragma unroll 2
-        for (int kk = 0; kk < BN; kk += 4) {
-            float4 pv[RI];
-#pragma unroll
-            for (int i = 0; i < RI; ++i)
-                pv[i] = *reinterpret_cast<const float4*>(&Ps[(ty + TY * i) * L::PS + kk]);
-#pragma unroll
-            for (int c = 0; c < NC; ++c) {
-                const float v0 = Vs[(kk + 0) * L::VS + tx + TX * c];
-                const float v1 = Vs[(kk + 1) * L::VS + tx + TX * c];
-                const float v2 = Vs[(kk + 2) * L::VS + tx + TX * c];
-                const float v3 = Vs[(kk + 3) * L::VS + tx + TX * c];
-#pragma unroll
-                for (int i = 0; i < RI; ++i) {
-                    acc[i][c] = fmaf(pv[i].x, v0, acc[i][c]);
-                    acc[i][c] = fmaf(pv[i].y, v1, acc[i][c]);
-                    acc[i][c] = fmaf(pv[i].z, v2, acc[i][c]);
-                    acc[i][c] = fmaf(pv[i].w, v3, acc[i][c]);
-                }
-            }
-        }
+        __syncwarp();   // the warp's P rows are written
+        core_mul<HD, C, PS, RS>(acc, Ps, Vs, ty, tx);
+        place(t + L::STAGES - 1);
     }
 
+    T* ob = o + b * os.b + h * os.h;
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-        const int row = q0 + ty + TY * i;
+    for (int i = 0; i < CORE_RI; ++i) {
+        const int row = q0 + ty + CORE_TY * i;
         if (row < sq) {
-            const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-            for (int c = 0; c < NC; ++c)
-                ob[row * os.s + tx + TX * c] = from_f32<T>(acc[i][c] / denom);
+            core_store<T, HD>(ob + row * os.s, acc[i], 1.f / fmaxf(l[i], 1e-30f), tx, vec);
             // m is the running max of the scaled scores, l the sum of exp(s - m)
             if (lse != nullptr && tx == 0)
                 lse[(static_cast<long long>(b) * gridDim.y + h) * sq + row] = m[i] + logf(l[i]);
@@ -950,40 +1165,57 @@ bool rows_16_byte_aligned(const void* const* ptrs, const long long* strides) {
 
 // ---------------------------------------------------------------------------
 
+// The CUDA-core route's `vector_loads`: fp32 whose bases are 16-byte aligned
+// and whose (b, h, s) strides are multiples of 4 elements.
+bool core_vector_loads(int dtype, const void* const* ptrs, int n, const long long* strides) {
+    if (dtype != 0) return false;
+    for (int i = 0; i < n; ++i)
+        if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
+    for (int i = 0; i < 3 * n; ++i)
+        if (strides[i] % 4 != 0) return false;
+    return true;
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(bytes));
+}
+
+// The CUDA-core plan: [1] 64 query rows, [2] keys a K/V tile, [3] stages,
+// [4] 128 threads, [5..7] grid, [8] shared bytes, [9] vector_loads.
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, Strides qs,
            Strides ks, Strides vs, Strides os, const long long* plan, int b, int hq, int hkv,
-           int sq, int skv, float sm_scale, int causal, cudaStream_t stream) {
-    constexpr int BN = HD >= 128 ? 32 : 64;
-    auto kernel = flash_fwd_kernel<T, HD, BN>;
-    constexpr size_t smem = Smem<HD, BN>::bytes;
-    const int n_q_tiles = (sq + BM - 1) / BM;
-    if (plan[1] != BM || plan[2] != BN || plan[3] != 1 || plan[4] != NT || plan[5] != n_q_tiles ||
-        plan[6] != hq || plan[7] != b || plan[8] != static_cast<long long>(smem))
+           int sq, int skv, float sm_scale, int causal, int vec, cudaStream_t stream) {
+    using L = CoreFwd<HD>;
+    auto kernel = flash_fwd_kernel<T, HD>;
+    const int n_q_tiles = (sq + CORE_ROWS - 1) / CORE_ROWS;
+    if (plan[1] != CORE_ROWS || plan[2] != L::C || plan[3] != L::STAGES || plan[4] != CORE_NT ||
+        plan[5] != n_q_tiles || plan[6] != hq || plan[7] != b ||
+        plan[8] != static_cast<long long>(L::bytes) || plan[9] != vec)
         return cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-        if (err != cudaSuccess) return err;
-    }
-    const dim3 grid(n_q_tiles, hq, b);
-    kernel<<<grid, NT, smem, stream>>>(
+    const cudaError_t err = allow_smem(kernel, L::bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(n_q_tiles, hq, b), CORE_NT, L::bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), lse, qs, ks, vs, os, hq / hkv, sq, skv, n_q_tiles, sm_scale, causal);
+        static_cast<T*>(o), lse, qs, ks, vs, os, hq / hkv, sq, skv, n_q_tiles, sm_scale, causal,
+        vec);
     return cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, float* lse,
                 Strides qs, Strides ks, Strides vs, Strides os, const long long* plan, int b,
-                int hq, int hkv, int sq, int skv, float sm_scale, int causal,
+                int hq, int hkv, int sq, int skv, float sm_scale, int causal, int vec,
                 cudaStream_t stream) {
     switch (hd) {
-        case 16: return launch<T, 16>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
-        case 32: return launch<T, 32>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
-        case 64: return launch<T, 64>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
-        case 80: return launch<T, 80>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
-        case 128: return launch<T, 128>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, stream);
+        case 16: return launch<T, 16>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
+        case 32: return launch<T, 32>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
+        case 64: return launch<T, 64>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
+        case 80: return launch<T, 80>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
+        case 128: return launch<T, 128>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -995,305 +1227,327 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, fl
 // The TPU kernel has no backward (the reference differentiates its plain jnp
 // attention), so this is the port's own: FlashAttention-2's recomputation
 // scheme, no atomics and a fixed order for every sum, so every result is
-// deterministic.  Aligned bf16 runs on `wgmma` (described at its section
-// below); fp32 and unaligned bf16 run these three kernels a call:
+// deterministic.  P is recomputed from q, k and the forward's lse (natural
+// log), never stored.  What bounds it on this card: operations (five
+// products of 2 hd flops per visible (query, key) pair).  Two routes, chosen
+// in Python (`flash_bwd_plan`) as the forward's are: bf16 whose rows are
+// 16-byte aligned runs on the tensor cores (`wgmma`, described at its
+// section below); fp32 and unaligned bf16 run in exact fp32 on the CUDA
+// cores, whose 67 TFLOP/s they cannot pass, with the pieces above
+// (micro-tiles, cp.async ring), two kernels and, for a split GQA group, the
+// ordered sum a call:
 //
-//  * flash_bwd_dot_kernel -- D = rowsum(dO * O) in fp32, one warp per row.
-//  * flash_bwd_dkv_kernel -- one block per (kv tile of 64 keys, kv head,
-//    batch).  It holds its K and V tiles and dK, dV in fp32 registers and
-//    walks the query heads of its group and, in each, the query tiles that see
-//    its keys (causally dead tiles are never loaded; the offset skv - sq is the
-//    forward's), so a kv head's sum over its group needs no second pass.  Per
-//    query tile: S^T = K Q^T and dP^T = V dO^T, P^T = exp(s S^T - lse) masked,
-//    dV += P^T dO, dS^T = P^T (dP^T - D), dK += dS^T Q.
-//  * flash_bwd_dq_kernel -- one block per (q tile of 64 queries, q head,
-//    batch), over the kv tiles up to its causal limit: S = Q K^T, dP = dO V^T,
-//    P = exp(s S - lse) masked, dS = P (dP - D), dQ += dS K.
+//  * flash_bwd_dq_kernel, first -- one block per (64 queries, q head, batch)
+//    holding Q and dO.  It computes its rows' D = rowsum(dO * O) and stores
+//    D and lse, zeros past sq, in a (b, hq, sq_pad) workspace whose rows are
+//    padded to the block's 64, so that the dK/dV kernel takes a walked
+//    tile's pair by 16-byte cp.async.  Over the key tiles up to its causal
+//    limit (32 keys a tile): S = Q K^T, dP = dO V^T (4 x 4 micro-tiles), P =
+//    exp(s S - lse) masked, dS = P (dP - D) into the warp's rows, dQ += dS K.
+//  * flash_bwd_dkv_kernel, second -- one block per (64 keys, kv head x
+//    split, batch) holding K and V.  It walks the query heads of its share
+//    of the group and, in each, the 32-query tiles that see its keys
+//    (causally dead tiles are never loaded; the offset skv - sq is the
+//    forward's): S^T = K Q^T and dP^T = V dO^T, P^T = exp(s S^T - lse)
+//    masked into the warp's rows, dV += P^T dO, then dS^T = P^T (dP^T - D)
+//    in its place and dK += dS^T Q.
+//  * flash_bwd_sum_kernel -- only where the plan splits a GQA group's query
+//    heads over `splits` dK/dV blocks (the fewest that give every SM a
+//    block): the blocks write fp32 partial dK/dV and this pass sums the
+//    splits in order.
 //
-// P is recomputed from q, k and the forward's lse (natural log), never stored.
-// What bounds it on this card: operations (five products of 2 hd flops per
-// visible (query, key) pair).  Two routes, chosen in Python (`flash_bwd_plan`)
-// as the forward's are: bf16 whose rows are 16-byte aligned runs its products
-// on the tensor cores (`wgmma`, below); fp32 and unaligned bf16 run them in
-// fp32 on the CUDA cores (the two kernels that follow), from fp32
-// shared-memory tiles (bf16 widened as it is loaded) with the forward
-// CUDA-core kernel's 4-row micro-tiles and 16-byte shared-memory reads, so
-// they cannot pass the card's 67 TFLOP/s fp32 rate.  Inputs are read through
-// their (b, h, s) strides, as in the forward: dout may be the transposed view
-// autograd hands back for the model's (b, s, h, hd) layout.
+// dQ has a kernel of its own so that no sum crosses blocks, at the cost of
+// computing S and dP twice (seven products where five would do), as on the
+// wgmma route.  Inputs are read through their (b, h, s) strides, as in the
+// forward: dout may be the transposed view autograd hands back for the
+// model's (b, s, h, hd) layout.
 
-constexpr int BWD_ROWS = 64;                // rows a block owns: queries (dQ) or keys (dK/dV)
-constexpr int BWD_THREADS = TX * TY;        // 256
-constexpr int BWD_RI = BWD_ROWS / TY;       // 4 rows a thread: ty + TY * i
-constexpr int DOT_ROWS = 8;                 // rows of the D pass per block, one warp each
-
-// Shared memory of both kernels: two (64, hd) tiles of the side a block owns,
-// two (C, hd) tiles of the side it walks, the (64, C) P / dS tile, and lse and
-// D of the C walked rows.  C = 64 keys or queries, 32 at hd 128.
+// Shared memory in floats (kernels/flash_attention.py, `core_bwd_layout`):
+// the two owned (64, hd) tiles, STAGES stages of the two walked (32, hd)
+// tiles (and, dK/dV, their 32 lse and 32 D), the (64, 32) P / dS tile.
+// 3 stages up to hd 64, 2 beyond: two blocks an SM up to hd 80.
 template <int HD>
-struct BwdSmem {
-    static constexpr int C = HD >= 128 ? 32 : 64;
-    static constexpr int RS = HD + 4;   // padded row strides in floats (as Smem above)
-    static constexpr int PS = C + 4;
-    static constexpr int floats = 2 * BWD_ROWS * RS + 2 * C * RS + BWD_ROWS * PS + 2 * C;
-    static constexpr size_t bytes = sizeof(float) * floats;
+struct CoreBwd {
+    static constexpr int C = 32;
+    static constexpr int STAGES = HD <= 64 ? 3 : 2;
+    static constexpr int RS = HD + 4, PS = C + 8;
+    static constexpr int TILE = C * RS;
+    static constexpr int OWN = 2 * CORE_ROWS * RS;
+    static constexpr int STAGE_DKV = 2 * TILE + 2 * C;
+    static constexpr int STAGE_DQ = 2 * TILE;
+    static constexpr size_t bytes_dkv = sizeof(float) * (OWN + STAGES * STAGE_DKV + CORE_ROWS * PS);
+    static constexpr size_t bytes_dq = sizeof(float) * (OWN + STAGES * STAGE_DQ + CORE_ROWS * PS);
 };
 
-// Rows r0 .. r0 + n of a head's (s, hd) slice into shared memory as fp32,
-// zeros past `limit`.
+// `stats`: lse of each (b, hq) row at [0, rows_pad), D at [rows_pad, 2 rows_pad),
+// rows sq_pad apart.
 template <typename T, int HD>
-__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, long long s_stride,
-                                          int r0, int n, int limit) {
-    constexpr int RS = HD + 4;
-    for (int idx = threadIdx.x; idx < n * HD; idx += BWD_THREADS) {
-        const int r = idx / HD, d = idx % HD;
-        const int row = r0 + r;
-        dst[r * RS + d] = row < limit ? to_f32(src[row * s_stride + d]) : 0.f;
-    }
-}
-
-// acc[i][j] = A[ty + TY i] . B[tx + TX j] over hd (rows of two tiles).
-template <int HD, int NJ>
-__device__ __forceinline__ void row_dots(float (&acc)[BWD_RI][NJ], const float* A, const float* B) {
-    constexpr int RS = HD + 4;
-    const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-#pragma unroll
-    for (int i = 0; i < BWD_RI; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-        float4 a[BWD_RI], bv[NJ];
-#pragma unroll
-        for (int i = 0; i < BWD_RI; ++i)
-            a[i] = *reinterpret_cast<const float4*>(&A[(ty + TY * i) * RS + d]);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-            bv[j] = *reinterpret_cast<const float4*>(&B[(tx + TX * j) * RS + d]);
-#pragma unroll
-        for (int i = 0; i < BWD_RI; ++i)
-#pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-                acc[i][j] = fmaf(a[i].x, bv[j].x, acc[i][j]);
-                acc[i][j] = fmaf(a[i].y, bv[j].y, acc[i][j]);
-                acc[i][j] = fmaf(a[i].z, bv[j].z, acc[i][j]);
-                acc[i][j] = fmaf(a[i].w, bv[j].w, acc[i][j]);
-            }
-    }
-}
-
-// out[i][c] += sum_j P[ty + TY i][j] M[j][tx + TX c]: the (64, C) tile P
-// times the (C, hd) tile M.
-template <int HD, int C>
-__device__ __forceinline__ void tile_product(float (&out)[BWD_RI][HD / TX], const float* P,
-                                             const float* M) {
-    constexpr int RS = HD + 4, PS = C + 4, NC = HD / TX;
-    const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-#pragma unroll 2
-    for (int kk = 0; kk < C; kk += 4) {
-        float4 pv[BWD_RI];
-#pragma unroll
-        for (int i = 0; i < BWD_RI; ++i)
-            pv[i] = *reinterpret_cast<const float4*>(&P[(ty + TY * i) * PS + kk]);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-            const float m0 = M[(kk + 0) * RS + tx + TX * c];
-            const float m1 = M[(kk + 1) * RS + tx + TX * c];
-            const float m2 = M[(kk + 2) * RS + tx + TX * c];
-            const float m3 = M[(kk + 3) * RS + tx + TX * c];
-#pragma unroll
-            for (int i = 0; i < BWD_RI; ++i) {
-                out[i][c] = fmaf(pv[i].x, m0, out[i][c]);
-                out[i][c] = fmaf(pv[i].y, m1, out[i][c]);
-                out[i][c] = fmaf(pv[i].z, m2, out[i][c]);
-                out[i][c] = fmaf(pv[i].w, m3, out[i][c]);
-            }
-        }
-    }
-}
-
-// D = rowsum(dO * O) over the logical (b, hq, sq) rows, into a contiguous buffer.
-template <typename T>
-__global__ void __launch_bounds__(32 * DOT_ROWS)
-flash_bwd_dot_kernel(const T* __restrict__ dout, const T* __restrict__ o, float* __restrict__ delta,
-                     Strides dos, Strides os, int hq, int sq, int hd, long long rows) {
-    const long long row = static_cast<long long>(blockIdx.x) * DOT_ROWS + threadIdx.x / 32;
-    if (row >= rows) return;
-    const int lane = threadIdx.x % 32;
-    const int i = static_cast<int>(row % sq);
-    const int h = static_cast<int>((row / sq) % hq);
-    const long long b = row / (static_cast<long long>(sq) * hq);
-    const T* dr = dout + b * dos.b + h * dos.h + i * dos.s;
-    const T* orow = o + b * os.b + h * os.h + i * os.s;
-    float sum = 0.f;
-    for (int d = lane; d < hd; d += 32) sum = fmaf(to_f32(dr[d]), to_f32(orow[d]), sum);
-#pragma unroll
-    for (int w = 16; w > 0; w >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
-    if (lane == 0) delta[row] = sum;
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(BWD_THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
-                     int group, int hq, int sq, int skv, float sm_scale, int causal) {
-    using L = BwdSmem<HD>;
-    constexpr int C = L::C, NJ = C / TX, NC = HD / TX, RS = L::RS, PS = L::PS;
-    extern __shared__ __align__(16) float smem[];
-    float* Ks = smem;
-    float* Vs = Ks + BWD_ROWS * RS;
-    float* Qs = Vs + BWD_ROWS * RS;
-    float* dOs = Qs + C * RS;
-    float* Ps = dOs + C * RS;
-    float* lse_s = Ps + BWD_ROWS * PS;
-    float* d_s = lse_s + C;
-
-    const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-    const int hk = blockIdx.y, b = blockIdx.z;
-    const int k0 = blockIdx.x * BWD_ROWS;
-    const int off = skv - sq;   // causal offset: query i sees keys <= i + off
-    load_rows<T, HD>(Ks, k + b * ks.b + hk * ks.h, ks.s, k0, BWD_ROWS, skv);
-    load_rows<T, HD>(Vs, v + b * vs.b + hk * vs.h, vs.s, k0, BWD_ROWS, skv);
-
-    float acc_k[BWD_RI][NC], acc_v[BWD_RI][NC];
-#pragma unroll
-    for (int i = 0; i < BWD_RI; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-    // the first query that sees key k0, and so the first query tile to load
-    const int first_tile = causal ? max(0, k0 - off) / C : 0;
-    const int n_q_tiles = (sq + C - 1) / C;
-    for (int g = 0; g < group; ++g) {
-        const int h = hk * group + g;
-        const T* qb = q + b * qs.b + h * qs.h;
-        const T* dob = dout + b * dos.b + h * dos.h;
-        const long long rows0 = (static_cast<long long>(b) * hq + h) * sq;
-        for (int u = first_tile; u < n_q_tiles; ++u) {
-            const int c0 = u * C;
-            __syncthreads();   // the previous tile's products are done with Qs, dOs, Ps
-            load_rows<T, HD>(Qs, qb, qs.s, c0, C, sq);
-            load_rows<T, HD>(dOs, dob, dos.s, c0, C, sq);
-            for (int j = tid; j < C; j += BWD_THREADS) {
-                const bool in = c0 + j < sq;
-                lse_s[j] = in ? lse[rows0 + c0 + j] : 0.f;
-                d_s[j] = in ? delta[rows0 + c0 + j] : 0.f;
-            }
-            __syncthreads();
-
-            float s[BWD_RI][NJ], dp[BWD_RI][NJ];
-            row_dots<HD, NJ>(s, Ks, Qs);    // S^T: keys x queries
-            row_dots<HD, NJ>(dp, Vs, dOs);  // dP^T
-#pragma unroll
-            for (int i = 0; i < BWD_RI; ++i)
-#pragma unroll
-                for (int j = 0; j < NJ; ++j) {
-                    const int k_pos = k0 + ty + TY * i, q_pos = c0 + tx + TX * j;
-                    const bool valid = k_pos < skv && q_pos < sq && (!causal || q_pos + off >= k_pos);
-                    s[i][j] = valid ? expf(fmaf(s[i][j], sm_scale, -lse_s[tx + TX * j])) : 0.f;
-                    Ps[(ty + TY * i) * PS + tx + TX * j] = s[i][j];
-                }
-            __syncthreads();
-            tile_product<HD, C>(acc_v, Ps, dOs);   // dV += P^T dO
-            __syncthreads();
-#pragma unroll
-            for (int i = 0; i < BWD_RI; ++i)
-#pragma unroll
-                for (int j = 0; j < NJ; ++j)
-                    Ps[(ty + TY * i) * PS + tx + TX * j] = s[i][j] * (dp[i][j] - d_s[tx + TX * j]);
-            __syncthreads();
-            tile_product<HD, C>(acc_k, Ps, Qs);    // dK += dS^T Q
-        }
-    }
-
-    T* dkb = dk + b * dks.b + hk * dks.h;
-    T* dvb = dv + b * dvs.b + hk * dvs.h;
-#pragma unroll
-    for (int i = 0; i < BWD_RI; ++i) {
-        const int row = k0 + ty + TY * i;
-        if (row < skv) {
-#pragma unroll
-            for (int c = 0; c < NC; ++c) {
-                dkb[row * dks.s + tx + TX * c] = from_f32<T>(acc_k[i][c] * sm_scale);
-                dvb[row * dvs.s + tx + TX * c] = from_f32<T>(acc_v[i][c]);
-            }
-        }
-    }
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(BWD_THREADS)
+__global__ void __launch_bounds__(CORE_NT)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, Strides qs, Strides ks,
-                    Strides vs, Strides dos, Strides dqs, int group, int sq, int skv,
-                    int n_q_tiles, float sm_scale, int causal) {
-    using L = BwdSmem<HD>;
-    constexpr int C = L::C, NJ = C / TX, NC = HD / TX, RS = L::RS, PS = L::PS;
+                    const T* __restrict__ o, const T* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ stats, T* __restrict__ dq,
+                    Strides qs, Strides ks, Strides vs, Strides os, Strides dos, Strides dqs,
+                    int group, int sq, int skv, int sq_pad, long long rows_pad, int n_q_tiles,
+                    float sm_scale, int causal, int vec) {
+    using L = CoreBwd<HD>;
+    using CC = CoreCols<HD>;
+    constexpr int C = L::C, CJ = C / CORE_TX, NC = HD / CORE_TX, RS = L::RS, PS = L::PS;
     extern __shared__ __align__(16) float smem[];
     float* Qs = smem;
-    float* dOs = Qs + BWD_ROWS * RS;
-    float* Ks = dOs + BWD_ROWS * RS;
-    float* Vs = Ks + C * RS;
-    float* dSs = Vs + C * RS;
+    float* dOs = Qs + CORE_ROWS * RS;
+    float* ring = smem + L::OWN;
+    float* dSs = ring + L::STAGES * L::STAGE_DQ;
 
-    const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+    const int tid = threadIdx.x, tx = tid % CORE_TX, ty = tid / CORE_TX;
     const int q_tile = n_q_tiles - 1 - static_cast<int>(blockIdx.x);   // heaviest first
     const int h = blockIdx.y, b = blockIdx.z;
-    const int hk = h / group;
-    const int q0 = q_tile * BWD_ROWS;
+    const int hq = gridDim.y;
+    const int q0 = q_tile * CORE_ROWS;
     const int off = skv - sq;
-    load_rows<T, HD>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, BWD_ROWS, sq);
-    load_rows<T, HD>(dOs, dout + b * dos.b + h * dos.h, dos.s, q0, BWD_ROWS, sq);
-    const T* kb = k + b * ks.b + hk * ks.h;
-    const T* vb = v + b * vs.b + hk * vs.h;
+    const T* kb = k + b * ks.b + (h / group) * ks.h;
+    const T* vb = v + b * vs.b + (h / group) * vs.h;
+    const int kv_end = causal ? min(skv, min(q0 + CORE_ROWS, sq) + off) : skv;
+    const int n_tiles = (kv_end + C - 1) / C;
 
-    const long long rows0 = (static_cast<long long>(b) * gridDim.y + h) * sq;
-    float lse_r[BWD_RI], d_r[BWD_RI], acc[BWD_RI][NC];
+    CoreHeld<T, HD, C> held;   // as in the forward
+    auto issue = [&](int t) {
+        if (t < n_tiles) {
+            if constexpr (CoreHeld<T, HD, C>::used) {
+                held.template fetch<0>(kb, ks.s, t * C, skv);
+                held.template fetch<1>(vb, vs.s, t * C, skv);
+            } else {
+                float* st = ring + (t % L::STAGES) * L::STAGE_DQ;
+                core_load<T, HD, C>(st, kb, ks.s, t * C, skv, vec);
+                core_load<T, HD, C>(st + L::TILE, vb, vs.s, t * C, skv, vec);
+            }
+        }
+        core_commit();
+    };
+    auto place = [&](int t) {
+        if constexpr (CoreHeld<T, HD, C>::used) {
+            if (t < n_tiles) {
+                float* st = ring + (t % L::STAGES) * L::STAGE_DQ;
+                held.template put<0>(st);
+                held.template put<1>(st + L::TILE);
+            }
+        }
+    };
+    core_load<T, HD, CORE_ROWS>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, sq, vec);
+    core_load<T, HD, CORE_ROWS>(dOs, dout + b * dos.b + h * dos.h, dos.s, q0, sq, vec);
 #pragma unroll
-    for (int i = 0; i < BWD_RI; ++i) {
-        const int row = q0 + ty + TY * i;
-        lse_r[i] = row < sq ? lse[rows0 + row] : 0.f;
-        d_r[i] = row < sq ? delta[rows0 + row] : 0.f;
+    for (int t = 0; t < L::STAGES - 1; ++t) {
+        issue(t);
+        place(t);
+    }
+    core_wait<L::STAGES - 2>();
+    __syncthreads();   // Q, dO and the first K/V tile have landed
+
+    // D = rowsum(dO * O) of the owned rows, over the 8 lanes that share a row
+    const long long row0 = (static_cast<long long>(b) * hq + h) * sq_pad + q0;
+    const T* ob = o + b * os.b + h * os.h;
+    float lse_r[CORE_RI], d_r[CORE_RI], acc[CORE_RI][NC];
+#pragma unroll
+    for (int i = 0; i < CORE_RI; ++i) {
+        const int r = ty + CORE_TY * i, row = q0 + r;
+        float sum = 0.f;
+        if (row < sq) {
+#pragma unroll
+            for (int c = 0; c < NC; ++c)
+                sum = fmaf(dOs[r * RS + CC::col(tx, c)], to_f32(ob[row * os.s + CC::col(tx, c)]), sum);
+        }
+#pragma unroll
+        for (int w = 1; w < CORE_TX; w <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
+        d_r[i] = sum;
+        lse_r[i] = row < sq ? lse[(static_cast<long long>(b) * hq + h) * sq + row] : 0.f;
+        if (tx == 0) {
+            stats[row0 + r] = lse_r[i];
+            stats[rows_pad + row0 + r] = d_r[i];
+        }
 #pragma unroll
         for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
     }
 
-    const int kv_end = causal ? min(skv, min(q0 + BWD_ROWS, sq) + off) : skv;
-    const int n_tiles = (kv_end + C - 1) / C;
     for (int t = 0; t < n_tiles; ++t) {
+        if (t > 0) {
+            core_wait<L::STAGES - 2>();
+            __syncthreads();   // tile t has landed; every thread is done with tile t - 1
+        }
+        issue(t + L::STAGES - 1);
+        const float* Ks = ring + (t % L::STAGES) * L::STAGE_DQ;
+        const float* Vs = Ks + L::TILE;
         const int k0 = t * C;
-        __syncthreads();   // the previous tile's product is done with Ks, dSs
-        load_rows<T, HD>(Ks, kb, ks.s, k0, C, skv);
-        load_rows<T, HD>(Vs, vb, vs.s, k0, C, skv);
-        __syncthreads();
 
-        float s[BWD_RI][NJ], dp[BWD_RI][NJ];
-        row_dots<HD, NJ>(s, Qs, Ks);
-        row_dots<HD, NJ>(dp, dOs, Vs);
+        float s[CORE_RI][CJ], dp[CORE_RI][CJ];
 #pragma unroll
-        for (int i = 0; i < BWD_RI; ++i)
+        for (int i = 0; i < CORE_RI; ++i)
 #pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-                const int q_pos = q0 + ty + TY * i, k_pos = k0 + tx + TX * j;
-                const bool valid = q_pos < sq && k_pos < skv && (!causal || q_pos + off >= k_pos);
-                const float p = valid ? expf(fmaf(s[i][j], sm_scale, -lse_r[i])) : 0.f;
-                dSs[(ty + TY * i) * PS + tx + TX * j] = p * (dp[i][j] - d_r[i]);
+            for (int j = 0; j < CJ; ++j) s[i][j] = dp[i][j] = 0.f;
+        core_dot<CJ, HD, RS, RS>(s, Qs, Ks, ty, tx);
+        core_dot<CJ, HD, RS, RS>(dp, dOs, Vs, ty, tx);
+        const bool full = k0 + C <= skv && q0 + CORE_ROWS <= sq &&
+                          (!causal || k0 + C - 1 <= q0 + off);
+#pragma unroll
+        for (int i = 0; i < CORE_RI; ++i)
+#pragma unroll
+            for (int j = 0; j < CJ; ++j) {
+                const int q_pos = q0 + ty + CORE_TY * i, k_pos = k0 + tx + CORE_TX * j;
+                const bool valid =
+                    full || (q_pos < sq && k_pos < skv && (!causal || q_pos + off >= k_pos));
+                const float p = valid ? core_exp(fmaf(s[i][j], sm_scale, -lse_r[i])) : 0.f;
+                dSs[(ty + CORE_TY * i) * PS + tx + CORE_TX * j] = p * (dp[i][j] - d_r[i]);
             }
-        __syncthreads();
-        tile_product<HD, C>(acc, dSs, Ks);   // dQ += dS K
+        __syncwarp();   // the warp's dS rows are written
+        core_mul<HD, C, PS, RS>(acc, dSs, Ks, ty, tx);   // dQ += dS K
+        __syncwarp();   // and read, before the next tile's are written
+        place(t + L::STAGES - 1);
     }
 
     T* dqb = dq + b * dqs.b + h * dqs.h;
 #pragma unroll
-    for (int i = 0; i < BWD_RI; ++i) {
-        const int row = q0 + ty + TY * i;
-        if (row < sq) {
+    for (int i = 0; i < CORE_RI; ++i) {
+        const int row = q0 + ty + CORE_TY * i;
+        if (row < sq) core_store<T, HD>(dqb + row * dqs.s, acc[i], sm_scale, tx, vec);
+    }
+}
+
+// `partial`: null (one split: dk and dv written here), or the fp32
+// [2][splits][b][hkv][skv][hd] workspace of unscaled dK, then dV.
+template <typename T, int HD>
+__global__ void __launch_bounds__(CORE_NT)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ stats,
+                     T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ partial,
+                     Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
+                     int group, int splits, int hq, int sq, int skv, int sq_pad,
+                     long long rows_pad, float sm_scale, int causal, int vec) {
+    using L = CoreBwd<HD>;
+    constexpr int C = L::C, CJ = C / CORE_TX, NC = HD / CORE_TX, RS = L::RS, PS = L::PS;
+    extern __shared__ __align__(16) float smem[];
+    float* Ks = smem;
+    float* Vs = Ks + CORE_ROWS * RS;
+    float* ring = smem + L::OWN;
+    float* Ps = ring + L::STAGES * L::STAGE_DKV;
+
+    const int tid = threadIdx.x, tx = tid % CORE_TX, ty = tid / CORE_TX;
+    const int hkv = gridDim.y / splits;
+    const int hk = blockIdx.y / splits, split = blockIdx.y % splits, b = blockIdx.z;
+    const int share = group / splits;
+    const int h_first = hk * group + split * share;
+    const int k0 = blockIdx.x * CORE_ROWS;
+    const int off = skv - sq;   // causal offset: query i sees keys <= i + off
+    // the first query tile that sees key k0, and the tiles a head walks
+    const int first = causal ? max(0, k0 - off) / C : 0;
+    const int per_head = (sq + C - 1) / C - first;
+    const int n_walk = share * per_head;
+
+    CoreHeld<T, HD, C> held;   // as in the forward
+    auto issue = [&](int w) {   // walked tile w: head h_first + w / per_head
+        if (w < n_walk) {
+            const int h = h_first + w / per_head, c0 = (first + w % per_head) * C;
+            float* st = ring + (w % L::STAGES) * L::STAGE_DKV;
+            if constexpr (CoreHeld<T, HD, C>::used) {
+                held.template fetch<0>(q + b * qs.b + h * qs.h, qs.s, c0, sq);
+                held.template fetch<1>(dout + b * dos.b + h * dos.h, dos.s, c0, sq);
+            } else {
+                core_load<T, HD, C>(st, q + b * qs.b + h * qs.h, qs.s, c0, sq, vec);
+                core_load<T, HD, C>(st + L::TILE, dout + b * dos.b + h * dos.h, dos.s, c0, sq, vec);
+            }
+            if (tid < 2 * C / 4) {   // lse and D: 16-byte pieces of the padded workspace
+                const int half = tid / (C / 4), piece = tid % (C / 4);
+                core_cp16(st + 2 * L::TILE + half * C + 4 * piece,
+                          stats + half * rows_pad + (static_cast<long long>(b) * hq + h) * sq_pad +
+                              c0 + 4 * piece,
+                          true);
+            }
+        }
+        core_commit();
+    };
+    auto place = [&](int w) {
+        if constexpr (CoreHeld<T, HD, C>::used) {
+            if (w < n_walk) {
+                float* st = ring + (w % L::STAGES) * L::STAGE_DKV;
+                held.template put<0>(st);
+                held.template put<1>(st + L::TILE);
+            }
+        }
+    };
+    core_load<T, HD, CORE_ROWS>(Ks, k + b * ks.b + hk * ks.h, ks.s, k0, skv, vec);
+    core_load<T, HD, CORE_ROWS>(Vs, v + b * vs.b + hk * vs.h, vs.s, k0, skv, vec);
 #pragma unroll
-            for (int c = 0; c < NC; ++c)
-                dqb[row * dqs.s + tx + TX * c] = from_f32<T>(acc[i][c] * sm_scale);
+    for (int w = 0; w < L::STAGES - 1; ++w) {
+        issue(w);
+        place(w);
+    }
+
+    float acc_k[CORE_RI][NC], acc_v[CORE_RI][NC];
+#pragma unroll
+    for (int i = 0; i < CORE_RI; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+    for (int w = 0; w < n_walk; ++w) {
+        core_wait<L::STAGES - 2>();
+        __syncthreads();   // tile w has landed; every thread is done with tile w - 1
+        issue(w + L::STAGES - 1);
+        const float* st = ring + (w % L::STAGES) * L::STAGE_DKV;
+        const float* Qs = st;
+        const float* dOs = st + L::TILE;
+        const float* lse_s = st + 2 * L::TILE;
+        const float* d_s = lse_s + C;
+        const int c0 = (first + w % per_head) * C;
+
+        float s[CORE_RI][CJ], dp[CORE_RI][CJ];
+#pragma unroll
+        for (int i = 0; i < CORE_RI; ++i)
+#pragma unroll
+            for (int j = 0; j < CJ; ++j) s[i][j] = dp[i][j] = 0.f;
+        core_dot<CJ, HD, RS, RS>(s, Ks, Qs, ty, tx);    // S^T: keys x queries
+        core_dot<CJ, HD, RS, RS>(dp, Vs, dOs, ty, tx);  // dP^T
+        const bool full = k0 + CORE_ROWS <= skv && c0 + C <= sq &&
+                          (!causal || c0 + off >= k0 + CORE_ROWS - 1);
+#pragma unroll
+        for (int i = 0; i < CORE_RI; ++i)
+#pragma unroll
+            for (int j = 0; j < CJ; ++j) {
+                const int col = tx + CORE_TX * j;
+                const int k_pos = k0 + ty + CORE_TY * i, q_pos = c0 + col;
+                const bool valid =
+                    full || (k_pos < skv && q_pos < sq && (!causal || q_pos + off >= k_pos));
+                const float p = valid ? core_exp(fmaf(s[i][j], sm_scale, -lse_s[col])) : 0.f;
+                Ps[(ty + CORE_TY * i) * PS + col] = p;
+                dp[i][j] = p * (dp[i][j] - d_s[col]);   // dS^T
+            }
+        __syncwarp();
+        core_mul<HD, C, PS, RS>(acc_v, Ps, dOs, ty, tx);   // dV += P^T dO
+        __syncwarp();
+#pragma unroll
+        for (int i = 0; i < CORE_RI; ++i)
+#pragma unroll
+            for (int j = 0; j < CJ; ++j) Ps[(ty + CORE_TY * i) * PS + tx + CORE_TX * j] = dp[i][j];
+        __syncwarp();
+        core_mul<HD, C, PS, RS>(acc_k, Ps, Qs, ty, tx);    // dK += dS^T Q
+        __syncwarp();
+        place(w + L::STAGES - 1);
+    }
+
+    using CC = CoreCols<HD>;
+#pragma unroll
+    for (int i = 0; i < CORE_RI; ++i) {
+        const int row = k0 + ty + CORE_TY * i;
+        if (row >= skv) continue;
+        if (partial == nullptr) {
+            core_store<T, HD>(dk + b * dks.b + hk * dks.h + row * dks.s, acc_k[i], sm_scale, tx, vec);
+            core_store<T, HD>(dv + b * dvs.b + hk * dvs.h + row * dvs.s, acc_v[i], 1.f, tx, vec);
+        } else {
+            const long long elems = static_cast<long long>(gridDim.z) * hkv * skv * HD;
+            const long long e = ((static_cast<long long>(b) * hkv + hk) * skv + row) * HD;
+            float* pk = partial + split * elems + e;
+            float* pv = partial + (splits + split) * elems + e;
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+                pk[CC::col(tx, c)] = acc_k[i][c];
+                pv[CC::col(tx, c)] = acc_v[i][c];
+            }
         }
     }
 }
@@ -1909,12 +2163,20 @@ flash_bwd_wgmma_kernel(const __grid_constant__ BwdMaps maps, float* __restrict__
     }
 }
 
-// dk = bf16(sm_scale * sum_j partial_k[j]) and dv = bf16(sum_j partial_v[j]),
-// the splits summed in order; one thread per pair of columns.
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x, float y) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+// dk = T(sm_scale * sum_j partial_k[j]) and dv = T(sum_j partial_v[j]), the
+// splits summed in order; one thread per pair of columns (both routes).
+template <typename T>
 __global__ void __launch_bounds__(256)
-flash_bwd_sum_kernel(const float* __restrict__ partial, __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, Strides dks, Strides dvs, int splits, int hkv,
-                     int skv, int hd, long long pairs, float sm_scale) {
+flash_bwd_sum_kernel(const float* __restrict__ partial, T* __restrict__ dk, T* __restrict__ dv,
+                     Strides dks, Strides dvs, int splits, int hkv, int skv, int hd,
+                     long long pairs, float sm_scale) {
     const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
     if (i >= pairs) return;
     const long long e = 2 * i, elems = 2 * pairs;
@@ -1932,10 +2194,8 @@ flash_bwd_sum_kernel(const float* __restrict__ partial, __nv_bfloat16* __restric
         sv.x += pv.x;
         sv.y += pv.y;
     }
-    *reinterpret_cast<__nv_bfloat162*>(dk + b * dks.b + hk * dks.h + row * dks.s + d) =
-        __floats2bfloat162_rn(sk.x * sm_scale, sk.y * sm_scale);
-    *reinterpret_cast<__nv_bfloat162*>(dv + b * dvs.b + hk * dvs.h + row * dvs.s + d) =
-        __floats2bfloat162_rn(sv.x, sv.y);
+    store_pair(dk + b * dks.b + hk * dks.h + row * dks.s + d, sk.x * sm_scale, sk.y * sm_scale);
+    store_pair(dv + b * dvs.b + hk * dvs.h + row * dvs.s + d, sv.x, sv.y);
 }
 
 // The backward's launch plan (kernels/flash_attention.py, `FlashBwdPlan.as_array`),
@@ -1943,10 +2203,11 @@ flash_bwd_sum_kernel(const float* __restrict__ partial, __nv_bfloat16* __restric
 // queries of a tile the dK/dV kernel walks, [3] keys of a tile the dQ kernel
 // walks, [4] stages, [5] threads, [6..8] the dQ grid, [9..11] the dK/dV grid,
 // [12] / [13] the dK/dV / dQ kernel's dynamic shared memory bytes, [14] D-pass
-// blocks, [15] splits of a GQA group, [16] sq_pad (the lse / D row stride),
-// [17] workspace bytes of the partial dK/dV, then on the wgmma route 8 tensor
-// maps of 16 values each (PLAN_OPERANDS's layout): the dK/dV kernel's k, v,
-// q, dout, then the dQ kernel's q, dout, k, v.
+// blocks (0: both routes compute D in the dQ kernel), [15] splits of a GQA
+// group, [16] sq_pad (the lse / D row stride), [17] workspace bytes of the
+// partial dK/dV, then on the wgmma route 8 tensor maps of 16 values each
+// (PLAN_OPERANDS's layout): the dK/dV kernel's k, v, q, dout, then the dQ
+// kernel's q, dout, k, v; on the CUDA cores [18] vector_loads.
 constexpr int BWD_MAPS = 18;
 constexpr int BWD_PLAN_LEN = BWD_MAPS + 8 * 16;
 
@@ -1970,48 +2231,62 @@ bool bwd_plan_grids_ok(const long long* plan, const BwdArgs& a, int rows, int dk
            plan[11] == a.b && plan[14] == dot_blocks && plan[14] <= 2147483647LL;
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-    if (bytes <= 48 * 1024) return cudaSuccess;
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(bytes));
-}
-
-template <typename T>
-cudaError_t launch_dot(const BwdArgs& a, const long long* plan, cudaStream_t stream) {
-    flash_bwd_dot_kernel<T><<<static_cast<unsigned>(plan[14]), 32 * DOT_ROWS, 0, stream>>>(
-        static_cast<const T*>(a.dout), static_cast<const T*>(a.o), a.delta, a.dos, a.os, a.hq,
-        a.sq, a.hd, static_cast<long long>(a.b) * a.hq * a.sq);
-    return cudaGetLastError();
-}
-
+// The CUDA-core plan: 64 rows a block, 32-row walked tiles, the stages and
+// both shared sizes of CoreBwd<HD>, 128 threads, no D pass, splits of a GQA
+// group (a divisor), sq_pad = sq rounded up to 64, the partials' bytes, and
+// at [18] vector_loads.
 template <typename T, int HD>
-int launch_bwd(const BwdArgs& a, const long long* plan, cudaStream_t stream) {
-    using L = BwdSmem<HD>;
-    const long long smem = static_cast<long long>(L::bytes);
-    const long long rows = static_cast<long long>(a.b) * a.hq * a.sq;
-    if (plan[0] != 0 || !bwd_plan_grids_ok(plan, a, BWD_ROWS, a.hkv, (rows + DOT_ROWS - 1) / DOT_ROWS) ||
-        plan[2] != L::C || plan[3] != L::C || plan[4] != 1 || plan[5] != BWD_THREADS ||
-        plan[12] != smem || plan[13] != smem || plan[15] != 1 || plan[16] != a.sq || plan[17] != 0)
+int launch_bwd(const BwdArgs& a, const long long* plan, int vec, cudaStream_t stream) {
+    using L = CoreBwd<HD>;
+    const int group = a.hq / a.hkv;
+    const long long splits = plan[15];
+    const long long sq_pad = (a.sq + CORE_ROWS - 1) / CORE_ROWS * CORE_ROWS;
+    if (splits < 1 || group % splits != 0 || a.hkv * splits > 65535) return cudaErrorInvalidValue;
+    const long long workspace =
+        splits > 1 ? 2 * splits * a.b * a.hkv * static_cast<long long>(a.skv) * HD * 4 : 0;
+    if (plan[0] != 0 ||
+        !bwd_plan_grids_ok(plan, a, CORE_ROWS, static_cast<int>(a.hkv * splits), 0) ||
+        plan[2] != L::C || plan[3] != L::C || plan[4] != L::STAGES || plan[5] != CORE_NT ||
+        plan[12] != static_cast<long long>(L::bytes_dkv) ||
+        plan[13] != static_cast<long long>(L::bytes_dq) || plan[16] != sq_pad ||
+        plan[17] != workspace || plan[BWD_MAPS] != vec)
         return cudaErrorInvalidValue;
+    if ((splits > 1) != (a.workspace != nullptr)) return cudaErrorInvalidValue;
+    if (splits > 1) {   // the ordered sum stores pairs of columns
+        const void* outs[2] = {a.dk, a.dv};
+        const Strides st[2] = {a.dks, a.dvs};
+        for (int i = 0; i < 2; ++i)
+            if (reinterpret_cast<uintptr_t>(outs[i]) % 8 != 0 || st[i].b % 2 || st[i].h % 2 ||
+                st[i].s % 2)
+                return cudaErrorInvalidValue;
+    }
     auto dkv = flash_bwd_dkv_kernel<T, HD>;
     auto dq = flash_bwd_dq_kernel<T, HD>;
-    cudaError_t err = allow_smem(dkv, L::bytes);
-    if (err == cudaSuccess) err = allow_smem(dq, L::bytes);
-    if (err == cudaSuccess) err = launch_dot<T>(a, plan, stream);
+    cudaError_t err = allow_smem(dkv, L::bytes_dkv);
+    if (err == cudaSuccess) err = allow_smem(dq, L::bytes_dq);
     if (err != cudaSuccess) return err;
     const T* q = static_cast<const T*>(a.q);
     const T* k = static_cast<const T*>(a.k);
     const T* v = static_cast<const T*>(a.v);
     const T* dout = static_cast<const T*>(a.dout);
-    dkv<<<dim3(plan[9], a.hkv, a.b), BWD_THREADS, L::bytes, stream>>>(
-        q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.qs, a.ks,
-        a.vs, a.dos, a.dks, a.dvs, a.hq / a.hkv, a.hq, a.sq, a.skv, a.sm_scale, a.causal);
+    const long long rows_pad = static_cast<long long>(a.b) * a.hq * sq_pad;
+    // dQ first: it also writes lse and D, which the dK/dV kernel reads
+    dq<<<dim3(plan[6], a.hq, a.b), CORE_NT, L::bytes_dq, stream>>>(
+        q, k, v, static_cast<const T*>(a.o), dout, a.lse, a.delta, static_cast<T*>(a.dq), a.qs,
+        a.ks, a.vs, a.os, a.dos, a.dqs, group, a.sq, a.skv, static_cast<int>(sq_pad), rows_pad,
+        static_cast<int>(plan[6]), a.sm_scale, a.causal, vec);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    dq<<<dim3(plan[6], a.hq, a.b), BWD_THREADS, L::bytes, stream>>>(
-        q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq), a.qs, a.ks, a.vs, a.dos, a.dqs,
-        a.hq / a.hkv, a.sq, a.skv, static_cast<int>(plan[6]), a.sm_scale, a.causal);
+    dkv<<<dim3(plan[9], plan[10], a.b), CORE_NT, L::bytes_dkv, stream>>>(
+        q, k, v, dout, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.workspace, a.qs,
+        a.ks, a.vs, a.dos, a.dks, a.dvs, group, static_cast<int>(splits), a.hq, a.sq, a.skv,
+        static_cast<int>(sq_pad), rows_pad, a.sm_scale, a.causal, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || splits == 1) return err;
+    const long long pairs = static_cast<long long>(a.b) * a.hkv * a.skv * HD / 2;
+    flash_bwd_sum_kernel<T><<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, stream>>>(
+        a.workspace, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.dks, a.dvs,
+        static_cast<int>(splits), a.hkv, a.skv, HD, pairs, a.sm_scale);
     return cudaGetLastError();
 }
 
@@ -2108,20 +2383,20 @@ int launch_bwd_wgmma(const BwdArgs& a, const long long* plan, cudaStream_t strea
     err = cudaGetLastError();
     if (err != cudaSuccess || splits == 1) return err;
     const long long pairs = static_cast<long long>(a.b) * a.hkv * a.skv * HD / 2;
-    flash_bwd_sum_kernel<<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, stream>>>(
+    flash_bwd_sum_kernel<B><<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, stream>>>(
         a.workspace, static_cast<B*>(a.dk), static_cast<B*>(a.dv), a.dks, a.dvs, splits, a.hkv,
         a.skv, HD, pairs, a.sm_scale);
     return cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_bwd(const BwdArgs& a, const long long* plan, cudaStream_t stream) {
+int dispatch_bwd(const BwdArgs& a, const long long* plan, int vec, cudaStream_t stream) {
     switch (a.hd) {
-        case 16: return launch_bwd<T, 16>(a, plan, stream);
-        case 32: return launch_bwd<T, 32>(a, plan, stream);
-        case 64: return launch_bwd<T, 64>(a, plan, stream);
-        case 80: return launch_bwd<T, 80>(a, plan, stream);
-        case 128: return launch_bwd<T, 128>(a, plan, stream);
+        case 16: return launch_bwd<T, 16>(a, plan, vec, stream);
+        case 32: return launch_bwd<T, 32>(a, plan, vec, stream);
+        case 64: return launch_bwd<T, 64>(a, plan, vec, stream);
+        case 80: return launch_bwd<T, 80>(a, plan, vec, stream);
+        case 128: return launch_bwd<T, 128>(a, plan, vec, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -2145,7 +2420,8 @@ int dispatch_bwd_wgmma(const BwdArgs& a, const long long* plan, cudaStream_t str
 // is 1.  `lse`: null, or a contiguous (b, hq, sq) fp32 buffer that receives each
 // row's natural-log sum of exp(sm_scale q k^T) over its visible keys (the
 // backward's input; the serving calls pass null and nothing is written).
-// `plan`: see PLAN_OPERANDS above.  Returns 0 when launched, else a
+// `plan`: see PLAN_OPERANDS above (on the CUDA cores [9] is vector_loads:
+// fp32 rows in 16-byte pieces).  Returns 0 when launched, else a
 // cudaError_t, or ENCODE_FAILED + the CUresult of a failed tensor-map encode.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    float* lse, int dtype, int b, int hq, int hkv, int sq, int skv,
@@ -2173,10 +2449,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
         }
     }
     if (plan[0] != 0) return cudaErrorInvalidValue;
+    const int vec = plan[9] != 0;
+    if (vec && !core_vector_loads(dtype, ptrs, 4, strides)) return cudaErrorInvalidValue;
     if (dtype == 0)
-        return dispatch_hd<float>(hd, q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+        return dispatch_hd<float>(hd, q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, s);
     if (dtype == 1)
-        return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+        return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, s);
     return cudaErrorInvalidValue;
 }
 
@@ -2185,8 +2463,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 // share it).  `strides` holds (batch, head, seq) element strides of q, k, v,
 // o, dout, dq, dk, dv in that order (24 values); the head_dim stride is 1.
 // `lse`: the forward's (b, hq, sq) fp32 log-sum-exp.  `delta`: an fp32
-// workspace for D, (b, hq, sq) on the CUDA cores and 2 x (b, hq, sq_pad) on
-// the wgmma route (lse * log2(e), then D).  `workspace`: null, or the fp32
+// workspace of 2 x (b, hq, sq_pad): lse (on the wgmma route lse * log2(e)),
+// then D.  `workspace`: null, or the fp32
 // partial dK/dV of a split GQA group (the plan's bytes).  `plan`: see
 // BWD_PLAN_LEN above (route 1, wgmma, takes bf16 whose rows are 16-byte
 // aligned).  Returns 0 when every kernel was launched, else a cudaError_t, or
@@ -2214,8 +2492,11 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
         if (dtype != 1) return cudaErrorInvalidValue;
         return dispatch_bwd_wgmma(a, plan, s);
     }
-    if (plan[0] != 0 || workspace != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    if (dtype == 0) return dispatch_bwd<float>(a, plan, s);
-    if (dtype == 1) return dispatch_bwd<__nv_bfloat16>(a, plan, s);
+    if (plan[0] != 0) return static_cast<int>(cudaErrorInvalidValue);
+    const int vec = plan[BWD_MAPS] != 0;
+    const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
+    if (vec && !core_vector_loads(dtype, ptrs, 8, strides)) return cudaErrorInvalidValue;
+    if (dtype == 0) return dispatch_bwd<float>(a, plan, vec, s);
+    if (dtype == 1) return dispatch_bwd<__nv_bfloat16>(a, plan, vec, s);
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,10 +11,12 @@ allocated with ``q``'s memory layout.
 Every host-side choice is made here, in ``flash_plan``, a pure function of the
 tensors' dtypes, shapes, strides and addresses: the route (``"wgmma"`` for bf16
 whose rows are 16-byte aligned, ``"cuda_cores"`` for everything else), the
-tile sizes, grid and dynamic shared memory, and for the ``wgmma`` route each
+tile sizes, stages, grid and dynamic shared memory, for the ``wgmma`` route each
 operand's 4-D tensor map (dims, byte strides, boxes, head-dim slabs and their
-swizzle).  The C entry point validates the plan against the kernel it built
-and encodes the tensor maps.  ``launches`` counts kernel launches.
+swizzle), and for the CUDA cores whether rows move by 16-byte ``cp.async``
+(``vector_loads``: fp32 in 16-byte pieces) or element by element.  The C
+entry point validates the plan against the kernel it built and encodes the
+tensor maps.  ``launches`` counts kernel launches.
 
 The backward (``flash_attention_bwd_cuda``: dq, dk, dv from q, k, v, the
 forward's out and lse, and dout) is a dK/dV and a dQ kernel, each
@@ -23,7 +25,8 @@ aligned takes the ``"wgmma"`` route (TMA, warp specialisation; the dQ kernel
 runs first and also computes D; a GQA group's query heads split over
 ``splits`` dK/dV blocks when the kv heads alone would leave SMs idle, with a
 third kernel summing the splits' fp32 partials in order); everything else
-runs on the CUDA cores, after a D pass.  ``flash_bwd_plan`` fixes
+runs on the CUDA cores, where the dQ kernel also computes D and a GQA
+group splits the same way.  ``flash_bwd_plan`` fixes
 its route, tiles, grids, shared memory, splits, workspaces and tensor maps,
 and ``bwd_launches`` counts its calls.
 """
@@ -48,16 +51,15 @@ WGMMA_BM = 128                  # query rows per block: two consumer warpgroups 
 WGMMA_THREADS = 384             # the two consumer warpgroups and the producer
 WGMMA_BN = 128                  # keys per K/V tile
 WGMMA_STAGES = 3                # K/V tiles in flight
-CORE_BM, CORE_THREADS = 64, 256  # the CUDA-core kernel's query tile and block
+CORE_ROWS, CORE_THREADS = 64, 128  # CUDA cores: rows a block owns; 16 x 8 threads
 ENCODE_FAILED = 10000           # the C side's code for a failed tensor-map encode
 PLAN_LEN = 9 + 3 * 16
 BWD_ROUTES = ("cuda_cores", "wgmma")  # index = the route's code in the plan
-BWD_ROWS = {"cuda_cores": 64, "wgmma": 128}   # queries (dQ) or keys (dK/dV) a block owns
-BWD_THREADS = {"cuda_cores": 256, "wgmma": 384}   # 16 x 16 micro-tiles; two consumer
-                                                  # warpgroups and the producer
+BWD_ROWS = {"cuda_cores": CORE_ROWS, "wgmma": 128}   # queries (dQ) or keys (dK/dV) a block owns
+BWD_THREADS = {"cuda_cores": CORE_THREADS, "wgmma": 384}   # 16 x 8 micro-tiles; two consumer
+                                                           # warpgroups and the producer
 BWD_STAGES = 3                  # walked tiles in flight on the wgmma route
 BWD_PLAN_LEN = 18 + 8 * 16      # plan values, then 8 tensor maps
-DOT_ROWS = 8                    # rows of D = rowsum(dO * O) per block, a warp each
 SMS = 132                       # the H100's streaming multiprocessors
 
 launches = 0
@@ -90,14 +92,18 @@ class FlashPlan:
     grid: tuple[int, int, int]
     smem_bytes: int
     maps: tuple[TensorMap, ...] = ()   # q, k, v on the wgmma route
+    vector_loads: bool = False         # CUDA cores: every row moves by 16-byte cp.async
 
     def as_array(self):
         """The int64 layout the C entry point reads (see ``PLAN_OPERANDS``
-        in the source)."""
+        in the source); on the CUDA cores ``vector_loads`` takes the first
+        map's place."""
         values = [ROUTES.index(self.route), self.bm, self.bn, self.stages, self.threads,
                   *self.grid, self.smem_bytes]
         for m in self.maps:
             values += m.values()
+        if self.route == "cuda_cores":
+            values.append(int(self.vector_loads))
         values += [0] * (PLAN_LEN - len(values))
         return (ctypes.c_longlong * PLAN_LEN)(*values)
 
@@ -114,6 +120,52 @@ def rows_16_byte_aligned(tensors) -> bool:
     stride a multiple of 8 elements (the wgmma route's rule for bf16)."""
     return all(t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
                for t in tensors)
+
+
+def core_row_stride(hd: int) -> int:
+    """fp32 row stride (floats) of a CUDA-core operand tile: hd + 4, an odd
+    number of 16-byte groups, so that 16-byte reads of 8 consecutive rows at
+    one column hit 8 distinct groups of 4 banks."""
+    return hd + 4
+
+
+def core_p_stride(cols: int) -> int:
+    """Row stride of the (64, cols) P / dS tile: cols + 8, 8 banks mod 32, so
+    that a warp's 4 rows x 8 columns of scalar stores hit 32 distinct banks and
+    its 4 rows' 16-byte reads hit groups 0, 2, 4 and 6."""
+    return cols + 8
+
+
+def core_vector_loads(tensors) -> bool:
+    """fp32 rows that 16-byte ``cp.async`` copies and vector stores take:
+    every base 16-byte aligned, every batch/head/sequence stride a multiple
+    of 4 elements.  Everything else (all bf16 here) moves element by element."""
+    return all(t.dtype == torch.float32 and t.data_ptr() % 16 == 0
+               and all(s % 4 == 0 for s in t.stride()[:3]) for t in tensors)
+
+
+def core_fwd_layout(hd: int) -> tuple[int, int, int]:
+    """(keys a walked K/V tile holds, stages, shared bytes) of the CUDA-core
+    forward: the owned Q tile, ``stages`` K and V tiles in flight and the P
+    tile, fp32 rows.  64 keys up to hd 64, 32 beyond, so that two blocks fit an SM."""
+    cols, stages = (64 if hd <= 64 else 32), 2
+    rs = core_row_stride(hd)
+    floats = CORE_ROWS * rs + stages * 2 * cols * rs + CORE_ROWS * core_p_stride(cols)
+    return cols, stages, 4 * floats
+
+
+def core_bwd_layout(hd: int) -> tuple[int, int, int, int]:
+    """(walked rows, stages, dK/dV shared bytes, dQ shared bytes) of the
+    CUDA-core backward: tiles of 32 walked rows, 3 stages up to hd 64 (2
+    beyond) so that two blocks fit an SM up to hd 80.  dK/dV: owned K and V,
+    then per stage Q, dO and their lse and D; dQ: owned Q and dO, then per
+    stage K and V; both end with the P / dS tile."""
+    cols, stages = 32, (3 if hd <= 64 else 2)
+    rs, tail = core_row_stride(hd), CORE_ROWS * core_p_stride(cols)
+    own = 2 * CORE_ROWS * rs
+    dkv = own + stages * (2 * cols * rs + 2 * cols) + tail
+    dq = own + stages * 2 * cols * rs + tail
+    return cols, stages, 4 * dkv, 4 * dq
 
 
 def _tensor_map(t: torch.Tensor, box_rows: int) -> TensorMap:
@@ -140,10 +192,10 @@ def flash_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Ten
             smem_bytes=1024 + WGMMA_BM * hd * 2 + WGMMA_STAGES * 2 * WGMMA_BN * hd * 2,
             maps=(_tensor_map(q, WGMMA_BM), _tensor_map(k, WGMMA_BN), _tensor_map(v, WGMMA_BN)),
         )
-    bn = 32 if hd >= 128 else 64
-    floats = CORE_BM * (hd + 4) + bn * (hd + 4) + bn * hd + CORE_BM * (bn + 4)
-    return FlashPlan(route="cuda_cores", bm=CORE_BM, bn=bn, stages=1, threads=CORE_THREADS,
-                     grid=(-(-sq // CORE_BM), hq, b), smem_bytes=4 * floats)
+    bn, stages, smem = core_fwd_layout(hd)
+    return FlashPlan(route="cuda_cores", bm=CORE_ROWS, bn=bn, stages=stages,
+                     threads=CORE_THREADS, grid=(-(-sq // CORE_ROWS), hq, b), smem_bytes=smem,
+                     vector_loads=core_vector_loads((q, k, v, out)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,15 +218,19 @@ class FlashBwdPlan:
     stats_floats: int                # that workspace's fp32 values (wgmma: lse2, then D)
     workspace_bytes: int             # the splits' fp32 partial dK/dV (0: none)
     maps: tuple[TensorMap, ...] = ()  # wgmma: dK/dV's k, v, q, dout; dQ's q, dout, k, v
+    vector_loads: bool = False        # CUDA cores: every row moves by 16-byte cp.async
 
     def as_array(self):
-        """The int64 layout the C entry point reads (``BWD_PLAN_LEN``)."""
+        """The int64 layout the C entry point reads (``BWD_PLAN_LEN``); on
+        the CUDA cores ``vector_loads`` takes the first map's place."""
         values = [BWD_ROUTES.index(self.route), self.rows, self.cols, self.cols_dq, self.stages,
                   self.threads, *self.grid_dq, *self.grid_dkv, self.smem_bytes,
                   self.smem_dq_bytes, self.dot_blocks, self.splits, self.sq_pad,
                   self.workspace_bytes]
         for m in self.maps:
             values += m.values()
+        if self.route == "cuda_cores":
+            values.append(int(self.vector_loads))
         values += [0] * (BWD_PLAN_LEN - len(values))
         return (ctypes.c_longlong * BWD_PLAN_LEN)(*values)
 
@@ -227,16 +283,20 @@ def flash_bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
                   _tensor_map(dout, cols), _tensor_map(q, rows), _tensor_map(dout, rows),
                   _tensor_map(k, cols_dq), _tensor_map(v, cols_dq)),
         )
-    # two (64, hd) and two (cols, hd) fp32 tiles with padded rows, the (64,
-    # cols) P / dS tile, and lse and D of the walked rows
-    rows, cols = BWD_ROWS["cuda_cores"], 32 if hd >= 128 else 64
-    smem = 4 * (2 * rows * (hd + 4) + 2 * cols * (hd + 4) + rows * (cols + 4) + 2 * cols)
+    # the CUDA cores: 64 owned rows a block, 32-row walked tiles; a GQA group
+    # splits as on wgmma, D and lse go to a workspace padded to the owned rows
+    rows = BWD_ROWS["cuda_cores"]
+    cols, stages, smem, smem_dq = core_bwd_layout(hd)
+    key_tiles = -(-skv // rows)
+    splits = gqa_splits(hq // hkv, key_tiles * hkv * b)
+    sq_pad = -(-sq // rows) * rows
     return FlashBwdPlan(
-        route="cuda_cores", rows=rows, cols=cols, cols_dq=cols, stages=1,
+        route="cuda_cores", rows=rows, cols=cols, cols_dq=cols, stages=stages,
         threads=BWD_THREADS["cuda_cores"], grid_dq=(-(-sq // rows), hq, b),
-        grid_dkv=(-(-skv // rows), hkv, b), smem_bytes=smem, smem_dq_bytes=smem,
-        dot_blocks=-(-(b * hq * sq) // DOT_ROWS), splits=1, sq_pad=sq,
-        stats_floats=b * hq * sq, workspace_bytes=0,
+        grid_dkv=(key_tiles, hkv * splits, b), smem_bytes=smem, smem_dq_bytes=smem_dq,
+        dot_blocks=0, splits=splits, sq_pad=sq_pad, stats_floats=2 * b * hq * sq_pad,
+        workspace_bytes=2 * splits * b * hkv * skv * hd * 4 if splits > 1 else 0,
+        vector_loads=core_vector_loads((q, k, v, out, dout, dq, dk, dv)),
     )
 
 

@@ -517,7 +517,7 @@ class TestFlashPlan:
         b, hq, sq = case[0], case[1], case[3]
         plan = fa_cuda.flash_plan(*meta_attention(*case))
         assert plan.grid == (-(-sq // plan.bm), hq, b)
-        assert (plan.bm, plan.threads) == ((128, 384) if plan.route == "wgmma" else (64, 256))
+        assert (plan.bm, plan.threads) == ((128, 384) if plan.route == "wgmma" else (64, 128))
 
     @pytest.mark.parametrize("case", PLAN_FLASH)
     def test_shared_memory_fits_a_block(self, case):
@@ -557,7 +557,7 @@ class TestFlashPlan:
     def test_head_dim_slabs(self, hd, slabs):
         assert list(fa_cuda.head_dim_slabs(hd)) == slabs
 
-    @pytest.mark.parametrize("case", PLAN_FLASH[:3])
+    @pytest.mark.parametrize("case", PLAN_FLASH[:3] + PLAN_FLASH[-1:])
     def test_plan_array_layout(self, case):
         plan = fa_cuda.flash_plan(*meta_attention(*case))
         values = list(plan.as_array())
@@ -566,6 +566,57 @@ class TestFlashPlan:
                               plan.threads, *plan.grid, plan.smem_bytes]
         for i, m in enumerate(plan.maps):
             assert values[9 + 16 * i: 9 + 16 * (i + 1)] == m.values()
+        if plan.route == "cuda_cores":   # vector_loads in the first map's place
+            assert values[9:] == [int(plan.vector_loads)] + [0] * (fa_cuda.PLAN_LEN - 10)
+
+    @pytest.mark.parametrize("case", [c for c in PLAN_FLASH if c[6] == "float32" or c[8]])
+    def test_core_walk_covers_every_visible_key_once(self, case):
+        """CUDA cores: the grid's query tiles cover every query row once, and
+        the K/V tiles a block walks (``bn`` keys from 0 to its causal limit, as
+        the C side computes it) cover every key a row of its tile sees, once,
+        and walk no tile that none of its rows sees.  The chip smoke runs
+        ``sq > skv`` without the causal mask."""
+        b, hq, hkv, sq, skv, hd = case[:6]
+        causal = sq <= skv
+        plan = fa_cuda.flash_plan(*meta_attention(*case))
+        assert plan.route == "cuda_cores"
+        tiles = [np.arange(q0, min(q0 + plan.bm, sq)) for q0 in range(0, plan.grid[0] * plan.bm,
+                                                                      plan.bm)]
+        assert np.array_equal(np.concatenate(tiles), np.arange(sq))
+        off = skv - sq
+        for rows in tiles:
+            kv_end = min(skv, rows[-1] + 1 + off) if causal else skv
+            starts = range(0, kv_end, plan.bn)
+            walked = np.concatenate([np.arange(k0, min(k0 + plan.bn, skv)) for k0 in starts])
+            seen = np.arange(skv)[None, :] <= rows[:, None] + off if causal else \
+                np.ones((rows.size, skv), bool)
+            visible = np.flatnonzero(seen.any(0))
+            assert np.array_equal(np.unique(walked), walked)            # each key once
+            assert np.isin(visible, walked).all()
+            assert all(np.isin(np.arange(k0, k0 + plan.bn), visible).any() for k0 in starts)
+
+    @pytest.mark.parametrize("case", [c for c in PLAN_FLASH if c[6] == "float32" or c[8]])
+    def test_core_shared_memory_fits_two_blocks(self, case):
+        """The owned Q tile, ``stages`` K/V tiles of ``bn`` keys and the P
+        tile, fp32 rows padded, fit two blocks an SM (227 KB a block at most)."""
+        hd = case[5]
+        plan = fa_cuda.flash_plan(*meta_attention(*case))
+        rs, ps = fa_cuda.core_row_stride(hd), fa_cuda.core_p_stride(plan.bn)
+        floats = plan.bm * rs + plan.stages * 2 * plan.bn * rs + plan.bm * ps
+        assert plan.smem_bytes == 4 * floats <= fa_cuda.SMEM_LIMIT
+        assert plan.stages >= 2 and plan.bn in (32, 64)
+        assert ssd_cuda.blocks_per_sm(plan.threads, plan.smem_bytes) >= 2
+
+    @pytest.mark.parametrize("case", PLAN_FLASH)
+    def test_core_vector_loads(self, case):
+        """cp.async takes fp32 rows in 16-byte pieces only; bf16 and shifted
+        rows move element by element."""
+        dtype, offset = case[6], case[8]
+        plan = fa_cuda.flash_plan(*meta_attention(*case))
+        assert plan.vector_loads == (plan.route == "cuda_cores" and dtype == "float32" and not offset)
+        if dtype == "float32":
+            shifted = fa_cuda.flash_plan(*meta_attention(*case[:8], 1))
+            assert shifted.route == "cuda_cores" and not shifted.vector_loads
 
 
 class TestRMSNormPlan:
@@ -871,11 +922,14 @@ class TestFlashBwdPlan:
         assert heads == list(range(hq))
         stats_rows = b * hq * plan.sq_pad
         if plan.route == "cuda_cores":
-            # a D pass of a warp a row; 16 x 16 threads of 4-row micro-tiles
-            assert plan.dot_blocks * fa_cuda.DOT_ROWS >= stats_rows > (plan.dot_blocks - 1) * 8
-            assert (plan.rows, plan.threads, plan.stages, plan.sq_pad) == (64, 256, 1, sq)
-            assert plan.cols == plan.cols_dq == (32 if hd >= 128 else 64)
-            assert plan.stats_floats == b * hq * sq
+            # 16 x 8 threads of 4-row micro-tiles own 64 rows and walk 32-row
+            # tiles through 3 stages (2 beyond hd 64); the dQ kernel computes
+            # D (no D pass) and stores it with lse in rows padded to its 64
+            assert (plan.rows, plan.threads) == (64, 128)
+            assert plan.stages == (3 if hd <= 64 else 2) and plan.cols == plan.cols_dq == 32
+            assert plan.dot_blocks == 0
+            assert plan.sq_pad == plan.grid_dq[0] * plan.rows and 0 <= plan.sq_pad - sq < plan.rows
+            assert plan.stats_floats == 2 * stats_rows
         else:
             # two consumer warpgroups of 64 rows and a producer; the dQ kernel
             # computes D and stores it with lse in rows padded to the block, so
@@ -897,7 +951,7 @@ class TestFlashBwdPlan:
         group = hq // hkv
         assert group % plan.splits == 0
         blocks = int(np.prod(plan.grid_dkv))
-        if group == 1 or plan.route == "cuda_cores":
+        if group == 1:
             assert plan.splits == 1 and plan.workspace_bytes == 0
         else:
             base = blocks // plan.splits
@@ -912,12 +966,20 @@ class TestFlashBwdPlan:
 
     @pytest.mark.parametrize("case", PLAN_FLASH_BWD)
     def test_shared_memory_fits_two_blocks(self, case):
-        """The CUDA-core kernels fit two blocks an SM; a wgmma block (one an
-        SM, 384 threads) fits the opt-in limit beside its mbarriers."""
+        """The CUDA-core kernels fit two blocks an SM with their stages; a
+        wgmma block (one an SM, 384 threads) fits the opt-in limit beside its
+        mbarriers."""
         plan = fa_cuda.flash_bwd_plan(*meta_bwd(case))
         for smem in (plan.smem_bytes, plan.smem_dq_bytes):
             limit = fa_cuda.SMEM_LIMIT // 2 if plan.route == "cuda_cores" else fa_cuda.SMEM_LIMIT - 64
             assert 0 < smem <= limit and smem % 16 == 0
+        if plan.route == "cuda_cores":
+            hd = case[5]
+            rs, tail = fa_cuda.core_row_stride(hd), plan.rows * fa_cuda.core_p_stride(plan.cols)
+            own, tile = 2 * plan.rows * rs, plan.cols * rs
+            assert plan.smem_bytes == 4 * (own + plan.stages * (2 * tile + 2 * plan.cols) + tail)
+            assert plan.smem_dq_bytes == 4 * (own + plan.stages * 2 * tile + tail)
+            assert ssd_cuda.blocks_per_sm(plan.threads, max(plan.smem_bytes, plan.smem_dq_bytes)) >= 2
 
     @pytest.mark.parametrize("hd", fa_cuda.HEAD_DIMS)
     def test_every_head_dim_tiles_the_fragments(self, hd):
@@ -931,7 +993,10 @@ class TestFlashBwdPlan:
             plan = fa_cuda.flash_bwd_plan(*meta_bwd((1, 2, 2, 8, 8, hd, dtype, False, 0)))
             assert hd % 16 == 0 and plan.cols % 16 == 0
             if plan.route == "cuda_cores":
-                assert (hd + 4) * 4 % 16 == 0 and (plan.cols + 4) * 4 % 16 == 0
+                # 8 threads a row of the thread grid take hd / 8 columns each,
+                # in 4- or 2-float vectors; rows stay 16-byte aligned
+                assert hd % (8 * 2) == 0 and fa_cuda.core_row_stride(hd) % 4 == 0
+                assert fa_cuda.core_p_stride(plan.cols) % 4 == 0 and plan.cols % 4 == 0
                 continue
             slabs = fa_cuda.head_dim_slabs(hd)
             assert all(w <= 64 and w % 16 == 0 for _, w, _ in slabs)
@@ -963,8 +1028,90 @@ class TestFlashBwdPlan:
                       plan.workspace_bytes]
             for m in plan.maps:
                 values += m.values()
+            if plan.route == "cuda_cores":   # vector_loads in the first map's place
+                values.append(int(plan.vector_loads))
             assert len(plan.maps) == (8 if plan.route == "wgmma" else 0)
             assert list(plan.as_array()) == values + [0] * (fa_cuda.BWD_PLAN_LEN - len(values))
+
+    @pytest.mark.parametrize("case", [c for c in PLAN_FLASH_BWD if c[6] == "float32" or c[8]])
+    def test_core_walks_cover_every_visible_pair_once(self, case):
+        """CUDA cores, as the C side walks: each dK/dV block (64 keys, its
+        split's query heads) walks the 32-query tiles from the first that
+        sees its keys; each dQ block (64 queries) the 32-key tiles up to its
+        causal limit.  Every visible (query, key) pair of every head lies in
+        exactly one walked tile of each kernel, every walked lse/D tile lies
+        inside the padded workspace the dQ kernel writes."""
+        b, hq, hkv, sq, skv, hd = case[:6]
+        causal = sq <= skv
+        plan = fa_cuda.flash_bwd_plan(*meta_bwd(case))
+        rows, cols, off = plan.rows, plan.cols, skv - sq
+        group, share = hq // hkv, hq // hkv // plan.splits
+        q_idx, k_idx = np.arange(sq)[:, None], np.arange(skv)[None, :]
+        visible = (k_idx <= q_idx + off) if causal else np.ones((sq, skv), bool)
+        dkv = np.zeros((hq, sq, skv), np.int8)
+        for kt in range(plan.grid_dkv[0]):
+            k0 = kt * rows
+            first = max(0, k0 - off) // cols if causal else 0
+            for y in range(plan.grid_dkv[1]):
+                hk, split = divmod(y, plan.splits)
+                for h in range(hk * group + split * share, hk * group + (split + 1) * share):
+                    for u in range(first, -(-sq // cols)):
+                        assert (u + 1) * cols <= plan.sq_pad
+                        dkv[h, u * cols:(u + 1) * cols, k0:k0 + rows] += 1
+        dq = np.zeros((sq, skv), np.int8)
+        for qt in range(plan.grid_dq[0]):
+            q0 = qt * rows
+            kv_end = min(skv, min(q0 + rows, sq) + off) if causal else skv
+            for k0 in range(0, kv_end, cols):
+                dq[q0:q0 + rows, k0:k0 + cols] += 1
+        assert (dkv[:, visible] == 1).all() and dkv.max() == 1
+        assert (dq[visible] == 1).all() and dq.max() == 1
+
+    @pytest.mark.parametrize("hd", fa_cuda.HEAD_DIMS)
+    @pytest.mark.parametrize("cols", [32, 64])
+    def test_core_strides_are_free_of_bank_conflicts(self, hd, cols):
+        """Every shared-memory access of a warp in the CUDA-core products
+        (lane = 8 (ty % 4) + tx; rows ty + 16 i, columns tx + 8 j or a
+        thread's hd / 8 output columns) touches each of the 32 banks through
+        at most one distinct address: the 16-byte reads of two operand tiles
+        (rows of hd + 4 floats), the P tile's scalar stores and 16-byte reads
+        (rows of cols + 8), and the walked tile's vector reads along a row."""
+        rs, ps = fa_cuda.core_row_stride(hd), fa_cuda.core_p_stride(cols)
+        n = hd // 8
+        vw = 4 if n % 4 == 0 else 2
+
+        def conflict_free(floats_at, width):
+            addrs = sorted(set(floats_at))
+            banks = [(a + e) % 32 for a in addrs for e in range(width)]
+            return all(a % width == 0 for a in addrs) and len(banks) == len(set(banks))
+
+        lanes = [(w * 4 + lane // 8, lane % 8) for w in range(4) for lane in range(32)]
+        for w in range(4):
+            warp = lanes[32 * w: 32 * (w + 1)]
+            for d in range(0, hd, 4):
+                for i in range(4):   # the owned operand's rows, 16-byte reads along hd
+                    assert conflict_free([(ty + 16 * i) * rs + d for ty, _ in warp], 4)
+                for j in range(cols // 8):   # the walked operand's rows
+                    assert conflict_free([(tx + 8 * j) * rs + d for _, tx in warp], 4)
+            for i in range(4):
+                for j in range(cols // 8):   # P stores
+                    assert conflict_free([(ty + 16 * i) * ps + tx + 8 * j for ty, tx in warp], 1)
+                for k in range(0, cols, 4):   # P reads along a row
+                    assert conflict_free([(ty + 16 * i) * ps + k for ty, _ in warp], 4)
+            for k in range(cols):   # the walked tile's vectors along its row k
+                for g in range(n // vw):
+                    assert conflict_free([k * rs + vw * tx + 8 * vw * g for _, tx in warp], vw)
+        # each thread's output columns cover hd once
+        assert sorted(vw * tx + 8 * vw * (c // vw) + c % vw
+                      for tx in range(8) for c in range(n)) == list(range(hd))
+
+    @pytest.mark.parametrize("case", PLAN_FLASH_BWD)
+    def test_core_vector_loads(self, case):
+        """cp.async takes fp32 rows in 16-byte pieces only; bf16 (the
+        unaligned rows) moves element by element."""
+        plan = fa_cuda.flash_bwd_plan(*meta_bwd(case))
+        assert plan.vector_loads == (plan.route == "cuda_cores" and case[6] == "float32"
+                                     and not case[8])
 
     @pytest.mark.parametrize("case", [c for c in PLAN_FLASH_BWD if c[6] == "bfloat16" and not c[8]])
     def test_tensor_maps(self, case):
