@@ -19,8 +19,9 @@ raises and the script exits non-zero:
    timed region) with CUDA events after warm-up; checks the route each launch
    plan took (flash, RMSNorm, and the SSD scan's route, sequence segments and
    heads per block), that the flash forward's out is bit-identical with and
-   without its log-sum-exp, and that two flash backward calls on the same
-   inputs agree bit for bit.
+   without its log-sum-exp, and that two calls of either backward on the
+   same inputs agree bit for bit; the RMSNorm backward's two kernels (row
+   pass, dscale pass) are also timed apart with torch.profiler.
 4. ``parity``  -- glm4-9b at full width, 4 layers: one padded prefill and a few
    decode steps, logits through the kernels against logits through the plain
    versions, in fp32 and in bf16.
@@ -492,6 +493,37 @@ def flash_lse_case(b: int, hq: int, hkv: int, s: int, hd: int, dtype: torch.dtyp
             "tol": TOL[torch.float32]}
 
 
+def rmsnorm_bwd_pass_ms(fn, iters: int) -> dict:
+    """Device milliseconds of the RMSNorm backward's two kernels apart: the
+    row pass (``rmsnorm_bwd_warp_kernel`` or ``rmsnorm_bwd_kernel``: dx and
+    each block's partial dscale row) and the dscale pass
+    (``rmsnorm_dscale_kernel``), the mean of torch.profiler's kernel records
+    over ``iters`` calls of ``fn`` after a warm-up call (the profiler may drop
+    some records; their counts are reported)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ms = {"row_pass": [0.0, 0], "dscale_pass": [0.0, 0]}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(evt, "device_time", None)
+            us = evt.cuda_time if us is None else us
+            key = "dscale_pass" if "rmsnorm_dscale_kernel" in evt.name else \
+                "row_pass" if "rmsnorm_bwd" in evt.name else None
+            if key:
+                ms[key][0] += us / 1e3
+                ms[key][1] += 1
+    if any(n == 0 or n > iters for _, n in ms.values()):
+        raise AssertionError(f"the profiler saw {ms} RMSNorm backward kernels in {iters} calls")
+    return {**{f"{key}_ms": total / n for key, (total, n) in ms.items()},
+            "pass_records": {key: n for key, (_, n) in ms.items()}}
+
+
 def rmsnorm_bwd_case(shape: tuple[int, ...], dtype: torch.dtype, gen: torch.Generator,
                      iters: int) -> dict:
     dev = gen.device
@@ -500,17 +532,30 @@ def rmsnorm_bwd_case(shape: tuple[int, ...], dtype: torch.dtype, gen: torch.Gene
     x, dy = (torch.randn(shape, device=dev, generator=gen).to(dtype) for _ in range(2))
     scale = 1.0 + 0.1 * torch.randn(d, device=dev, generator=gen)
     dx, dscale = _rms.rmsnorm_bwd_cuda(x, scale, dy, 1e-5)
+    again = _rms.rmsnorm_bwd_cuda(x, scale, dy, 1e-5)
     torch.cuda.synchronize()
     want_dx, want_dscale = ref.rmsnorm_bwd_ref(x, scale, dy, 1e-5)
     what = f"rmsnorm_bwd {shape} {dtype}"
     err = compare(dx, want_dx, f"{what} dx")
     err_scale = compare(dscale, want_dscale, f"{what} dscale")
+    # no atomics and a fixed order for every sum: two calls agree bit for bit
+    for name, a, b in zip(("dx", "dscale"), (dx, dscale), again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} {name}: two calls on the same inputs differ")
     plan = _rms.rmsnorm_bwd_plan(x, scale, dx)
     if plan.route != _rms.rmsnorm_plan(x, scale, dx).route:
         raise AssertionError(f"{what}: the backward took {plan.route!r}, not the forward's route")
+    # a lane's partials stay in registers up to REGISTER_PARTIALS_VPL vectors
+    shared = plan.route == "registers" and plan.vectors_per_lane > _rms.REGISTER_PARTIALS_VPL
+    if plan.partials != ("shared" if shared else "registers"):
+        raise AssertionError(f"{what}: partials in {plan.partials!r} at {plan.vectors_per_lane} vectors")
     case = {"kernel": "rmsnorm_bwd", "shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
-            "route": plan.route, "blocks": plan.blocks, "max_abs_err": err,
-            "dscale_max_abs_err": err_scale, "tol": TOL[dtype], "dscale_tol": TOL[torch.float32]}
+            "route": plan.route, "vectors_per_lane": plan.vectors_per_lane, "blocks": plan.blocks,
+            "threads": plan.threads, "units": plan.units, "vector_loads": plan.vector_loads,
+            "partials": plan.partials, "smem_bytes": plan.smem_bytes, "bit_identical_twice": True,
+            "max_abs_err": err, "dscale_max_abs_err": err_scale, "tol": TOL[dtype],
+            "dscale_tol": TOL[torch.float32]}
+    del dx, dscale, again, want_dx, want_dscale
     args = [(x, scale, dy)]
     timings(
         case,
@@ -518,6 +563,7 @@ def rmsnorm_bwd_case(shape: tuple[int, ...], dtype: torch.dtype, gen: torch.Gene
         plain=(lambda *a: ref.rmsnorm_bwd_ref(*a, 1e-5), args, iters),
         library=None,
     )
+    case.update(rmsnorm_bwd_pass_ms(lambda: _rms.rmsnorm_bwd_cuda(x, scale, dy, 1e-5), iters))
     case["library_ms"] = timed_grad_ms(lambda a, s: F.rms_norm(a, (d,), s.to(dtype), 1e-5),
                                        [x, scale], dy, iters)
     # x and dy read, dx written, scale read and dscale written once
@@ -711,6 +757,8 @@ def kernels_phase(cfg, zcfg, mcfg, dev: torch.device) -> dict[str, dict]:
         rmsnorm_bwd_case((8, 64, 64), bf16, gen, 50),
         rmsnorm_bwd_case((3, 37, 1000), fp32, gen, 50),   # block route, ragged
         rmsnorm_bwd_case((5, 4099), bf16, gen, 50),       # unaligned rows: scalar path
+        rmsnorm_bwd_case((1, 4096, zcfg.d_model), bf16, gen, 50),   # zamba2-2.7b's width, 10 vectors
+        rmsnorm_bwd_case((256, 6144), bf16, gen, 50),     # 24 vectors a lane: partials shared
     ]
     emit({"phase": "kernels", "cases": cases + zamba_cases + train_cases})
     return {"rmsnorm": rmsnorm_main, "flash_attention": flash_main, "ssd_chunk_scan": ssd_main,

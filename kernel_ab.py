@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times the port's RMSNorm, flash-attention (forward and backward) and SSD chunk-scan kernels of
-several checkouts one after the other on one NVIDIA GPU, so that two versions
-are compared on the same card, in the same run.
+"""Times the port's RMSNorm and flash-attention kernels (forward and
+backward) and its SSD chunk-scan kernel of several checkouts one after the
+other on one NVIDIA GPU, so that two versions are compared on the same card,
+in the same run.
 
     python3 kernel_ab.py PARENT_DIR . . PARENT_DIR
 
@@ -22,9 +23,10 @@ training forward calls it, and bf16 rows shifted one element off 16 bytes, as
 ``chip_smoke.py`` runs them); the SSD
 scan in zamba2's model layout -- x ``(b, s, H, P)`` bf16 as a transposed
 view, B/C ``(b, s, N)`` shared by the heads, dt/loga fp32, y fp32 -- over
-``SSD_ITERS`` calls); and one fp32-compute ``loss_and_grads`` of minicpm-2b
-at 4 layers under ``torch.profiler`` (device-busy ms and the flash kernels'
-share).
+``SSD_ITERS`` calls); the RMSNorm backward at minicpm-2b's training step in
+bf16 (the register route) and fp32 (the block route) (``RMSNORM_BWD``); and
+one fp32-compute ``loss_and_grads`` of minicpm-2b at 4 layers under
+``torch.profiler`` (device-busy ms and the flash kernels' share).
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ FLASH_CORE = [  # (b, hq, hkv, s, hd, dtype, element offset, model layout, backw
 ]
 FLASH_CORE_ITERS = 10
 SSD = [(1, 80, 32768, 64, 64), (2, 80, 1024, 64, 64)]   # (b, H, s, P, N): zamba2's 32k forward, b = 2
+RMSNORM_BWD = [((4, 1024, 2304), "bfloat16"), ((4, 1024, 2304), "float32")]   # minicpm-2b's step
 
 
 def child(root: str) -> dict:
@@ -61,6 +64,7 @@ def child(root: str) -> dict:
     sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rms
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -125,6 +129,10 @@ def child(root: str) -> dict:
         loga = -torch.nn.functional.softplus(rand(b, s, H, dtype=torch.float32)).transpose(1, 2)
         out["ms"][f"ssd x{(b, H, s, P)} N {N}"] = device_ms(
             ops.ssd_chunk_scan, x, B, C, dt, loga, 128, torch.float32, iters=SSD_ITERS)
+    for shape, dtype in RMSNORM_BWD:
+        x, dy = (rand(*shape, dtype=getattr(torch, dtype)) for _ in range(2))
+        scale = 1.0 + 0.1 * rand(shape[-1], dtype=torch.float32)
+        out["ms"][f"rmsnorm_bwd {shape} {dtype}"] = device_ms(rms.rmsnorm_bwd_cuda, x, scale, dy, 1e-5)
     out["fp32_step"] = fp32_step_profile(dev)
     return out
 

@@ -271,6 +271,7 @@ bool warp_route_ok(const void* x, const void* scale, const void* out, int d, int
            reinterpret_cast<uintptr_t>(scale) % 16 == 0;
 }
 
+
 // ---------------------------------------------------------------------------
 // Backward (training): dx and dscale
 // ---------------------------------------------------------------------------
@@ -280,18 +281,39 @@ bool warp_route_ok(const void* x, const void* scale, const void* out, int d, int
 // g = dy * scale, per row: dx = r g - x r^3 mean(g x); dscale = sum over rows
 // of dy x r.  Bound by bytes, as the forward: x and dy read, dx written.
 //
-//  * Each row recomputes r in fp32 from x, with the forward kernel of the same
+//  * Each row recomputes r in fp32 from x with the forward kernel of the same
 //    route's threads, vectors and reductions, so in the forward's summation
 //    order (the wrapper takes the route by the forward's rule).
-//  * dscale is reduced in two passes with no atomics, so it is deterministic:
-//    a fixed grid of blocks walks the rows (block b takes rows b, b + grid,
-//    ...), each keeping its columns' partial sums in fp32 in shared memory
-//    (a thread, or on the warp route a warp, adds only into columns it owns)
-//    and writing one row of a (blocks, d) workspace; then
-//    rmsnorm_dscale_kernel sums each column over the blocks in order.
+//  * x and dy leave device memory once.  A thread copies its own 16-byte
+//    pieces of the next rows it walks into a ring in shared memory (cp.async)
+//    while it works on the current one, and reads them back into registers;
+//    a thread reads only what it copied, so the ring needs no barrier.  Rows
+//    that are not 16-byte aligned are read element by element into registers.
+//  * A thread owns the same columns on every row it walks and adds dy x r
+//    into fp32 partial sums of them: in registers where they fit (the block
+//    route, and the register route up to 12 vectors a lane), else in shared
+//    memory laid out so that a warp's accesses are conflict-free.  Each block
+//    writes one row of a (blocks, d) workspace, its warps added in warp order;
+//    then rmsnorm_dscale_kernel sums the workspace column by column in a fixed
+//    order, spread over the card.  No atomics: two calls give the same bits.
+
+constexpr int kRing = 2;   // ring slots of a thread: rows in flight beyond the one worked on
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // Sum of two values over the block (the order of block_sum for each); every
-// thread gets both totals.  The caller syncs before the next call.
+// thread gets both totals.  A caller that calls again before a barrier passes
+// the other of two warp_sums arrays.
 __device__ __forceinline__ float2 block_sum2(float a, float b, float2* warp_sums) {
     for (int o = 16; o > 0; o >>= 1) {
         a += __shfl_xor_sync(0xffffffffu, a, o);
@@ -309,114 +331,261 @@ __device__ __forceinline__ float2 block_sum2(float a, float b, float2* warp_sums
     return t;
 }
 
-// VEC elements of T from vector i of p (one 16-byte load, or a scalar), as fp32.
+// VEC elements of T from a 16-byte piece, as fp32.
 template <typename T, int VEC>
-__device__ __forceinline__ void load_f32(const T* __restrict__ p, int i, float (&f)[VEC]) {
-    if constexpr (VEC > 1) {
-        const uint4 raw = reinterpret_cast<const uint4*>(p)[i];
-        const T* e = reinterpret_cast<const T*>(&raw);
+__device__ __forceinline__ void unpack(const uint4& raw, float (&f)[VEC]) {
+    const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) f[j] = to_f32(e[j]);
-    } else {
-        f[0] = to_f32(p[i]);
-    }
+    for (int j = 0; j < VEC; ++j) f[j] = to_f32(e[j]);
 }
 
 // Block route: the forward's rmsnorm_kernel, with the same blockDim and VEC.
-template <typename T, typename S, int VEC>
-__global__ void __launch_bounds__(kMaxThreads)
+// Thread t owns units (16-byte vectors, or elements where the row is not
+// aligned) t, t + nt, ..., KV of them at most, on every row, and keeps them
+// and their partials (and on the vector path their scale) in registers;
+// block b walks rows b, b + grid, ...  Its piece (slot, tensor, k) of the ring
+// is at ring[((2 slot + tensor) KV + k) nt + t].
+template <typename T, typename S, int VEC, int KV>
+__global__ void __launch_bounds__(kMaxThreads, KV * VEC <= 8 ? 2 : 1)
 rmsnorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ scale, const T* __restrict__ dy,
                    T* __restrict__ dx, float* __restrict__ partials, long long rows, int d,
                    float eps) {
-    extern __shared__ float dscale_acc[];   // d floats; a thread touches only its own columns
-    __shared__ float2 warp_sums[32];
+    extern __shared__ uint4 ring[];
+    __shared__ float2 warp_sums[2][32];
     const int tid = threadIdx.x, nt = blockDim.x;
-    const int n_vec = d / VEC;
-    for (int i = tid; i < n_vec; i += nt)
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) dscale_acc[i * VEC + j] = 0.f;
+    const int units = VEC > 1 ? d / VEC : d;
 
-    for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
-        const T* xr = x + row * d;
-        const T* dyr = dy + row * d;
-        T* dxr = dx + row * d;
-        float ss = 0.f, gx = 0.f;
-        for (int i = tid; i < n_vec; i += nt) {
-            float xf[VEC], df[VEC];
-            load_f32<T, VEC>(xr, i, xf);
-            load_f32<T, VEC>(dyr, i, df);
+    float sc[VEC > 1 ? KV : 1][VEC], acc[KV][VEC];
 #pragma unroll
-            for (int j = 0; j < VEC; ++j) {
-                ss += xf[j] * xf[j];
-                gx += df[j] * to_f32(scale[i * VEC + j]) * xf[j];
+    for (int k = 0; k < KV; ++k) {
+        const int u = tid + k * nt;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+            acc[k][j] = 0.f;
+            if constexpr (VEC > 1) sc[k][j] = u < units ? to_f32(scale[u * VEC + j]) : 0.f;
+        }
+    }
+    // the element path reads scale where it is used: its registers go to the row
+    auto scale_of = [&](int k, int j) -> float {
+        if constexpr (VEC > 1) return sc[k][j];
+        else return tid + k * nt < units ? to_f32(scale[tid + k * nt]) : 0.f;
+    };
+
+    auto fetch = [&](long long row, int slot) {
+        if constexpr (VEC > 1) {
+            if (row < rows) {
+                const uint4* xv = reinterpret_cast<const uint4*>(x + row * d);
+                const uint4* dv = reinterpret_cast<const uint4*>(dy + row * d);
+#pragma unroll
+                for (int k = 0; k < KV; ++k) {
+                    const int u = tid + k * nt;
+                    if (u < units) {
+                        cp_async16(&ring[((2 * slot) * KV + k) * nt + tid], xv + u);
+                        cp_async16(&ring[((2 * slot + 1) * KV + k) * nt + tid], dv + u);
+                    }
+                }
+            }
+            cp_async_commit();   // one group a row, empty past the end
+        }
+    };
+    for (int s = 0; s < kRing; ++s) fetch(blockIdx.x + static_cast<long long>(s) * gridDim.x, s);
+
+    int slot = 0, parity = 0;
+    for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+        float xf[KV][VEC], df[KV][VEC];   // masked units hold zeros
+        if constexpr (VEC > 1) {
+            cp_async_wait<kRing - 1>();   // this row's group has landed
+            const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+            for (int k = 0; k < KV; ++k) {
+                const int u = tid + k * nt;
+                unpack<T, VEC>(u < units ? ring[((2 * slot) * KV + k) * nt + tid] : z, xf[k]);
+                unpack<T, VEC>(u < units ? ring[((2 * slot + 1) * KV + k) * nt + tid] : z, df[k]);
+            }
+        } else {
+#pragma unroll
+            for (int k = 0; k < KV; ++k) {
+                const int u = tid + k * nt;
+                xf[k][0] = u < units ? to_f32(x[row * d + u]) : 0.f;
+                df[k][0] = u < units ? to_f32(dy[row * d + u]) : 0.f;
             }
         }
-        const float2 tot = block_sum2(ss, gx, warp_sums);
+        float ss = 0.f, gx = 0.f;
+#pragma unroll
+        for (int k = 0; k < KV; ++k)
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) {
+                ss += xf[k][j] * xf[k][j];
+                gx += df[k][j] * scale_of(k, j) * xf[k][j];
+            }
+        const float2 tot = block_sum2(ss, gx, warp_sums[parity]);
+        parity ^= 1;
+        // this thread's pieces of the slot are in registers and summed: refill it
+        fetch(row + static_cast<long long>(kRing) * gridDim.x, slot);
+        slot = (slot + 1) % kRing;
         const float inv = rsqrtf(tot.x / static_cast<float>(d) + eps);
         const float coef = inv * inv * inv * (tot.y / static_cast<float>(d));
-        for (int i = tid; i < n_vec; i += nt) {
-            float xf[VEC], df[VEC];
-            load_f32<T, VEC>(xr, i, xf);
-            load_f32<T, VEC>(dyr, i, df);
-            uint4 res;   // VEC results in one 16-byte store (the first element alone if VEC == 1)
-            T* r = reinterpret_cast<T*>(&res);
+        T* dxr = dx + row * d;
 #pragma unroll
-            for (int j = 0; j < VEC; ++j) {
-                r[j] = from_f32<T>(inv * df[j] * to_f32(scale[i * VEC + j]) - xf[j] * coef);
-                dscale_acc[i * VEC + j] += df[j] * xf[j] * inv;
+        for (int k = 0; k < KV; ++k) {
+            const int u = tid + k * nt;
+            if (u < units) {
+                uint4 res;   // VEC results in one 16-byte store (the first element alone if VEC == 1)
+                T* r = reinterpret_cast<T*>(&res);
+#pragma unroll
+                for (int j = 0; j < VEC; ++j) {
+                    r[j] = from_f32<T>(inv * df[k][j] * scale_of(k, j) - xf[k][j] * coef);
+                    acc[k][j] += df[k][j] * xf[k][j] * inv;
+                }
+                if constexpr (VEC > 1) reinterpret_cast<uint4*>(dxr)[u] = res;
+                else dxr[u] = r[0];
             }
-            if constexpr (VEC > 1) reinterpret_cast<uint4*>(dxr)[i] = res;
-            else dxr[i] = r[0];
         }
-        __syncthreads();   // warp_sums is read before the next row writes it
     }
-    for (int i = tid; i < n_vec; i += nt)
+    if constexpr (VEC > 1) cp_async_wait<0>();
+    float* pr = partials + static_cast<long long>(blockIdx.x) * d;
 #pragma unroll
-        for (int j = 0; j < VEC; ++j)
-            partials[static_cast<long long>(blockIdx.x) * d + i * VEC + j] = dscale_acc[i * VEC + j];
+    for (int k = 0; k < KV; ++k) {
+        const int u = tid + k * nt;
+        if (u < units) {
+            if constexpr (VEC % 4 == 0) {
+#pragma unroll
+                for (int q = 0; q < VEC / 4; ++q)
+                    reinterpret_cast<float4*>(pr + u * VEC)[q] =
+                        make_float4(acc[k][4 * q], acc[k][4 * q + 1], acc[k][4 * q + 2], acc[k][4 * q + 3]);
+            } else {
+                pr[u] = acc[k][0];
+            }
+        }
+    }
 }
 
-// Register route: the forward's rmsnorm_warp_kernel (one warp per row, the row
-// in registers, VPL 16-byte vectors a lane); warp w of block b takes rows
-// 4 b + w, 4 (b + grid) + w, ...  Each warp keeps its dscale partials in a
-// shared-memory row of its own (in registers they would spill from 16 vectors
-// a lane up), and the block adds the four rows in warp order.
+// Register route, by vectors per lane.  Up to 12 a lane keeps its row of x
+// and dy (8 VPL registers) and its partials (8 VPL floats) in registers;
+// past that both would spill, so the partials go to shared memory and the row
+// is read from the ring twice (statistics, then dx).  A warp's shared memory:
+// its ring (kRing slots of x's and dy's pieces, 512 bytes a vector) and,
+// where they are shared, its partials; warps a block takes, at most: 8, or as
+// many as shared memory holds.
+__host__ __device__ constexpr bool shared_partials(int vpl) { return vpl > 12; }
+__host__ __device__ constexpr int bwd_warp_smem(int vpl) {
+    return (2 * kRing * vpl + (shared_partials(vpl) ? 2 * vpl : 0)) * 512;
+}
+constexpr int kBwdSmem = 232448 - 1024;   // dynamic shared memory a block may take
+__host__ __device__ constexpr int bwd_max_warps(int vpl) {
+    return kBwdSmem / bwd_warp_smem(vpl) < 8 ? kBwdSmem / bwd_warp_smem(vpl) : 8;
+}
+
+// Register route: the forward's rmsnorm_warp_kernel (one warp per row, VPL
+// 16-byte vectors a lane, vector j = lane + 32 i); warp w of block b takes
+// rows warps b + w, warps (b + grid) + w, ...  Lane l's piece (slot, tensor,
+// i) of the ring is at [((2 slot + tensor) VPL + i) 32 + l]; its shared
+// partials of vector j are float4 halves at [2 (j / 32) 32 + l] and 32 after
+// it, so a warp's access is 512 contiguous bytes.
 template <int VPL>
-__global__ void __launch_bounds__(32 * WARP_ROWS)
+__global__ void __launch_bounds__(32 * bwd_max_warps(VPL), 1)
 rmsnorm_bwd_warp_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
                         const __nv_bfloat16* __restrict__ dy, __nv_bfloat16* __restrict__ dx,
                         float* __restrict__ partials, long long rows, int d, float eps) {
-    extern __shared__ float warp_acc_all[];   // WARP_ROWS rows of d floats
-    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    constexpr bool kShared = shared_partials(VPL);
+    constexpr int kWarpPieces = bwd_warp_smem(VPL) / 16;
+    extern __shared__ uint4 smem[];
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = blockDim.x / 32;
     const int n_vec = d / 8;
-    float* acc = warp_acc_all + warp * d;     // element 8 j + e of vector j
-    for (int i = lane; i < d; i += 32) acc[i] = 0.f;
-    __syncwarp();   // a lane later adds into columns another lane zeroed
-
-    for (long long row = static_cast<long long>(blockIdx.x) * WARP_ROWS + warp; row < rows;
-         row += static_cast<long long>(gridDim.x) * WARP_ROWS) {
-        const uint4* xv = reinterpret_cast<const uint4*>(x + row * d);
-        const uint4* dv = reinterpret_cast<const uint4*>(dy + row * d);
-        uint4 xr[VPL], dr[VPL];
+    uint4* ring = smem + warp * kWarpPieces;
+    float4* shared_acc = reinterpret_cast<float4*>(ring + 2 * kRing * VPL * 32);
+    auto piece = [&](int slot, int tensor, int i) -> uint4& {
+        return ring[((2 * slot + tensor) * VPL + i) * 32 + lane];
+    };
+    float acc[kShared ? 1 : VPL][8];
 #pragma unroll
-        for (int i = 0; i < VPL; ++i) {
-            const int j = lane + 32 * i;
-            xr[i] = j < n_vec ? xv[j] : make_uint4(0u, 0u, 0u, 0u);
-            dr[i] = j < n_vec ? dv[j] : make_uint4(0u, 0u, 0u, 0u);
+    for (int i = 0; i < VPL; ++i) {
+        if constexpr (kShared) {
+            shared_acc[2 * i * 32 + lane] = make_float4(0.f, 0.f, 0.f, 0.f);
+            shared_acc[(2 * i + 1) * 32 + lane] = make_float4(0.f, 0.f, 0.f, 0.f);
+        } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
         }
-        float ss = 0.f, gx = 0.f;   // masked lanes hold zeros
+    }
+
+    const long long first = static_cast<long long>(blockIdx.x) * warps + warp;
+    const long long stride = static_cast<long long>(gridDim.x) * warps;
+    auto fetch = [&](long long row, int slot) {
+        if (row < rows) {
+            const uint4* xv = reinterpret_cast<const uint4*>(x + row * d);
+            const uint4* dv = reinterpret_cast<const uint4*>(dy + row * d);
 #pragma unroll
-        for (int i = 0; i < VPL; ++i) {
-            const int j = lane + 32 * i;
-            const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&xr[i]);
-            const __nv_bfloat16* de = reinterpret_cast<const __nv_bfloat16*>(&dr[i]);
-            float sc[8];
-            if (j < n_vec) load_scale8(scale + 8 * j, sc);
+            for (int i = 0; i < VPL; ++i) {
+                const int j = lane + 32 * i;
+                if (j < n_vec) {
+                    cp_async16(&piece(slot, 0, i), xv + j);
+                    cp_async16(&piece(slot, 1, i), dv + j);
+                }
+            }
+        }
+        cp_async_commit();   // one group a row, empty past the end
+    };
+    for (int s = 0; s < kRing; ++s) fetch(first + s * stride, s);
+
+    // Up to 12 vectors a lane the row's pieces are all loaded into registers
+    // first; past that the passes take four vectors at a time, each chunk's
+    // pieces and scale loaded before any is used.
+    constexpr int kChunk = kShared ? 4 : VPL;
+    static_assert(VPL % kChunk == 0, "the chunks cover the row");
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    int slot = 0;
+    for (long long row = first; row < rows; row += stride) {
+        cp_async_wait<kRing - 1>();   // this row's group has landed
+        uint4 xr[kShared ? 1 : VPL], dr[kShared ? 1 : VPL];   // the row, where it stays
+        float ss = 0.f, gx = 0.f;   // masked vectors add zeros, as the forward's do
+        if constexpr (!kShared) {
 #pragma unroll
-            for (int e = 0; e < 8; ++e) {
-                const float f = __bfloat162float(xe[e]);
-                ss += f * f;
-                if (j < n_vec) gx += __bfloat162float(de[e]) * sc[e] * f;
+            for (int i = 0; i < VPL; ++i) {
+                const bool in = lane + 32 * i < n_vec;
+                xr[i] = in ? piece(slot, 0, i) : zero;
+                dr[i] = in ? piece(slot, 1, i) : zero;
+            }
+#pragma unroll
+            for (int i = 0; i < VPL; ++i) {
+                const int j = lane + 32 * i;
+                const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&xr[i]);
+                const __nv_bfloat16* de = reinterpret_cast<const __nv_bfloat16*>(&dr[i]);
+                float sc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+                if (j < n_vec) load_scale8(scale + 8 * j, sc);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) {
+                    const float f = __bfloat162float(xe[e]);
+                    ss += f * f;
+                    gx += __bfloat162float(de[e]) * sc[e] * f;
+                }
+            }
+        } else {
+#pragma unroll
+            for (int i0 = 0; i0 < VPL; i0 += kChunk) {
+                uint4 xc[kChunk], dc[kChunk];
+                float sc[kChunk][8];
+#pragma unroll
+                for (int c = 0; c < kChunk; ++c) {
+                    const int i = i0 + c, j = lane + 32 * i;
+                    const bool in = j < n_vec;
+                    xc[c] = in ? piece(slot, 0, i) : zero;
+                    dc[c] = in ? piece(slot, 1, i) : zero;
+#pragma unroll
+                    for (int e = 0; e < 8; ++e) sc[c][e] = 0.f;
+                    if (in) load_scale8(scale + 8 * j, sc[c]);
+                }
+#pragma unroll
+                for (int c = 0; c < kChunk; ++c) {
+                    const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&xc[c]);
+                    const __nv_bfloat16* de = reinterpret_cast<const __nv_bfloat16*>(&dc[c]);
+#pragma unroll
+                    for (int e = 0; e < 8; ++e) {
+                        const float f = __bfloat162float(xe[e]);
+                        ss += f * f;
+                        gx += __bfloat162float(de[e]) * sc[c][e] * f;
+                    }
+                }
             }
         }
 #pragma unroll
@@ -424,87 +593,223 @@ rmsnorm_bwd_warp_kernel(const __nv_bfloat16* __restrict__ x, const float* __rest
             ss += __shfl_xor_sync(0xffffffffu, ss, o);
             gx += __shfl_xor_sync(0xffffffffu, gx, o);
         }
+        // the slot's pieces are in registers and summed: refill it now
+        if constexpr (!kShared) fetch(row + kRing * stride, slot);
         const float inv = rsqrtf(ss * (1.f / static_cast<float>(d)) + eps);
         const float coef = inv * inv * inv * (gx * (1.f / static_cast<float>(d)));
         uint4* ov = reinterpret_cast<uint4*>(dx + row * d);
+        if constexpr (!kShared) {
+#pragma unroll
+            for (int i = 0; i < VPL; ++i) {
+                const int j = lane + 32 * i;
+                if (j < n_vec) {
+                    float sc[8];
+                    load_scale8(scale + 8 * j, sc);
+                    const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&xr[i]);
+                    const __nv_bfloat16* de = reinterpret_cast<const __nv_bfloat16*>(&dr[i]);
+                    uint4 res;
+                    __nv_bfloat16* r = reinterpret_cast<__nv_bfloat16*>(&res);
+#pragma unroll
+                    for (int e = 0; e < 8; ++e) {
+                        const float f = __bfloat162float(xe[e]), g = __bfloat162float(de[e]);
+                        r[e] = __float2bfloat16_rn(inv * g * sc[e] - f * coef);
+                        acc[i][e] += g * f * inv;
+                    }
+                    ov[j] = res;
+                }
+            }
+        } else {
+#pragma unroll
+            for (int i0 = 0; i0 < VPL; i0 += kChunk) {
+                uint4 xc[kChunk], dc[kChunk];
+                float sc[kChunk][8], a[kChunk][8];   // a: the chunk's partials
+#pragma unroll
+                for (int c = 0; c < kChunk; ++c) {
+                    const int i = i0 + c, j = lane + 32 * i;
+                    const bool in = j < n_vec;
+                    xc[c] = in ? piece(slot, 0, i) : zero;
+                    dc[c] = in ? piece(slot, 1, i) : zero;
+                    const float4 lo = shared_acc[2 * i * 32 + lane], hi = shared_acc[(2 * i + 1) * 32 + lane];
+                    a[c][0] = lo.x; a[c][1] = lo.y; a[c][2] = lo.z; a[c][3] = lo.w;
+                    a[c][4] = hi.x; a[c][5] = hi.y; a[c][6] = hi.z; a[c][7] = hi.w;
+#pragma unroll
+                    for (int e = 0; e < 8; ++e) sc[c][e] = 0.f;
+                    if (in) load_scale8(scale + 8 * j, sc[c]);
+                }
+#pragma unroll
+                for (int c = 0; c < kChunk; ++c) {
+                    const int i = i0 + c, j = lane + 32 * i;
+                    if (j < n_vec) {
+                        const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&xc[c]);
+                        const __nv_bfloat16* de = reinterpret_cast<const __nv_bfloat16*>(&dc[c]);
+                        uint4 res;
+                        __nv_bfloat16* r = reinterpret_cast<__nv_bfloat16*>(&res);
+#pragma unroll
+                        for (int e = 0; e < 8; ++e) {
+                            const float f = __bfloat162float(xe[e]), g = __bfloat162float(de[e]);
+                            r[e] = __float2bfloat16_rn(inv * g * sc[c][e] - f * coef);
+                            a[c][e] += g * f * inv;
+                        }
+                        shared_acc[2 * i * 32 + lane] = make_float4(a[c][0], a[c][1], a[c][2], a[c][3]);
+                        shared_acc[(2 * i + 1) * 32 + lane] = make_float4(a[c][4], a[c][5], a[c][6], a[c][7]);
+                        ov[j] = res;
+                    }
+                }
+            }
+        }
+        // read twice, the slot is refilled only now
+        if constexpr (kShared) fetch(row + kRing * stride, slot);
+        slot = (slot + 1) % kRing;
+    }
+    cp_async_wait<0>();
+    // The block's partial row: each warp's sums in the shared layout (register
+    // sums stored over the rings, which every warp has finished with), then
+    // added in warp order.
+    __syncthreads();
+    auto warp_acc = [&](int w) -> const float4* {
+        return reinterpret_cast<const float4*>(
+            kShared ? smem + w * kWarpPieces + 2 * kRing * VPL * 32 : smem + w * 2 * VPL * 32);
+    };
+    if constexpr (!kShared) {
+        float4* mine = reinterpret_cast<float4*>(smem + warp * 2 * VPL * 32);
 #pragma unroll
         for (int i = 0; i < VPL; ++i) {
-            const int j = lane + 32 * i;
-            if (j < n_vec) {
-                float sc[8];
-                load_scale8(scale + 8 * j, sc);
-                const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&xr[i]);
-                const __nv_bfloat16* de = reinterpret_cast<const __nv_bfloat16*>(&dr[i]);
-                uint4 res;
-                __nv_bfloat16* r = reinterpret_cast<__nv_bfloat16*>(&res);
-#pragma unroll
-                for (int e = 0; e < 8; ++e) {
-                    const float f = __bfloat162float(xe[e]), g = __bfloat162float(de[e]);
-                    r[e] = __float2bfloat16_rn(inv * g * sc[e] - f * coef);
-                    acc[8 * j + e] += g * f * inv;
-                }
-                ov[j] = res;
-            }
+            mine[2 * i * 32 + lane] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+            mine[(2 * i + 1) * 32 + lane] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
         }
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < d; i += 32 * WARP_ROWS) {
-        float sum = warp_acc_all[i];
+    float* pr = partials + static_cast<long long>(blockIdx.x) * d;
+    for (int j = threadIdx.x; j < n_vec; j += blockDim.x) {
+        const int at = 2 * (j / 32) * 32 + j % 32;
+        float4 lo = warp_acc(0)[at], hi = warp_acc(0)[at + 32];
+        for (int w = 1; w < warps; ++w) {
+            const float4 l = warp_acc(w)[at], h = warp_acc(w)[at + 32];
+            lo.x += l.x; lo.y += l.y; lo.z += l.z; lo.w += l.w;
+            hi.x += h.x; hi.y += h.y; hi.z += h.z; hi.w += h.w;
+        }
+        reinterpret_cast<float4*>(pr + 8 * j)[0] = lo;
+        reinterpret_cast<float4*>(pr + 8 * j)[1] = hi;
+    }
+}
+
+// dscale[c] = sum of partials[b][c] over the blocks b, in a fixed order: a
+// block takes 32 columns, a lane each, its warp w the partial rows [w P / W,
+// (w + 1) P / W) in order, DSCALE_CHUNK of them loaded before any is added
+// (rows past the range add zeros), and warp 0 adds the warps' sums in warp
+// order.  Spread over ceil(d / 32) blocks.
+constexpr int DSCALE_WARPS = 8;
+constexpr int DSCALE_CHUNK = 16;
+
+__global__ void __launch_bounds__(32 * DSCALE_WARPS)
+rmsnorm_dscale_kernel(const float* __restrict__ partials, float* __restrict__ dscale, int blocks,
+                      int d) {
+    __shared__ float sums[DSCALE_WARPS][32];
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int c = blockIdx.x * 32 + lane;
+    const int lo = warp * blocks / DSCALE_WARPS, hi = (warp + 1) * blocks / DSCALE_WARPS;
+    float s = 0.f;
+    if (c < d) {
+        for (int b0 = lo; b0 < hi; b0 += DSCALE_CHUNK) {
+            float q[DSCALE_CHUNK];
 #pragma unroll
-        for (int w = 1; w < WARP_ROWS; ++w) sum += warp_acc_all[w * d + i];
-        partials[static_cast<long long>(blockIdx.x) * d + i] = sum;
+            for (int t = 0; t < DSCALE_CHUNK; ++t)
+                q[t] = b0 + t < hi ? partials[static_cast<long long>(b0 + t) * d + c] : 0.f;
+#pragma unroll
+            for (int t = 0; t < DSCALE_CHUNK; ++t) s += q[t];
+        }
+    }
+    sums[warp][lane] = s;
+    __syncthreads();
+    if (warp == 0 && c < d) {
+        float t = sums[0][lane];
+#pragma unroll
+        for (int w = 1; w < DSCALE_WARPS; ++w) t += sums[w][lane];
+        dscale[c] = t;
     }
 }
 
-// dscale[c] = sum over blocks, in order, of partials[block][c].
-__global__ void rmsnorm_dscale_kernel(const float* __restrict__ partials, float* __restrict__ dscale,
-                                      int blocks, int d) {
-    const int c = blockIdx.x * blockDim.x + threadIdx.x;
-    if (c >= d) return;
-    float sum = 0.f;
-    for (int b = 0; b < blocks; ++b) sum += partials[static_cast<long long>(b) * d + c];
-    dscale[c] = sum;
+// Units a thread of the block route parks (the template counts built):
+// 16-byte vectors where the row is aligned, elements where it is not.  A row
+// takes the smallest count that covers it at the forward's threads.
+constexpr int VECTOR_UNITS[] = {1, 2, 4};
+constexpr int SCALAR_UNITS[] = {1, 2, 4, 8, 16};
+constexpr int kMaxBwdWidth = 8192;   // 4 fp32 vectors or 16 elements a thread at 512 threads
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem));
 }
 
-template <typename T, typename S>
-cudaError_t launch_bwd(const void* x, const void* scale, const void* dy, void* dx,
-                       float* partials, long long rows, int d, float eps, int blocks,
-                       int threads, cudaStream_t stream) {
-    constexpr int VEC = 16 / sizeof(T);
-    // the forward's rule (launch above), with dy and dx in the place of out
-    const bool aligned = d % VEC == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                         reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
-                         reinterpret_cast<uintptr_t>(dx) % 16 == 0;
-    const int per_thread = aligned ? VEC : 1;
-    int want = (d + per_thread - 1) / per_thread;
-    want = ((want + 31) / 32) * 32;
-    if (want > kMaxThreads) want = kMaxThreads;
-    if (threads != want) return cudaErrorInvalidValue;
-    const size_t smem = static_cast<size_t>(d) * sizeof(float);
-    auto kernel = aligned ? rmsnorm_bwd_kernel<T, S, VEC> : rmsnorm_bwd_kernel<T, S, 1>;
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-        if (err != cudaSuccess) return err;
-    }
+template <typename T, typename S, int VEC, int KV>
+cudaError_t launch_bwd_units(const void* x, const void* scale, const void* dy, void* dx,
+                             float* partials, long long rows, int d, float eps, int blocks,
+                             int threads, size_t smem, cudaStream_t stream) {
+    auto kernel = rmsnorm_bwd_kernel<T, S, VEC, KV>;
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
     kernel<<<blocks, threads, smem, stream>>>(
         static_cast<const T*>(x), static_cast<const S*>(scale), static_cast<const T*>(dy),
         static_cast<T*>(dx), partials, rows, d, eps);
     return cudaGetLastError();
 }
 
+template <typename T, typename S>
+cudaError_t launch_bwd(const void* x, const void* scale, const void* dy, void* dx,
+                       float* partials, long long rows, int d, float eps, int blocks,
+                       int threads, int units, int smem_bytes, cudaStream_t stream) {
+    constexpr int VEC = 16 / sizeof(T);
+    // the forward's rule (launch above), with dy and dx in the place of out
+    const bool aligned = d % VEC == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+    const int per_thread = aligned ? VEC : 1;
+    const int n_units = (d + per_thread - 1) / per_thread;
+    int want = ((n_units + 31) / 32) * 32;
+    if (want > kMaxThreads) want = kMaxThreads;
+    const int* counts = aligned ? VECTOR_UNITS : SCALAR_UNITS;
+    const int n_counts = aligned ? 3 : 5;
+    int kv = 0;   // the smallest built count that covers the row
+    for (int i = 0; i < n_counts; ++i)
+        if (kv == 0 && counts[i] * want >= n_units) kv = counts[i];
+    const size_t smem = aligned ? static_cast<size_t>(2 * kRing) * kv * want * 16 : 0;   // the ring
+    if (threads != want || units != kv || static_cast<size_t>(smem_bytes) != smem)
+        return cudaErrorInvalidValue;
+#define RMS_BWD_UNITS(V, K) launch_bwd_units<T, S, V, K>(x, scale, dy, dx, partials, rows, d, eps, blocks, threads, smem, stream)
+    if (aligned) {
+        switch (kv) {
+            case 1: return RMS_BWD_UNITS(VEC, 1);
+            case 2: return RMS_BWD_UNITS(VEC, 2);
+            case 4:   // 4 bf16 vectors a thread would be rows past kMaxBwdWidth
+                if constexpr (VEC == 4) return RMS_BWD_UNITS(VEC, 4);
+                break;
+        }
+    } else {
+        switch (kv) {
+            case 1: return RMS_BWD_UNITS(1, 1);
+            case 2: return RMS_BWD_UNITS(1, 2);
+            case 4: return RMS_BWD_UNITS(1, 4);
+            case 8: return RMS_BWD_UNITS(1, 8);
+            case 16: return RMS_BWD_UNITS(1, 16);
+        }
+    }
+#undef RMS_BWD_UNITS
+    return cudaErrorInvalidValue;
+}
+
 template <int VPL>
 cudaError_t launch_bwd_warp(const void* x, const void* scale, const void* dy, void* dx,
                             float* partials, long long rows, int d, float eps, int blocks,
-                            cudaStream_t stream) {
-    const size_t smem = static_cast<size_t>(WARP_ROWS) * d * sizeof(float);   // <= 96 KB
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(rmsnorm_bwd_warp_kernel<VPL>,
-                                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                     static_cast<int>(smem));
-        if (err != cudaSuccess) return err;
-    }
-    rmsnorm_bwd_warp_kernel<VPL><<<blocks, 32 * WARP_ROWS, smem, stream>>>(
+                            int threads, int smem_bytes, cudaStream_t stream) {
+    const int warps = threads / 32;
+    if (threads % 32 != 0 || warps < 1 || warps > bwd_max_warps(VPL) ||
+        smem_bytes != warps * bwd_warp_smem(VPL) || blocks > (rows + warps - 1) / warps)
+        return cudaErrorInvalidValue;
+    const cudaError_t err = allow_smem(rmsnorm_bwd_warp_kernel<VPL>, smem_bytes);
+    if (err != cudaSuccess) return err;
+    rmsnorm_bwd_warp_kernel<VPL><<<blocks, threads, smem_bytes, stream>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale),
         static_cast<const __nv_bfloat16*>(dy), static_cast<__nv_bfloat16*>(dx), partials, rows, d,
         eps);
@@ -513,21 +818,20 @@ cudaError_t launch_bwd_warp(const void* x, const void* scale, const void* dy, vo
 
 cudaError_t dispatch_bwd_warp(int vpl, const void* x, const void* scale, const void* dy, void* dx,
                               float* partials, long long rows, int d, float eps, int blocks,
-                              cudaStream_t stream) {
+                              int threads, int smem_bytes, cudaStream_t stream) {
+#define RMS_BWD_WARP(V) launch_bwd_warp<V>(x, scale, dy, dx, partials, rows, d, eps, blocks, threads, smem_bytes, stream)
     switch (vpl) {
-        case 2: return launch_bwd_warp<2>(x, scale, dy, dx, partials, rows, d, eps, blocks, stream);
-        case 4: return launch_bwd_warp<4>(x, scale, dy, dx, partials, rows, d, eps, blocks, stream);
-        case 9: return launch_bwd_warp<9>(x, scale, dy, dx, partials, rows, d, eps, blocks, stream);
-        case 10: return launch_bwd_warp<10>(x, scale, dy, dx, partials, rows, d, eps, blocks, stream);
-        case 12: return launch_bwd_warp<12>(x, scale, dy, dx, partials, rows, d, eps, blocks, stream);
-        case 16: return launch_bwd_warp<16>(x, scale, dy, dx, partials, rows, d, eps, blocks, stream);
-        case 24: return launch_bwd_warp<24>(x, scale, dy, dx, partials, rows, d, eps, blocks, stream);
+        case 2: return RMS_BWD_WARP(2);
+        case 4: return RMS_BWD_WARP(4);
+        case 9: return RMS_BWD_WARP(9);
+        case 10: return RMS_BWD_WARP(10);
+        case 12: return RMS_BWD_WARP(12);
+        case 16: return RMS_BWD_WARP(16);
+        case 24: return RMS_BWD_WARP(24);
         default: return cudaErrorInvalidValue;
     }
+#undef RMS_BWD_WARP
 }
-
-constexpr int DSCALE_THREADS = 256;
-constexpr int kMaxBwdWidth = 32768;   // dscale partials of a row in shared memory: 128 KB
 
 }  // namespace
 
@@ -560,37 +864,35 @@ extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* out, int x_dt
 }
 
 // The backward.  Codes as rmsnorm_fwd; dy has x's dtype, `dscale` is fp32,
-// `partials` a (blocks, d) fp32 workspace; `blocks` blocks walk the rows
-// (four rows at a time on route 1); `threads` is the block route's block
-// size, which must be the forward's for that row (0 on route 1).  Returns a
-// cudaError_t (0 = both kernels launched).
+// `partials` a (blocks, d) fp32 workspace, one row for each of the `blocks`
+// blocks that walk the rows.  Route 1: `threads` = 32 x the warps of a block,
+// `smem_bytes` = warps x their rings (and partials, past 12 vectors a lane);
+// `units` 0.  Route 0: `threads` is the forward's block for that row, `units`
+// the parked units a thread takes, `smem_bytes` the rings.  The C side checks
+// each against its own rule.  Returns a cudaError_t (0 = both kernels launched).
 extern "C" int rmsnorm_bwd(const void* x, const void* scale, const void* dy, void* dx,
                            float* dscale, float* partials, int x_dtype, int scale_dtype,
                            long long rows, int d, float eps, int route, int vpl, int blocks,
-                           int threads, void* stream) {
+                           int threads, int units, int smem_bytes, void* stream) {
     if (rows <= 0 || d <= 0 || d > kMaxBwdWidth || blocks <= 0)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err = cudaErrorInvalidValue;
     if (route == 1) {
-        if (x_dtype != 1 || scale_dtype != 0 || threads != 0 ||
-            !warp_route_ok(x, scale, dx, d, vpl) || reinterpret_cast<uintptr_t>(dy) % 16 != 0 ||
-            blocks > (rows + WARP_ROWS - 1) / WARP_ROWS)
+        if (x_dtype != 1 || scale_dtype != 0 || units != 0 ||
+            !warp_route_ok(x, scale, dx, d, vpl) || reinterpret_cast<uintptr_t>(dy) % 16 != 0)
             return static_cast<int>(cudaErrorInvalidValue);
-        err = dispatch_bwd_warp(vpl, x, scale, dy, dx, partials, rows, d, eps, blocks, s);
+        err = dispatch_bwd_warp(vpl, x, scale, dy, dx, partials, rows, d, eps, blocks, threads,
+                                smem_bytes, s);
     } else if (route == 0 && blocks <= rows) {
-        if (x_dtype == 0 && scale_dtype == 0) {
-            err = launch_bwd<float, float>(x, scale, dy, dx, partials, rows, d, eps, blocks, threads, s);
-        } else if (x_dtype == 0 && scale_dtype == 1) {
-            err = launch_bwd<float, __nv_bfloat16>(x, scale, dy, dx, partials, rows, d, eps, blocks, threads, s);
-        } else if (x_dtype == 1 && scale_dtype == 0) {
-            err = launch_bwd<__nv_bfloat16, float>(x, scale, dy, dx, partials, rows, d, eps, blocks, threads, s);
-        } else if (x_dtype == 1 && scale_dtype == 1) {
-            err = launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, scale, dy, dx, partials, rows, d, eps, blocks, threads, s);
-        }
+#define RMS_BWD(T, S) launch_bwd<T, S>(x, scale, dy, dx, partials, rows, d, eps, blocks, threads, units, smem_bytes, s)
+        if (x_dtype == 0 && scale_dtype == 0) err = RMS_BWD(float, float);
+        else if (x_dtype == 0 && scale_dtype == 1) err = RMS_BWD(float, __nv_bfloat16);
+        else if (x_dtype == 1 && scale_dtype == 0) err = RMS_BWD(__nv_bfloat16, float);
+        else if (x_dtype == 1 && scale_dtype == 1) err = RMS_BWD(__nv_bfloat16, __nv_bfloat16);
+#undef RMS_BWD
     }
     if (err != cudaSuccess) return static_cast<int>(err);
-    rmsnorm_dscale_kernel<<<(d + DSCALE_THREADS - 1) / DSCALE_THREADS, DSCALE_THREADS, 0, s>>>(
-        partials, dscale, blocks, d);
+    rmsnorm_dscale_kernel<<<(d + 31) / 32, 32 * DSCALE_WARPS, 0, s>>>(partials, dscale, blocks, d);
     return static_cast<int>(cudaGetLastError());
 }

@@ -891,6 +891,8 @@ PLAN_RMS_BWD = [
     ((8, 64, 64), "bfloat16"),
     ((3, 37, 1000), "float32"),
     ((5, 4099), "bfloat16"),
+    ((1, 4096, 2560), "bfloat16"),  # zamba2-2.7b's width: 10 vectors a lane
+    ((256, 6144), "bfloat16"),      # 24 vectors a lane: the partials in shared memory
     ((2, 16, 64), "float32"),       # the launcher's reduced config
 ]
 
@@ -1146,16 +1148,71 @@ class TestRMSNormBwdPlan:
     def test_blocks_and_threads(self, shape, dtype):
         bwd, _ = self.plan(shape, dtype)
         rows, d = int(np.prod(shape[:-1])), shape[-1]
-        groups = -(-rows // 4) if bwd.route == "registers" else rows
-        assert 1 <= bwd.blocks == min(groups, rms_cuda.BWD_BLOCKS)
         if bwd.route == "registers":
-            assert bwd.threads == 0
+            # one block an SM of up to BWD_WARPS warps, as few as fill the card
+            warps = min(rms_cuda.bwd_max_warps(bwd.vectors_per_lane), -(-rows // rms_cuda.N_SM))
+            assert bwd.threads == 32 * warps
+            assert 1 <= bwd.blocks == min(rms_cuda.N_SM, -(-rows // warps))
+            assert bwd.units == 0 and bwd.vector_loads
         else:
+            assert 1 <= bwd.blocks == min(rows, rms_cuda.BWD_BLOCKS)
             # the forward block kernel's rule (csrc/rmsnorm.cu, launch)
             vec = 16 // getattr(torch, dtype).itemsize
             per_thread = vec if d % vec == 0 else 1
             assert bwd.threads == min(512, -(-(-(-d // per_thread)) // 32) * 32)
             assert bwd.threads % 32 == 0
+            assert bwd.vector_loads == (per_thread == vec)
+            # the fewest parked units that cover the row, of those built
+            n_units = -(-d // per_thread)
+            assert bwd.units in rms_cuda.BWD_UNITS[bwd.vector_loads]
+            assert bwd.units * bwd.threads >= n_units
+            assert all(u * bwd.threads < n_units for u in rms_cuda.BWD_UNITS[bwd.vector_loads]
+                       if u < bwd.units)
+
+    @pytest.mark.parametrize("shape,dtype", PLAN_RMS_BWD)
+    def test_the_walk_takes_every_row_once(self, shape, dtype):
+        bwd, _ = self.plan(shape, dtype)
+        rows = int(np.prod(shape[:-1]))
+        walked = [r for b in range(bwd.blocks) for r in bwd.rows_of(b, rows)]
+        assert sorted(walked) == list(range(rows))
+        assert all(bwd.rows_of(b, rows) for b in range(bwd.blocks))   # no block idles
+
+    @pytest.mark.parametrize("shape,dtype", PLAN_RMS_BWD)
+    def test_workspace_is_a_partial_row_a_block(self, shape, dtype):
+        bwd, _ = self.plan(shape, dtype)
+        assert bwd.workspace_shape(shape[-1]) == (bwd.blocks, shape[-1])
+
+    @pytest.mark.parametrize("shape,dtype", PLAN_RMS_BWD)
+    def test_shared_memory_fits(self, shape, dtype):
+        """The rings (two slots of x's and dy's 16-byte pieces) and, past
+        REGISTER_PARTIALS_VPL vectors a lane, the partials fit the opt-in
+        limit with 1 KB to spare for the static arrays."""
+        bwd, _ = self.plan(shape, dtype)
+        assert 0 <= bwd.smem_bytes <= rms_cuda.SMEM_LIMIT - 1024
+        ring = 2 * rms_cuda.BWD_RING
+        if bwd.route == "registers":
+            vpl = bwd.vectors_per_lane
+            shared = 2 * vpl if bwd.partials == "shared" else 0
+            assert bwd.smem_bytes == bwd.threads // 32 * (ring * vpl + shared) * 512
+            # the widest block the plan may take fits too
+            assert rms_cuda.bwd_max_warps(vpl) * (ring * vpl + shared) * 512 <= rms_cuda.SMEM_LIMIT - 1024
+        else:
+            assert bwd.smem_bytes == (ring * bwd.units * bwd.threads * 16 if bwd.vector_loads else 0)
+
+    @pytest.mark.parametrize("shape,dtype", PLAN_RMS_BWD)
+    def test_partials_in_registers_up_to_12_vectors(self, shape, dtype):
+        bwd, _ = self.plan(shape, dtype)
+        shared = bwd.route == "registers" and bwd.vectors_per_lane > rms_cuda.REGISTER_PARTIALS_VPL
+        assert bwd.partials == ("shared" if shared else "registers")
+
+    @pytest.mark.parametrize("vpl", [2, 4, 9, 10, 12, 16, 24])
+    def test_every_vector_count_has_a_grid(self, vpl):
+        d = 256 * vpl
+        x = torch.empty(4096, d, dtype=torch.bfloat16, device="meta")
+        bwd = rms_cuda.rmsnorm_bwd_plan(x, torch.empty(d, device="meta"), torch.empty_like(x))
+        assert bwd.vectors_per_lane == vpl and bwd.blocks == rms_cuda.N_SM
+        assert bwd.partials == ("registers" if vpl <= 12 else "shared")
+        assert bwd.smem_bytes <= rms_cuda.SMEM_LIMIT
 
 
 # --------------------------------------------------- autograd through ops
