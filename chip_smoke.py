@@ -9,19 +9,19 @@ raises and the script exits non-zero:
 1. ``env``     -- the card (name, power limit), torch/CUDA versions, TF32 setting.
 2. ``build``   -- compiles ``src/repro_torch/kernels/csrc/*.cu`` with nvcc
    (one process per source, all at once).
-3. ``kernels`` -- calls each kernel's wrapper at the shapes the three model
-   paths give it (glm4-9b's serving, zamba2-2.7b's prefill, minicpm-2b's
-   training step; plus ragged, unaligned and small cases), holds the result
-   against the plain PyTorch version on the same inputs, and times kernel,
-   plain version and the one PyTorch library call that computes the same
-   function (a yardstick; the port never calls it; none exists for the SSD
-   scan; for a backward, its autograd backward with the forward outside the
-   timed region) with CUDA events after warm-up; checks the route each launch
-   plan took (flash, RMSNorm, and the SSD scan's route, sequence segments and
-   heads per block), that the flash forward's out is bit-identical with and
-   without its log-sum-exp, and that two calls of either backward on the
-   same inputs agree bit for bit; the RMSNorm backward's two kernels (row
-   pass, dscale pass) are also timed apart with torch.profiler.
+3. ``kernels`` -- calls each kernel's wrapper at the shapes the four model
+   paths give it (glm4-9b's serving, zamba2-2.7b's prefill, minicpm-2b's and
+   zamba2-2.7b's training steps; plus ragged, unaligned and small cases), holds
+   the result against the plain PyTorch version on the same inputs, and times
+   kernel, plain version and the one PyTorch library call that computes the
+   same function (a yardstick; the port never calls it; none exists for the
+   SSD scan or its backward; for a backward, its autograd backward with the
+   forward outside the timed region) with CUDA events after warm-up; checks
+   the route each launch plan took (flash, RMSNorm, and the SSD scan's route,
+   sequence segments and heads per block), that the flash forward's out is
+   bit-identical with and without its log-sum-exp, and that two calls of any
+   backward on the same inputs agree bit for bit; the RMSNorm backward's two
+   kernels (row pass, dscale pass) are also timed apart with torch.profiler.
 4. ``parity``  -- glm4-9b at full width, 4 layers: one padded prefill and a few
    decode steps, logits through the kernels against logits through the plain
    versions, in fp32 and in bf16.
@@ -48,17 +48,25 @@ raises and the script exits non-zero:
 10. ``trainer`` -- the reduced config on the card through
    ``repro_torch.launch.train.main``, and a ``Trainer`` restarted by a
    ``FaultInjector`` against an uninterrupted one (final checkpoints
-   bit-identical).
+   bit-identical); then reduced zamba2-2.7b through the launcher, once with a
+   step failing and restored, once uninterrupted (bit-identical).
+11. ``zamba_train_parity`` -- ``train_parity`` for zamba2-2.7b at full width,
+   12 layers (two units), fp32 masters, fp32 and bf16 compute.
+12. ``zamba_train`` -- zamba2-2.7b at full width and depth (54 Mamba2 layers,
+   the shared block applied 9 times), bf16 compute on fp32 masters, remat of
+   each Mamba2 layer: 8 steps of ``make_train_step`` under its cosine schedule,
+   with ``train``'s checks and reports.
 
-With ``--profile`` four further phases, after ``serve``, ``zamba``,
-``train_parity`` and ``train``, trace a decode step and a prefill of each
-served model, one fp32-compute ``loss_and_grads`` of ``train_parity``'s model
-(the launcher's dtype) and one full-depth train step with ``torch.profiler``
-(device-busy time against the host's wall clock, and the flash kernels' share).
+With ``--profile`` five further phases, after ``serve``, ``zamba``,
+``train_parity``, ``train`` and ``zamba_train``, trace a decode step and a
+prefill of each served model, one fp32-compute ``loss_and_grads`` of
+``train_parity``'s model (the launcher's dtype) and one full-depth train step
+of each trained model with ``torch.profiler`` (device-busy time against the
+host's wall clock, and the flash and SSD kernels' shares).
 
-Then the ``kernels`` summary line (the three forwards and the two backwards:
-launches over the serve, zamba and train paths, error, times and roofline
-bound per kernel), the card as ``nvidia-smi`` names it,
+Then the ``kernels`` summary line (the three forwards and the three
+backwards: launches over the serve, zamba, train and zamba_train paths,
+error, times and roofline bound per kernel), the card as ``nvidia-smi`` names it,
 and the verdict as the last line.  There is no CPU path: without a CUDA device the
 script exits non-zero before printing anything.
 """
@@ -671,10 +679,109 @@ def ssd_case(b: int, H: int, s: int, P: int, N: int, chunk: int, dtype: torch.dt
     return case
 
 
+# The SSD backward's rule per output, against the plain backward: max abs
+# error within TOL of the plain output's largest element (fp32 1e-4, bf16
+# 2e-2): dloga is a reverse prefix sum over a chunk of differences that cancel,
+# so an element's own size is no scale for its error.
+def compare_to_max(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    tol = TOL[want.dtype]
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    if got.shape != want.shape or got.dtype != want.dtype or not math.isfinite(err) \
+            or not err <= tol * scale:
+        raise AssertionError(f"{what}: kernel disagrees with its plain version, max abs err "
+                             f"{err} > {tol} x max |plain| {scale}")
+    return err
+
+
+def ssd_bwd_case(b: int, H: int, s: int, P: int, N: int, chunk: int, dtype: torch.dtype,
+                 gen: torch.Generator, iters: int, shared: bool,
+                 dy_dtype: torch.dtype = torch.float32, ds_final: bool = False) -> dict:
+    """The SSD backward kernel against the plain backward
+    (``ref.ssd_chunk_scan_bwd_ref``) on the same inputs.  ``shared``: the
+    model's layout -- x and dy held as (b, s, H, P) and passed as transposed
+    views, B/C as (b, s, N) shared by the heads (their gradients summed over
+    the heads), dt/loga as (b, s, H); else every tensor (b, H, s, .)
+    contiguous, B/C per head.  ``ds_final``: a gradient of S_final too (the
+    model drops S_final)."""
+    dev = gen.device
+
+    def rand(*shape, scale=1.0, to=dtype):
+        return (torch.randn(shape, device=dev, dtype=torch.float32, generator=gen) * scale).to(to)
+
+    if shared:
+        x, dy = rand(b, s, H, P).transpose(1, 2), rand(b, s, H, P, to=dy_dtype).transpose(1, 2)
+        B, C = rand(b, s, N, scale=0.5), rand(b, s, N, scale=0.5)
+        dt = F.softplus(rand(b, s, H, to=torch.float32)).transpose(1, 2)
+        loga = -F.softplus(rand(b, s, H, to=torch.float32)).transpose(1, 2)
+    else:
+        x, dy = rand(b, H, s, P), rand(b, H, s, P, to=dy_dtype)
+        B, C = rand(b, H, s, N, scale=0.5), rand(b, H, s, N, scale=0.5)
+        dt = F.softplus(rand(b, H, s, to=torch.float32))
+        loga = -F.softplus(rand(b, H, s, to=torch.float32))
+    dS = rand(b, H, P, N, to=torch.float32) if ds_final else None
+    args = (x, B, C, dt, loga, dy, dS)
+    got = _ssd.ssd_chunk_scan_bwd_cuda(*args, chunk)
+    again = _ssd.ssd_chunk_scan_bwd_cuda(*args, chunk)
+    torch.cuda.synchronize()
+    want = ref.ssd_chunk_scan_bwd_ref(*args, chunk)
+    what = f"ssd_chunk_scan_bwd x{tuple(x.shape)} B{tuple(B.shape)} chunk {chunk} {dtype}"
+    names = ("dx", "dB", "dC", "ddt", "dloga")
+    errs = {n: compare_to_max(g, w, f"{what} {n}") for n, g, w in zip(names, got, want)}
+    # no atomics and a fixed order for every sum: two calls agree bit for bit
+    for n, g1, g2 in zip(names, got, again):
+        if not torch.equal(g1, g2):
+            raise AssertionError(f"{what} {n}: two calls on the same inputs differ")
+    cs = min(chunk, s)
+    plan = _ssd.ssd_bwd_plan(x, B, cs)
+    case = {
+        "kernel": "ssd_chunk_scan_bwd", "shape": [b, H, s, P, N], "chunk": cs,
+        "route": plan.route, "heads_per_group": plan.heads_per_group, "groups": plan.groups,
+        "chunk_kernel_blocks": plan.groups * (s // cs) * b,
+        "layout": "model: x/dy (b,s,H,P), B/C (b,s,N) shared" if shared
+        else "(b,H,s,.) contiguous, B/C per head",
+        "dtype": str(dtype).removeprefix("torch."), "dy_dtype": str(dy_dtype).removeprefix("torch."),
+        "dS_final": ds_final, "bit_identical_twice": True, "max_abs_err_each": errs,
+        "max_abs_plain_each": {n: w.float().abs().max().item() for n, w in zip(names, want)},
+        "rule": "max abs err <= tol x max |plain| per output", "tol": TOL[dtype],
+        "tol_fp32_outputs": TOL[torch.float32],
+        # the worst output's error as a share of its allowance
+        "worst_share_of_tol": max(errs[n] / (TOL[w.dtype] * w.float().abs().max().item())
+                                  for n, w in zip(names, want)),
+    }
+    case["max_abs_err"] = max(errs.values())
+    del got, again, want
+    timings(
+        case,
+        kernel=(lambda *a: _ssd.ssd_chunk_scan_bwd_cuda(*a, chunk), [args], iters),
+        plain=(lambda *a: ref.ssd_chunk_scan_bwd_ref(*a, chunk), [args], max(1, iters // 4)),
+        library=None,   # no PyTorch call computes the SSD backward
+    )
+    # operations, fp32: per (b, h, chunk) the two P-wide chunk x chunk products
+    # (dy x^T, gcb^T dy) over their causal half and five chunk x P x N products
+    # (the states S_in and dS, dS B^T, dy S_in, x dS); the three N-wide chunk x
+    # chunk products (C B^T, dcb B, dcb^T C) per (b, h, chunk) where B/C are per
+    # head, once per (b, chunk) where they are shared (gcb_h = gate_h * C B^T and
+    # sum_h dcb_h^T C = (sum_h dcb_h)^T C)
+    heads_bc = 1 if shared else H
+    pairs = cs * (cs + 1) // 2
+    flops = 2 * b * (s // cs) * (H * (pairs * 2 * P + 5 * cs * P * N) + heads_bc * pairs * 3 * N)
+    nbytes = (2 * x.numel() * dtype.itemsize + dy.numel() * dy_dtype.itemsize
+              + 4 * b * heads_bc * s * N * dtype.itemsize + 4 * b * H * s * 4
+              + (dS.numel() * 4 if ds_final else 0))
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    case["bound_ms"] = max(by_bytes, by_ops)
+    case["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    case["kernel_tflops"] = flops / case["kernel_ms"] / 1e9
+    return case
+
+
 def kernels_phase(cfg, zcfg, mcfg, dev: torch.device) -> dict[str, dict]:
     """Every kernel case; returns the case of each kernel at its main paths'
     heaviest shape (zamba2-2.7b's 32k prefill for the three forwards,
-    minicpm-2b's training step for the two backwards)."""
+    minicpm-2b's training step for the RMSNorm and flash backwards, zamba2's
+    for the SSD backward)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     hd = cfg.resolved_head_dim
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -760,9 +867,30 @@ def kernels_phase(cfg, zcfg, mcfg, dev: torch.device) -> dict[str, dict]:
         rmsnorm_bwd_case((1, 4096, zcfg.d_model), bf16, gen, 50),   # zamba2-2.7b's width, 10 vectors
         rmsnorm_bwd_case((256, 6144), bf16, gen, 50),     # 24 vectors a lane: partials shared
     ]
-    emit({"phase": "kernels", "cases": cases + zamba_cases + train_cases})
+    # zamba2-2.7b's training step: 4 x 1024 tokens; the SSD backward (model
+    # layout, B/C shared by the heads, fp32 dy as mamba2_fwd's fp32 y gives it),
+    # the shared block's flash forward with lse and backward at hd 80, its norms
+    ssd_bwd_main = ssd_bwd_case(4, H, 1024, P, N, 128, bf16, gen, 5, True)
+    zamba_train_cases = [
+        ssd_bwd_main,
+        ssd_bwd_case(4, H, 1024, P, N, 128, fp32, gen, 3, True),           # the launcher's fp32
+        ssd_bwd_case(2, H, 1024, P, N, 128, bf16, gen, 3, False, ds_final=True),   # per head
+        ssd_bwd_case(1, H, 384, P, N, 128, bf16, gen, 10, True, ds_final=True),    # 300 tokens, padded
+        ssd_bwd_case(1, 8, 384, P, N, 128, fp32, gen, 10, True, ds_final=True),
+        # the reference's shapes, B/C per head, dy in x's dtype
+        *(ssd_bwd_case(b, h, s, p, n, c, dt, gen, 10, False, dt, ds_final=True)
+          for dt in (fp32, bf16)
+          for b, h, s, p, n, c in ((2, 2, 64, 16, 8, 16), (1, 4, 128, 32, 16, 32),
+                                   (2, 1, 32, 8, 8, 32))),
+        flash_case(4, zh, zh, 1024, 1024, zhd, bf16, gen, 10, True, with_lse=True),
+        flash_bwd_case(4, zh, zh, 1024, 1024, zhd, bf16, gen, 10, True),
+        rmsnorm_case((4, 1024, zcfg.d_model), bf16, gen, 50),
+        rmsnorm_bwd_case((4, 1024, zcfg.d_model), bf16, gen, 50),
+    ]
+    emit({"phase": "kernels", "cases": cases + zamba_cases + train_cases + zamba_train_cases})
     return {"rmsnorm": rmsnorm_main, "flash_attention": flash_main, "ssd_chunk_scan": ssd_main,
-            "rmsnorm_bwd": rmsnorm_bwd_main, "flash_attention_bwd": flash_bwd_main}
+            "rmsnorm_bwd": rmsnorm_bwd_main, "flash_attention_bwd": flash_bwd_main,
+            "ssd_chunk_scan_bwd": ssd_bwd_main}
 
 
 # ------------------------------------------------------------------- parity
@@ -774,6 +902,15 @@ def plain_kernels(keep: str | None = None):
     """Route the model's kernel calls, all but ``keep``'s, to the plain
     versions (comparison only)."""
     return mock.patch.multiple(ops, **{name: fn for name, fn in PLAIN.items() if name != keep})
+
+
+def leaf_paths(tree, path: str = "") -> list[str]:
+    """The paths of ``tree_leaves(tree)``, in its order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in leaf_paths(v, f"{path}/{k}")]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree) for p in leaf_paths(v, f"{path}/{i}")]
+    return [path]
 
 
 # leaves held in fp32 whatever the weights' dtype
@@ -884,7 +1021,7 @@ def serve_phase(cfg, dev: torch.device, n_layers: int):
     expected = {
         "rmsnorm": norms_per_forward * (stats.prefills + stats.decode_steps + 1 + n_buckets),
         "flash_attention": cfg.n_layers * (stats.prefills + n_buckets),
-        "ssd_chunk_scan": 0, "rmsnorm_bwd": 0, "flash_attention_bwd": 0,
+        "ssd_chunk_scan": 0, "rmsnorm_bwd": 0, "flash_attention_bwd": 0, "ssd_chunk_scan_bwd": 0,
     }
     if counts != expected or stats.prefills != len(requests):
         raise AssertionError(f"launch counts {counts}, expected {expected}")
@@ -913,7 +1050,7 @@ def zamba_launches(cfg, forwards: int, decode_steps: int) -> dict[str, int]:
     units = cfg.n_layers // cfg.attn_every
     return {"rmsnorm": (cfg.n_layers + 2 * units + 1) * (forwards + decode_steps),
             "flash_attention": units * forwards, "ssd_chunk_scan": cfg.n_layers * forwards,
-            "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
+            "rmsnorm_bwd": 0, "flash_attention_bwd": 0, "ssd_chunk_scan_bwd": 0}
 
 
 def zamba_parity_phase(cfg, dev: torch.device, n_layers: int = 12, seq: int = 300,
@@ -1079,13 +1216,30 @@ def train_launches(cfg, remat: bool) -> dict[str, int]:
     layers = cfg.n_layers
     return {"rmsnorm": (2 * layers + 1) + (2 * layers if remat else 0),
             "flash_attention": layers * (2 if remat else 1), "ssd_chunk_scan": 0,
-            "rmsnorm_bwd": 2 * layers + 1, "flash_attention_bwd": layers}
+            "rmsnorm_bwd": 2 * layers + 1, "flash_attention_bwd": layers, "ssd_chunk_scan_bwd": 0}
 
 
-def train_parity_phase(cfg, dev: torch.device, n_layers: int = 4) -> None:
-    """minicpm-2b at full width and ``n_layers`` layers, fp32 masters: the
-    loss and every parameter's gradient on one batch, through the kernels
-    against autograd through the plain versions, in fp32 and in bf16 compute.
+def zamba_train_launches(cfg, remat: bool) -> dict[str, int]:
+    """Launches of one zamba2 train step: per forward RMSNorm once a Mamba2
+    layer, twice per application of the shared block and once at the end, an
+    SSD scan per Mamba2 layer and a flash attention per application; remat
+    runs each Mamba2 layer's forward again in the backward (the shared block is
+    not checkpointed, as in the reference); each backward once per forward
+    call it differentiates."""
+    layers, units = cfg.n_layers, cfg.n_layers // cfg.attn_every
+    return {"rmsnorm": layers + 2 * units + 1 + (layers if remat else 0),
+            "flash_attention": units, "ssd_chunk_scan": layers * (2 if remat else 1),
+            "rmsnorm_bwd": layers + 2 * units + 1, "flash_attention_bwd": units,
+            "ssd_chunk_scan_bwd": layers}
+
+
+def train_parity_phase(cfg, dev: torch.device, n_layers: int = 4, phase: str = "train_parity",
+                       launches=train_launches) -> None:
+    """``cfg`` (minicpm-2b; zamba2-2.7b for ``zamba_train_parity``) at full
+    width and ``n_layers`` layers, fp32 masters: the loss and every
+    parameter's gradient on one batch, through the kernels (``launches``: the
+    exact launches expected) against autograd through the plain versions, in
+    fp32 and in bf16 compute.
     Rule, per leaf: ||g_kernels - g_plain|| <= rel ||g_plain|| (Frobenius),
     rel = 1e-4 in fp32 (sums in another order) and 5e-2 in bf16 (about 13
     units of bf16 rounding, 2^-8, for a gradient that passes a few dozen
@@ -1093,7 +1247,7 @@ def train_parity_phase(cfg, dev: torch.device, n_layers: int = 4) -> None:
     one, relative."""
     cfg = dataclasses.replace(cfg, n_layers=n_layers)
     batch = batch_to_device(SyntheticDataset(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0).batch(0), dev)
-    report = {"phase": "train_parity", "n_layers": n_layers,
+    report = {"phase": phase, "model": cfg.name, "n_layers": n_layers,
               "tokens": TRAIN_BATCH * TRAIN_SEQ, "rule": {"float32": 1e-4, "bfloat16": 5e-2}}
     master = None
     for name, rel, loss_rel in (("float32", 1e-4, 1e-5), ("bfloat16", 5e-2, 1e-2)):
@@ -1109,32 +1263,36 @@ def train_parity_phase(cfg, dev: torch.device, n_layers: int = 4) -> None:
             loss_p, _, grads = loss_and_grads(model, master, batch)
         torch.cuda.synchronize()
         want = tree_leaves(grads)
-        if counts != train_launches(cfg, remat=False) or ops.launch_counts() != counts:
-            raise AssertionError(f"train_parity {name}: the kernel run launched {counts}, expected "
-                                 f"{train_launches(cfg, remat=False)}; the plain run must launch "
+        if counts != launches(cfg, remat=False) or ops.launch_counts() != counts:
+            raise AssertionError(f"{phase} {name}: the kernel run launched {counts}, expected "
+                                 f"{launches(cfg, remat=False)}; the plain run must launch "
                                  f"none ({ops.launch_counts()})")
         rels = [((a - b).norm() / b.norm().clamp(min=1e-30)).item() for a, b in zip(got, want)]
         loss_diff = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        worst = max(range(len(rels)), key=lambda i: (not math.isfinite(rels[i]), rels[i]))
         report[name] = {"loss_kernels": loss_k.item(), "loss_plain": loss_p.item(),
                         "loss_rel_diff": loss_diff, "loss_rule": loss_rel,
-                        "leaves": len(rels), "worst_leaf_rel_diff": max(rels),
+                        "leaves": len(rels), "worst_leaf_rel_diff": rels[worst],
+                        "worst_leaf": leaf_paths(master)[worst],
                         "median_leaf_rel_diff": sorted(rels)[len(rels) // 2],
                         "max_abs_grad_diff": max((a - b).abs().max().item() for a, b in zip(got, want))}
-        finite = all(bool(torch.isfinite(g).all()) for g in got)
-        if not finite or max(rels) > rel or loss_diff > loss_rel:
-            raise AssertionError(f"train_parity {name}: {report[name]} (finite={finite})")
+        # every gradient finite on both sides: a NaN compares false with any rule
+        finite = all(bool(torch.isfinite(g).all()) for g in got + list(want))
+        report[name]["launches"] = counts
+        if not (finite and all(r <= rel for r in rels) and loss_diff <= loss_rel):
+            raise AssertionError(f"{phase} {name}: {report[name]} (finite={finite})")
         del got, want, grads
     emit(report)
 
 
-def train_phase(cfg, dev: torch.device, steps: int = TRAIN_STEPS):
-    """minicpm-2b at full width and depth with the reference's defaults: bf16
-    compute, fp32 masters and AdamW state, remat; ``SyntheticDataset(seed 0)``
-    batches of 4 x 1024 tokens through ``make_train_step`` under a WSD
-    schedule.  Checks finite, falling loss, every gradient present and
-    finite, and the exact launches of every step.  Returns the launches of all
-    steps, the model, parameters, optimizer state and step function."""
-    model = build_model(cfg, ModelOptions("float32", "bfloat16", remat=True), dev)
+def run_train_steps(model, dev: torch.device, steps: int, expected: dict) -> dict:
+    """``steps`` steps of ``make_train_step`` for ``model`` (fp32 masters and
+    AdamW state): ``SyntheticDataset(seed 0)`` batches of TRAIN_BATCH x
+    TRAIN_SEQ tokens under the config's schedule (peak TRAIN_LR, 2 warm-up
+    steps).  Checks finite, falling loss (the first within 0.5 of ln(vocab)),
+    every gradient present and finite, and ``expected``, the exact launches of
+    every step."""
+    cfg = model.cfg
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     opt_state = init_opt_state(params)
@@ -1142,7 +1300,6 @@ def train_phase(cfg, dev: torch.device, steps: int = TRAIN_STEPS):
     init_s = time.perf_counter() - t0
     data = SyntheticDataset(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
     step_fn = make_train_step(model, AdamWConfig(lr=get_schedule(cfg.lr_schedule, TRAIN_LR, 2, steps)))
-    expected = train_launches(cfg, remat=True)
     torch.cuda.reset_peak_memory_stats()
     history, totals = [], dict.fromkeys(expected, 0)
     prefetch = Prefetcher(data)
@@ -1158,7 +1315,8 @@ def train_phase(cfg, dev: torch.device, steps: int = TRAIN_STEPS):
                             "ms": (time.perf_counter() - t0) * 1e3})
             counts = ops.launch_counts()
             if counts != expected:
-                raise AssertionError(f"train step {step + 1}: launches {counts}, expected {expected}")
+                raise AssertionError(f"{cfg.name} train step {step + 1}: launches {counts}, "
+                                     f"expected {expected}")
             totals = {k: totals[k] + counts[k] for k in totals}
     finally:
         prefetch.close()
@@ -1170,9 +1328,23 @@ def train_phase(cfg, dev: torch.device, steps: int = TRAIN_STEPS):
     first_ok = abs(losses[0] - math.log(cfg.vocab)) < 0.5
     if not (grads_ok and first_ok and all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
                                           for h in history) and losses[-1] < losses[0]):
-        raise AssertionError(f"train: grads present and finite {grads_ok}, first loss "
+        raise AssertionError(f"{cfg.name} train: grads present and finite {grads_ok}, first loss "
                              f"{losses[0]} against ln(vocab) {math.log(cfg.vocab)}, history {history}")
     step_ms = sorted(h["ms"] for h in history[1:])[(steps - 1) // 2]
+    return {"init_s": init_s, "history": history, "step_ms": step_ms, "peak_gb": peak_gb,
+            "grads_ok": grads_ok, "totals": totals, "n_params": sum(t.numel() for t in leaves),
+            "state": (model, params, opt_state, step_fn, data)}
+
+
+def train_phase(cfg, dev: torch.device, steps: int = TRAIN_STEPS):
+    """minicpm-2b at full width and depth with the reference's defaults: bf16
+    compute, fp32 masters and AdamW state, remat; ``run_train_steps`` under
+    its WSD schedule.  Returns the launches of all steps, the model,
+    parameters, optimizer state, step function and dataset."""
+    model = build_model(cfg, ModelOptions("float32", "bfloat16", remat=True), dev)
+    expected = train_launches(cfg, remat=True)
+    run = run_train_steps(model, dev, steps, expected)
+    step_ms = run["step_ms"]
     tokens = TRAIN_BATCH * TRAIN_SEQ
     n = cfg.param_count()
     hd = cfg.resolved_head_dim
@@ -1183,17 +1355,62 @@ def train_phase(cfg, dev: torch.device, steps: int = TRAIN_STEPS):
         "phase": "train", "model": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "params": n, "param_dtype": "float32", "compute_dtype": "bfloat16", "remat": True,
         "schedule": {"name": cfg.lr_schedule, "peak_lr": TRAIN_LR, "warmup_steps": 2},
-        "batch": [TRAIN_BATCH, TRAIN_SEQ], "steps": steps, "init_s": init_s, "history": history,
+        "batch": [TRAIN_BATCH, TRAIN_SEQ], "steps": steps, "init_s": run["init_s"],
+        "history": run["history"],
         "median_step_ms_after_first": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
         "model_tflops": model_flops / step_ms / 1e9,
         "model_tflops_with_remat": (model_flops + remat_flops) / step_ms / 1e9,
-        "peak_device_memory_gb": peak_gb, "launches_per_step": expected,
+        "peak_device_memory_gb": run["peak_gb"], "launches_per_step": expected,
         "launches_per_step_note": "forward kernels count the remat recompute: rmsnorm "
                                   "(2L + 1) + 2L, flash_attention 2L; backward kernels "
                                   "rmsnorm_bwd 2L + 1, flash_attention_bwd L",
-        "grads_present_and_finite": grads_ok,
+        "grads_present_and_finite": run["grads_ok"],
     })
-    return totals, model, params, opt_state, step_fn, data
+    return run["totals"], *run["state"]
+
+
+def zamba_train_phase(cfg, dev: torch.device, steps: int = TRAIN_STEPS):
+    """zamba2-2.7b at full width and depth (54 Mamba2 layers, the shared block
+    applied 9 times): bf16 compute, fp32 masters and AdamW state, remat of each
+    Mamba2 layer; ``run_train_steps`` under its cosine schedule.  Returns the
+    launches of all steps, the model, parameters, optimizer state, step
+    function and dataset."""
+    model = build_model(cfg, ModelOptions("float32", "bfloat16", remat=True), dev)
+    expected = zamba_train_launches(cfg, remat=True)
+    run = run_train_steps(model, dev, steps, expected)
+    step_ms = run["step_ms"]
+    params = run["state"][1]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    units = cfg.n_layers // cfg.attn_every
+    n = run["n_params"]
+    shared = sum(t.numel() for t in tree_leaves(params["shared"]))
+    applied = n + (units - 1) * shared                     # the shared block's weights, per use
+    hd = cfg.resolved_head_dim
+    attn_fwd = 4 * TRAIN_BATCH * cfg.n_heads * (TRAIN_SEQ * (TRAIN_SEQ + 1) // 2) * hd * units
+    mamba = n - shared - 2 * cfg.padded_vocab * cfg.d_model
+    model_flops = 6 * applied * tokens + 3 * attn_fwd      # forward + backward (2x)
+    remat_flops = 2 * mamba * tokens                       # the Mamba2 layers' forward again
+    emit({
+        "phase": "zamba_train", "model": cfg.name, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "params": n, "params_config": cfg.param_count(),
+        "param_dtype": "float32", "compute_dtype": "bfloat16", "remat": "each Mamba2 layer",
+        "schedule": {"name": cfg.lr_schedule, "peak_lr": TRAIN_LR, "warmup_steps": 2},
+        "batch": [TRAIN_BATCH, TRAIN_SEQ], "steps": steps, "init_s": run["init_s"],
+        "history": run["history"],
+        "median_step_ms_after_first": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+        "model_tflops": model_flops / step_ms / 1e9,
+        "model_tflops_with_remat": (model_flops + remat_flops) / step_ms / 1e9,
+        "model_flops_note": "6 x (parameters, the shared block's once per application) x "
+                            "tokens + 3 x the causal attention's forward; the SSD scan's own "
+                            "products are not counted",
+        "peak_device_memory_gb": run["peak_gb"], "launches_per_step": expected,
+        "launches_per_step_note": "forward kernels count the remat recompute: rmsnorm "
+                                  "(L + 2U + 1) + L, ssd_chunk_scan 2L, flash_attention U; "
+                                  "backward kernels rmsnorm_bwd L + 2U + 1, ssd_chunk_scan_bwd L, "
+                                  "flash_attention_bwd U (L Mamba2 layers, U applications)",
+        "grads_present_and_finite": run["grads_ok"],
+    })
+    return run["totals"], *run["state"]
 
 
 def trainer_phase(cfg, dev: torch.device) -> None:
@@ -1230,9 +1447,45 @@ def trainer_phase(cfg, dev: torch.device) -> None:
         if not same:
             raise AssertionError("trainer: the restarted run's final checkpoint differs from the "
                                  "uninterrupted run's")
+        zamba = zamba_launcher_restart(tmp)
     emit({"phase": "trainer", "launcher_rc": rc, "launcher_s": launch_s,
           "config": f"{small.name} reduced", "restart_bit_identical": same,
-          "leaves_compared": len(a)})
+          "leaves_compared": len(a), "zamba2_launcher_restart": zamba})
+
+
+def zamba_launcher_restart(tmp: str, steps: int = 12, fail_at: int = 8) -> dict:
+    """Reduced zamba2-2.7b on the card through ``launch.train.main`` twice:
+    once with a ``FaultInjector`` that fails step ``fail_at`` once (the
+    ``Trainer`` restores the last checkpoint, its template built under fake
+    tensors by ``ZambaLM.init``), once uninterrupted; both return 0 and their
+    final checkpoints agree bit for bit."""
+    import repro_torch.train as train_pkg
+
+    finals, rcs, restarts = [], [], []
+    for name, faults in (("zamba_restarted", [fail_at]), ("zamba_uninterrupted", [])):
+        trainers = []
+
+        def make(*args, **kwargs):
+            trainers.append(Trainer(*args, fault_injector=FaultInjector(faults), **kwargs))
+            return trainers[-1]
+
+        path = os.path.join(tmp, name)
+        with mock.patch.object(train_pkg, "Trainer", make):
+            rcs.append(launch_train.main(["--arch", "zamba2-2.7b", "--device", "cuda",
+                                          "--ckpt-dir", path, "--steps", str(steps),
+                                          "--log-every", "4", "--ckpt-every", str(steps // 2)]))
+        restarts.append(sum(h.get("event") == "restart" for h in trainers[0].history))
+        with open(os.path.join(path, f"step_{steps}", "manifest.json")) as f:
+            manifest = json.load(f)["leaves"]
+        finals.append({k: np.load(os.path.join(path, f"step_{steps}", v["file"]))
+                       for k, v in manifest.items()})
+    a, b = finals
+    same = a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+    if rcs != [0, 0] or restarts != [1, 0] or not same:
+        raise AssertionError(f"zamba2 launcher restart: rc {rcs}, restarts {restarts}, final "
+                             f"checkpoints bit-identical {same}")
+    return {"launcher_rcs": rcs, "restarts": restarts, "steps": steps, "failed_at": fail_at,
+            "restart_bit_identical": same, "leaves_compared": len(a)}
 
 
 # ------------------------------------------------------------------ profile
@@ -1263,10 +1516,12 @@ def _profiled(fn, repeats: int) -> dict:
         raise AssertionError("the profiler recorded no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     flash_ms = sum(ms for name, (ms, _) in by_name.items() if "flash_" in name)
+    ssd_ms = sum(ms for name, (ms, _) in by_name.items() if "ssd_" in name)
     return {
         "wall_ms": wall_ms / repeats, "device_busy_ms": busy_ms / repeats,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "flash_kernels_ms": flash_ms / repeats, "flash_kernels_share": flash_ms / busy_ms,
+        "ssd_kernels_ms": ssd_ms / repeats, "ssd_kernels_share": ssd_ms / busy_ms,
         "device_ops": sum(n for _, n in by_name.values()) / repeats,
         "top_kernels": [{"name": name[:80], "ms": ms / repeats, "calls": n / repeats}
                         for name, (ms, n) in top],
@@ -1302,7 +1557,8 @@ def profile_phase(model, params, dev: torch.device) -> None:
           "prefill_1024": _profiled(prefill, 2)})
 
 
-def profile_train_phase(model, params, opt_state, step_fn, data) -> None:
+def profile_train_phase(model, params, opt_state, step_fn, data,
+                        phase: str = "profile_train") -> None:
     """Where one full-depth train step spends its time (one warm-up step,
     then one traced)."""
     batch = data.batch(TRAIN_STEPS)
@@ -1312,7 +1568,7 @@ def profile_train_phase(model, params, opt_state, step_fn, data) -> None:
         state[0], state[1], metrics = step_fn(state[0], state[1], batch)
         return metrics["loss"].item()
 
-    emit({"phase": "profile_train", "n_layers": model.cfg.n_layers,
+    emit({"phase": phase, "model": model.cfg.name, "n_layers": model.cfg.n_layers,
           "tokens": TRAIN_BATCH * TRAIN_SEQ, "train_step": _profiled(step, 1)})
 
 
@@ -1415,21 +1671,33 @@ def main() -> None:
     del train_state
     torch.cuda.empty_cache()
     trainer_phase(mcfg, dev)
+    torch.cuda.empty_cache()
+    train_parity_phase(zcfg, dev, 12, "zamba_train_parity", zamba_train_launches)
+    torch.cuda.empty_cache()
+    zamba_train_counts, *train_state = zamba_train_phase(zcfg, dev)
+    if args.profile:
+        profile_train_phase(*train_state, phase="profile_zamba_train")
+    del train_state
+    torch.cuda.empty_cache()
     # every kernel ran on a main path: the three forwards on zamba2's, rmsnorm
-    # and flash attention on glm4's and minicpm-2b's training, the backwards on the latter
+    # and flash attention on glm4's and minicpm-2b's training, their backwards on
+    # the latter, every forward and backward on zamba2's training
     if min(zamba_counts[k] for k in ("rmsnorm", "flash_attention", "ssd_chunk_scan")) <= 0 or \
             min(serve_counts["rmsnorm"], serve_counts["flash_attention"]) <= 0 or \
             min(train_counts[k] for k in ("rmsnorm", "flash_attention", "rmsnorm_bwd",
-                                          "flash_attention_bwd")) <= 0:
+                                          "flash_attention_bwd")) <= 0 or \
+            min(zamba_train_counts.values()) <= 0:
         raise AssertionError(f"a main path never launched a kernel: serve {serve_counts}, "
-                             f"zamba {zamba_counts}, train {train_counts}")
+                             f"zamba {zamba_counts}, train {train_counts}, "
+                             f"zamba_train {zamba_train_counts}")
 
     def summary(name: str, source: str, replaces: str) -> dict:
         case = cases[name]
         return {
             "name": name, "route": "cuda", "plan_route": case.get("route", "cuda_cores"),
             "source": source, "replaces": replaces,
-            "launches": serve_counts[name] + zamba_counts[name] + train_counts[name],
+            "launches": serve_counts[name] + zamba_counts[name] + train_counts[name]
+            + zamba_train_counts[name],
             "max_abs_err": case["max_abs_err"],
             "ms": case["kernel_ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
@@ -1445,12 +1713,15 @@ def main() -> None:
                 "src/repro/kernels/flash_attention.py:69"),
         summary("ssd_chunk_scan", "src/repro_torch/kernels/csrc/ssd_chunk.cu",
                 "src/repro/kernels/ssd_chunk.py:61"),
-        # the backwards of the first two: the TPU kernels are forward-only and
-        # the reference differentiates its plain jnp versions
+        # the backwards: the TPU kernels are forward-only and the reference
+        # differentiates its plain jnp versions
         summary("rmsnorm_bwd", "src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:23"),
         summary("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention.py:69"),
+        # the SSD scan's backward: the TPU kernel is forward-only too
+        summary("ssd_chunk_scan_bwd", "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+                "src/repro/kernels/ssd_chunk.py:61"),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

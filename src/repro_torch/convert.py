@@ -96,22 +96,39 @@ def from_jax_params(tree: dict, cfg: ArchConfig, dtype: torch.dtype = torch.floa
     return params
 
 
-def to_jax_layout(tree: dict) -> dict:
-    """The inverse of :func:`from_jax_params` for the dense family: the port's
-    tree (parameters, or gradients of the same shape) as fp32 numpy arrays in
-    the reference's layout, each per-layer leaf stacked on a leading
-    ``(n_layers, ...)`` axis."""
-    def host(t: torch.Tensor) -> np.ndarray:
-        return t.detach().float().cpu().numpy()
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
 
+
+def _stack(layers: list[dict], shape: tuple[int, ...]) -> dict:
+    """Per-layer leaves stacked on leading axes of ``shape``, group by group."""
+    return {group: {name: np.stack([_host(lp[group][name]) for lp in layers]).reshape(
+                        *shape, *layers[0][group][name].shape)
+                    for name in leaves}
+            for group, leaves in layers[0].items()}
+
+
+def to_jax_layout(tree: dict, cfg: ArchConfig | None = None) -> dict:
+    """The inverse of :func:`from_jax_params`: the port's tree (parameters,
+    or gradients of the same shape) as fp32 numpy arrays in the reference's
+    layout.  Dense family: each per-layer leaf stacked on a leading
+    ``(n_layers, ...)`` axis.  Hybrid (``cfg`` names ``attn_every``): the Mamba2
+    layers as the reference's ``units``, stacked ``(n_units, attn_every,
+    ...)``, beside ``shared``, ``embed``, ``final_norm`` and ``lm_head``."""
     layers = tree["layers"]
     out = {
-        "embed": {"tokens": host(tree["embed"]["tokens"])},
-        "layers": {group: {name: np.stack([host(lp[group][name]) for lp in layers])
-                           for name in leaves}
-                   for group, leaves in layers[0].items()},
-        "final_norm": {"norm_scale": host(tree["final_norm"]["norm_scale"])},
+        "embed": {"tokens": _host(tree["embed"]["tokens"])},
+        "final_norm": {"norm_scale": _host(tree["final_norm"]["norm_scale"])},
     }
+    if "shared" in tree:
+        if cfg is None or len(layers) % cfg.attn_every:
+            raise ValueError("a hybrid tree needs the config whose attn_every cuts its "
+                             f"{len(layers)} layers into units")
+        out["units"] = _stack(layers, (len(layers) // cfg.attn_every, cfg.attn_every))
+        out["shared"] = {group: {name: _host(w) for name, w in leaves.items()}
+                         for group, leaves in tree["shared"].items()}
+    else:
+        out["layers"] = _stack(layers, (len(layers),))
     if "lm_head" in tree:
-        out["lm_head"] = host(tree["lm_head"])
+        out["lm_head"] = _host(tree["lm_head"])
     return out

@@ -7,13 +7,11 @@ the hand-written kernel or raises, a CPU tensor takes the plain PyTorch
 version in ``kernels.ref``.  There is no option that hands back the plain
 version for a CUDA tensor and no ``try`` around the build or the launch.
 
-Where autograd will need a gradient, ``rmsnorm`` and ``flash_attention`` run
-as ``torch.autograd.Function``s whose backward is the hand-written backward
+Where autograd will need a gradient, all three run as
+``torch.autograd.Function``s whose backward is the hand-written backward
 kernel on a CUDA tensor and the plain analytic backward (``ref.*_bwd_ref``) on
 a CPU tensor; the flash forward then also returns the log-sum-exp the backward
-takes.  Otherwise they call the forward alone, as serving does.  The SSD scan
-has no backward kernel yet, so on a CUDA tensor that requires grad it raises
-rather than return a result that would cut the graph.
+takes.  Otherwise they call the forward alone, as serving does.
 """
 
 from __future__ import annotations
@@ -94,22 +92,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ref.flash_attention_ref(q, k, v, causal)
 
 
-def ssd_chunk_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: torch.Tensor,
-                   loga: torch.Tensor, chunk: int = 128, out_dtype: torch.dtype | None = None
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (b, H, s, P); B/C: (b, H, s, N); dt/loga: (b, H, s), fp32 ->
-    (y (b, H, s, P) in ``out_dtype`` or x.dtype, S_final (b, H, P, N) fp32).
-    ``s`` must be a multiple of ``min(chunk, s)`` on every device.  A CUDA
-    input that requires grad raises: the kernel has no backward yet."""
+def _ssd_fwd(x, B, C, dt, loga, chunk, out_dtype):
     if x.is_cuda:
-        if _records_grad(x, B, C, dt, loga):
-            raise NotImplementedError(
-                "ssd_chunk_scan has no backward kernel yet, and its CUDA forward would cut the "
-                "autograd graph; the SSD backward comes with zamba2's training, the next slice "
-                "in ROADMAP.md ('Next, in order')")
         return _ssd.ssd_chunk_scan_cuda(x, B, C, dt, loga, chunk, out_dtype)
     chunk = _ssd.check_shapes(x, B, C, dt, loga, chunk)
     return ref.ssd_chunk_scan_ref(x, B, C, dt, loga, chunk, out_dtype)
+
+
+class _SSDChunkScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, B, C, dt, loga, chunk, out_dtype):
+        ctx.set_materialize_grads(False)   # S_final's gradient is None where it is dropped
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, B, C, dt, loga)
+        return _ssd_fwd(x, B, C, dt, loga, chunk, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy, dS_final):
+        x, B, C, dt, loga = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        if x.is_cuda:
+            grads = _ssd.ssd_chunk_scan_bwd_cuda(x, B, C, dt, loga, dy, dS_final, ctx.chunk)
+        else:
+            grads = ref.ssd_chunk_scan_bwd_ref(x, B, C, dt, loga, dy, dS_final, ctx.chunk)
+        return (*grads, None, None)
+
+
+def ssd_chunk_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: torch.Tensor,
+                   loga: torch.Tensor, chunk: int = 128, out_dtype: torch.dtype | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (b, H, s, P); B/C: (b, H, s, N), or (b, s, N) shared by the heads
+    (their gradient is then summed over the heads); dt/loga: (b, H, s), fp32
+    -> (y (b, H, s, P) in ``out_dtype`` or x.dtype, S_final (b, H, P, N) fp32).
+    ``s`` must be a multiple of ``min(chunk, s)`` on every device."""
+    if _records_grad(x, B, C, dt, loga):
+        return _SSDChunkScan.apply(x, B, C, dt, loga, chunk, out_dtype)
+    return _ssd_fwd(x, B, C, dt, loga, chunk, out_dtype)
 
 
 def launch_counts() -> dict[str, int]:
@@ -117,10 +136,10 @@ def launch_counts() -> dict[str, int]:
     counts one per call of its wrapper)."""
     return {"rmsnorm": _rms.launches, "flash_attention": _fa.launches,
             "ssd_chunk_scan": _ssd.launches, "rmsnorm_bwd": _rms.bwd_launches,
-            "flash_attention_bwd": _fa.bwd_launches}
+            "flash_attention_bwd": _fa.bwd_launches, "ssd_chunk_scan_bwd": _ssd.bwd_launches}
 
 
 def reset_launch_counts() -> None:
     _rms.launches = _rms.bwd_launches = 0
     _fa.launches = _fa.bwd_launches = 0
-    _ssd.launches = 0
+    _ssd.launches = _ssd.bwd_launches = 0

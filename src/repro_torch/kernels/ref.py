@@ -114,7 +114,9 @@ def ssd_chunk_ref(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: torch.T
     cum = torch.cumsum(loga.to(cum_dtype), dim=-1).float()  # (..., cs)
     decay = cum[..., :, None] - cum[..., None, :]           # (..., t, u)
     tri = torch.ones(cs, cs, dtype=torch.bool, device=x.device).tril()
-    gate = torch.where(tri, torch.exp(decay), 0.0)          # select: exp may be inf above
+    # select the exponent, then the result: above the diagonal exp(decay) may be
+    # inf, and autograd through where(tri, exp(decay), 0) would give 0 * inf = NaN
+    gate = torch.where(tri, torch.exp(torch.where(tri, decay, 0.0)), 0.0)
     cb = C @ B.transpose(-1, -2)                            # (..., t, u)
     w = gate * cb * dt[..., None, :]
     y_intra = w @ x                                         # (..., cs, P)
@@ -124,16 +126,67 @@ def ssd_chunk_ref(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: torch.T
     return y_intra + y_state, S1
 
 
+def ssd_chunk_bwd_ref(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: torch.Tensor,
+                      loga: torch.Tensor, S0: torch.Tensor, dy: torch.Tensor, dS1: torch.Tensor,
+                      cum_dtype: torch.dtype = torch.float64) -> tuple[torch.Tensor, ...]:
+    """Port-only: the analytic gradient of :func:`ssd_chunk_ref` (same
+    arguments, leading batch dims), given the gradients ``dy`` (..., cs, P) of
+    y and ``dS1`` (..., P, N) of S1.  Returns (dx, dB, dC, ddt, dloga, dS0),
+    all fp32.  With ``gcb = gate * (C B^T)``, ``dW = dy x^T`` and ``V = B dS1^T``:
+    ``dx = (gcb dt_u)^T dy + e^{cum_L - cum_u} dt_u V``, ``dC = (dW gate dt_u) B
+    + e^{cum_t} dy S0``, ``dB = (dW gate dt_u)^T C + e^{cum_L - cum_u} dt_u x
+    dS1``, ``ddt`` and ``dcum`` collect the products' and the exponentials'
+    derivatives, ``dloga`` is the reverse prefix sum of ``dcum`` (in
+    ``cum_dtype``, rounded once) and ``dS0 = e^{cum_L} dS1 + (e^{cum_t}
+    dy)^T C``."""
+    cs = x.shape[-2]
+    cum = torch.cumsum(loga.to(cum_dtype), dim=-1).float()
+    tri = torch.ones(cs, cs, dtype=torch.bool, device=x.device).tril()
+    decay = torch.where(tri, cum[..., :, None] - cum[..., None, :], 0.0)
+    gate = torch.where(tri, torch.exp(decay), 0.0)          # (t, u), as ssd_chunk_ref's
+    gcb = gate * (C @ B.transpose(-1, -2))
+    e_cum = torch.exp(cum)                                  # (..., cs)
+    e_last = torch.exp(cum[..., -1])                        # (...)
+    w_state = torch.exp(cum[..., -1:] - cum) * dt           # (..., cs)
+    dW = dy @ x.transpose(-1, -2)                           # (..., t, u)
+    V = B @ dS1.transpose(-1, -2)                           # (..., u, p)
+    dcb = dW * gate * dt[..., None, :]
+    dx = (gcb * dt[..., None, :]).transpose(-1, -2) @ dy + w_state[..., None] * V
+    dC = dcb @ B + e_cum[..., None] * (dy @ S0)
+    dB = dcb.transpose(-1, -2) @ C + w_state[..., None] * (x @ dS1)
+    r = dW * gcb
+    xv = (x * V).sum(dim=-1)                                # (..., u)
+    ddt = r.sum(dim=-2) + torch.exp(cum[..., -1:] - cum) * xv
+    q = r * dt[..., None, :]
+    h = w_state * xv
+    dcum = q.sum(dim=-1) - q.sum(dim=-2) - h + e_cum * (dy * (C @ S0.transpose(-1, -2))).sum(dim=-1)
+    last = h.sum(dim=-1) + e_last * (dS1 * S0).sum(dim=(-2, -1))
+    dcum = torch.cat([dcum[..., :-1], dcum[..., -1:] + last[..., None]], dim=-1)
+    dloga = torch.flip(torch.cumsum(torch.flip(dcum.to(cum_dtype), (-1,)), dim=-1), (-1,)).float()
+    dS0 = dS1 * e_last[..., None, None] + (dy * e_cum[..., None]).transpose(-1, -2) @ C
+    return dx, dB, dC, ddt, dloga, dS0
+
+
+def per_head(t: torch.Tensor, H: int) -> torch.Tensor:
+    """B or C as (b, H, s, N): a (b, s, N) tensor, shared by the heads, as a
+    head-stride-0 view; a (b, H, s, N) tensor as it is."""
+    return t[:, None].expand(-1, H, -1, -1) if t.dim() == 3 else t
+
+
 def ssd_chunk_scan_ref(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: torch.Tensor,
                        loga: torch.Tensor, chunk: int = 128,
                        out_dtype: torch.dtype | None = None,
                        cum_dtype: torch.dtype = torch.float64) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (b, H, s, P); B/C: (b, H, s, N); dt/loga: (b, H, s), s % min(chunk, s)
-    == 0.  Every (batch, head) at once, chunks in order (the reference's
-    ``ops.ssd_chunk_scan(impl="ref")``).  Returns (y (b, H, s, P) in
-    ``out_dtype`` or x.dtype, S_final (b, H, P, N) fp32).  ``cum_dtype``: see
-    :func:`ssd_chunk_ref`."""
+    """x: (b, H, s, P); B/C: (b, H, s, N), or (b, s, N) shared by the heads;
+    dt/loga: (b, H, s), s % min(chunk, s) == 0.  Every (batch, head) at once,
+    chunks in order (the reference's ``ops.ssd_chunk_scan(impl="ref")``).
+    Returns (y (b, H, s, P) in ``out_dtype`` or x.dtype, S_final (b, H, P, N)
+    fp32).  ``cum_dtype``: see :func:`ssd_chunk_ref`."""
     b, H, s, P = x.shape
+    if B.dim() == 3:
+        # fp32 before the heads' view: autograd then sums shared B/C's gradient
+        # over the heads in fp32 and rounds it once, as the reference's einsums do
+        B, C = per_head(B.float(), H), per_head(C.float(), H)
     N = B.shape[-1]
     cs = min(chunk, s)
     S = torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
@@ -144,3 +197,38 @@ def ssd_chunk_scan_ref(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: to
                                dt[:, :, part].float(), loga[:, :, part].float(), S, cum_dtype)
         y[:, :, part] = y_c
     return y, S
+
+
+def ssd_chunk_scan_bwd_ref(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: torch.Tensor,
+                           loga: torch.Tensor, dy: torch.Tensor,
+                           dS_final: torch.Tensor | None = None, chunk: int = 128,
+                           cum_dtype: torch.dtype = torch.float64) -> tuple[torch.Tensor, ...]:
+    """Port-only: the analytic gradient of :func:`ssd_chunk_scan_ref` with
+    respect to x, B, C, dt and loga, given the gradient ``dy`` of y and
+    ``dS_final`` of S_final (None: zero).  A forward pass over the chunks
+    gives each chunk's incoming state, then :func:`ssd_chunk_bwd_ref` runs the
+    chunks in reverse, carrying dS.  Returns (dx in x.dtype, dB, dC in B's
+    dtype and shape -- (b, s, N) B/C, shared by the heads, get the sum over
+    the heads --, ddt, dloga fp32 (b, H, s))."""
+    b, H, s, P = x.shape
+    B4, C4 = per_head(B, H), per_head(C, H)
+    N = B4.shape[-1]
+    cs = min(chunk, s)
+    f32 = [t.float() for t in (x, B4, C4, dt, loga, dy)]
+    S = torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+    states = []
+    for t0 in range(0, s, cs):
+        states.append(S)
+        _, S = ssd_chunk_ref(*(t[:, :, t0: t0 + cs] for t in f32[:5]), S, cum_dtype)
+    dS = torch.zeros_like(S) if dS_final is None else dS_final.float()
+    grads = [torch.empty_like(t) for t in f32[:5]]          # dx dB dC ddt dloga, fp32
+    for c in reversed(range(len(states))):
+        part = slice(c * cs, (c + 1) * cs)
+        *chunk_grads, dS = ssd_chunk_bwd_ref(*(t[:, :, part] for t in f32[:5]), states[c],
+                                             f32[5][:, :, part], dS, cum_dtype)
+        for g, gc in zip(grads, chunk_grads):
+            g[:, :, part] = gc
+    dx, dB, dC, ddt, dloga = grads
+    if B.dim() == 3:
+        dB, dC = dB.sum(dim=1), dC.sum(dim=1)
+    return dx.to(x.dtype), dB.to(B.dtype), dC.to(C.dtype), ddt, dloga

@@ -1,5 +1,5 @@
-"""Wrapper of the CUDA Mamba2 SSD chunk-scan forward kernels
-(``csrc/ssd_chunk.cu``).
+"""Wrappers of the CUDA Mamba2 SSD chunk-scan kernels: the forward
+(``csrc/ssd_chunk.cu``) and its backward (``csrc/ssd_chunk_bwd.cu``).
 
 Counterpart of the reference's Pallas ``kernels/ssd_chunk.py``, with its
 public layout: ``x (b, H, s, P)``, ``B/C (b, H, s, N)``, ``dt/loga (b, H, s)``
@@ -22,6 +22,14 @@ the tensor-core route with G > 1 a call launches two kernels (pass A, the
 segments' local states; pass B, the outputs) and the wrapper allocates their
 workspace.  ``launches`` counts calls of the scan that reached the card, one
 per call whatever the number of kernels it launched.
+
+The backward (``ssd_chunk_scan_bwd_cuda``, planned by ``ssd_bwd_plan``) takes
+B and C either per head, ``(b, H, s, N)``, or as ``(b, s, N)`` shared by the
+heads, and then returns their gradient summed over the heads, ``(b, s, N)``.
+It runs three kernels (each chunk's incoming state and outgoing state
+gradient; every chunk at once, a group of heads a block; the groups' dB/dC
+partials summed in order) on workspaces the wrapper allocates.
+``bwd_launches`` counts its calls that reached the card.
 """
 
 from __future__ import annotations
@@ -56,6 +64,19 @@ SEGMENT_FILL = 1.0
 STATE_ONLY_COST = 0.3
 
 launches = 0
+bwd_launches = 0
+
+# The backward (``csrc/ssd_chunk_bwd.cu``): 256 threads a block, one block an
+# SM by shared memory; the chunk kernel's cost of a block beside one head's,
+# in head-times (its B/C staging and its two chunk x chunk dB/dC products,
+# estimated from the kernel's operation counts).
+BWD_THREADS = 256
+BWD_STATES_SMEM = 4 * (2 * 128 * 64 + 2 * 128)
+BWD_CHUNK_SMEM = 4 * (128 * 65 + 128 * 64 + 128 * 65 + 128 * 64 + 128 * 129 + 8 * 128
+                      + 2 * 8 * 128 + 8)
+BWD_BLOCK_COST = 0.6
+BWD_PLAN_LEN = 9
+REDUCE_BLOCKS_MAX = 4 * N_SM
 
 
 def tc_smem(heads_per_block: int, state_only: bool) -> int:
@@ -135,6 +156,58 @@ def ssd_plan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, chunk: int,
     return SSDPlan("cuda_cores", 1, 1, CORE_THREADS, (H, b, 1), CORE_SMEM)
 
 
+@dataclasses.dataclass(frozen=True)
+class SSDBwdPlan:
+    route: str                     # "cuda_cores", the only route
+    heads_per_group: int
+    groups: int                    # the chunk kernel's grid is (groups, chunks, b)
+    threads: int
+    states_smem_bytes: int
+    chunk_smem_bytes: int
+    reduce_blocks: int
+    partials_per_head: int         # R: groups summed into each head of dB/dC
+    out_heads: int                 # J: 1 where B/C are shared, else H
+
+    def as_array(self):
+        """The int64 layout the C entry point reads (the launch plan in the source)."""
+        values = [ROUTES.index(self.route), self.heads_per_group, self.groups, self.threads,
+                  self.states_smem_bytes, self.chunk_smem_bytes, self.reduce_blocks,
+                  self.partials_per_head, self.out_heads]
+        return (ctypes.c_longlong * BWD_PLAN_LEN)(*values)
+
+
+def groups_for(H: int, units: int, slots: int) -> int:
+    """Head groups of the backward's chunk kernel for ``units`` = b * chunks
+    blocks per group: the count of least estimated time, waves of ``slots``
+    blocks times a block's heads plus its fixed cost; no group is empty."""
+    best = (math.inf, H)
+    for g in range(1, H + 1):
+        hpg = -(-H // g)
+        g_eff = -(-H // hpg)
+        t = -(-units * g_eff // slots) * (hpg + BWD_BLOCK_COST)
+        best = min(best, (t, g_eff))
+    return best[1]
+
+
+def ssd_bwd_plan(x: torch.Tensor, B: torch.Tensor, chunk: int) -> SSDBwdPlan:
+    """The launch of ``ssd_chunk_scan_bwd`` for these inputs (``chunk`` the
+    one used; ``B`` as the caller passed it: ``(b, s, N)`` shared by the heads,
+    or ``(b, H, s, N)``).  Pure: reads shapes only, so it runs on CPU and meta
+    tensors too."""
+    b, H, s, P = x.shape
+    N = B.shape[-1]
+    units = b * (s // chunk)
+    if B.dim() == 3:
+        groups = groups_for(H, units, N_SM)
+        hpg = -(-H // groups)
+        partials, out_heads = groups, 1
+    else:
+        groups, hpg, partials, out_heads = H, 1, 1, H
+    reduce_blocks = max(1, min(REDUCE_BLOCKS_MAX, -(-b * out_heads * s * N // BWD_THREADS)))
+    return SSDBwdPlan("cuda_cores", hpg, groups, BWD_THREADS, BWD_STATES_SMEM, BWD_CHUNK_SMEM,
+                      reduce_blocks, partials, out_heads)
+
+
 @functools.cache
 def _fn():
     fn = _build.load("ssd_chunk").ssd_chunk_scan_fwd
@@ -156,13 +229,15 @@ def _fn():
 
 def check_shapes(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: torch.Tensor,
                  loga: torch.Tensor, chunk: int) -> int:
-    """Shape rules shared by the kernel and its plain version; returns the
-    chunk length actually used, ``min(chunk, s)``."""
-    if x.dim() != 4 or B.dim() != 4 or C.shape != B.shape:
-        raise ValueError(f"expected x (b,H,s,P), B/C (b,H,s,N); got {tuple(x.shape)}, "
-                         f"{tuple(B.shape)}, {tuple(C.shape)}")
+    """Shape rules shared by the kernels and their plain versions (B and C
+    per head, or ``(b, s, N)`` shared by the heads); returns the chunk length
+    actually used, ``min(chunk, s)``."""
+    if x.dim() != 4 or B.dim() not in (3, 4) or C.shape != B.shape:
+        raise ValueError(f"expected x (b,H,s,P), B/C (b,H,s,N) or (b,s,N); got "
+                         f"{tuple(x.shape)}, {tuple(B.shape)}, {tuple(C.shape)}")
     b, H, s, _ = x.shape
-    if B.shape[:3] != (b, H, s) or dt.shape != (b, H, s) or loga.shape != (b, H, s):
+    heads = (b, s) if B.dim() == 3 else (b, H, s)
+    if B.shape[:-1] != heads or dt.shape != (b, H, s) or loga.shape != (b, H, s):
         raise ValueError(f"x {tuple(x.shape)}, B {tuple(B.shape)}, dt {tuple(dt.shape)}, "
                          f"loga {tuple(loga.shape)} do not share (b, H, s)")
     if min(x.shape) < 1 or B.shape[-1] < 1 or chunk < 1:
@@ -173,13 +248,20 @@ def check_shapes(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: torch.Te
     return chunk
 
 
-def _output(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Uninitialised (b, H, s, P) in ``dtype``, laid out as (b, s, H, P) when
-    x is held that way."""
-    b, H, s, P = x.shape
-    if H > 1 and s > 1 and x.stride(1) < x.stride(2):
-        return torch.empty((b, s, H, P), dtype=dtype, device=x.device).transpose(1, 2)
-    return torch.empty((b, H, s, P), dtype=dtype, device=x.device)
+def _per_head(t: torch.Tensor, H: int) -> torch.Tensor:
+    """B or C as (b, H, s, N): a (b, s, N) tensor, shared by the heads, as a
+    head-stride-0 view; a (b, H, s, N) tensor as it is."""
+    return t[:, None].expand(-1, H, -1, -1) if t.dim() == 3 else t
+
+
+def _output(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Uninitialised, of ``t``'s shape -- (b, H, s, ...) -- in ``dtype``, laid
+    out as (b, s, H, ...) when ``t`` is held that way (the model's x, y, dt and
+    loga)."""
+    b, H, s = t.shape[:3]
+    if H > 1 and s > 1 and t.stride(1) < t.stride(2):
+        return torch.empty((b, s, H, *t.shape[3:]), dtype=dtype, device=t.device).transpose(1, 2)
+    return torch.empty(t.shape, dtype=dtype, device=t.device)
 
 
 def ssd_chunk_scan_cuda(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: torch.Tensor,
@@ -187,6 +269,7 @@ def ssd_chunk_scan_cuda(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: t
                         out_dtype: torch.dtype | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     global launches
     chunk = check_shapes(x, B, C, dt, loga, chunk)
+    B, C = _per_head(B, x.shape[1]), _per_head(C, x.shape[1])
     tensors = (x, B, C, dt, loga)
     if not (x.is_cuda and all(t.device == x.device for t in tensors)):
         raise ValueError(f"ssd_chunk_scan_cuda needs CUDA tensors on one device, got "
@@ -227,3 +310,90 @@ def ssd_chunk_scan_cuda(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: t
                            f"for x {tuple(x.shape)} {x.dtype}, N {N}, chunk {chunk}")
     launches += 1
     return y, s_final
+
+
+@functools.cache
+def _bwd_fn():
+    fn = _build.load("ssd_chunk_bwd").ssd_chunk_scan_bwd
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # x B C
+        ctypes.c_void_p, ctypes.c_void_p,                    # dt loga
+        ctypes.c_void_p, ctypes.c_void_p,                    # dy dS_final
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # dx ddt dloga
+        ctypes.c_void_p, ctypes.c_void_p,                    # dB dC
+        ctypes.c_void_p, ctypes.c_void_p,                    # S_in, dS (workspace)
+        ctypes.c_void_p, ctypes.c_void_p,                    # dB, dC partials (workspace)
+        ctypes.c_int, ctypes.c_int,                          # dtype codes: x/B/C, dy
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,            # b H s
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,            # P N chunk
+        ctypes.POINTER(ctypes.c_longlong),                   # strides
+        ctypes.POINTER(ctypes.c_longlong),                   # plan
+        ctypes.c_void_p,                                     # stream
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ssd_chunk_scan_bwd_cuda(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dt: torch.Tensor,
+                            loga: torch.Tensor, dy: torch.Tensor,
+                            dS_final: torch.Tensor | None = None, chunk: int = 128
+                            ) -> tuple[torch.Tensor, ...]:
+    """The gradient of ``ssd_chunk_scan_cuda(x, B, C, dt, loga, chunk)`` given
+    ``dy`` (b, H, s, P) (fp32 or bf16) and ``dS_final`` (b, H, P, N) or None
+    (zero).  Returns (dx in x's dtype and layout, dB and dC in B's dtype and
+    shape -- summed over the heads where B/C are (b, s, N) --, ddt and dloga
+    fp32 in dt's and loga's layouts).  Raises where the kernel was not built
+    for the inputs: chunk > 128, P > 64, N > 64."""
+    global bwd_launches
+    chunk = check_shapes(x, B, C, dt, loga, chunk)
+    b, H, s, P = x.shape
+    N = B.shape[-1]
+    tensors = (x, B, C, dt, loga, dy) + (() if dS_final is None else (dS_final,))
+    if not (x.is_cuda and all(t.device == x.device for t in tensors)):
+        raise ValueError(f"ssd_chunk_scan_bwd_cuda needs CUDA tensors on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if x.dtype not in DTYPE_CODES or B.dtype != x.dtype or C.dtype != x.dtype \
+            or dy.dtype not in DTYPE_CODES:
+        raise TypeError(f"ssd_chunk_scan_bwd_cuda takes x/B/C float32 or bfloat16 of one type "
+                        f"and dy float32/bfloat16, got {x.dtype}, {B.dtype}, {C.dtype}, {dy.dtype}")
+    if dt.dtype != torch.float32 or loga.dtype != torch.float32:
+        raise TypeError(f"dt and loga must be float32, got {dt.dtype}, {loga.dtype}")
+    if dy.shape != x.shape or (dS_final is not None and dS_final.shape != (b, H, P, N)):
+        raise ValueError(f"dy {tuple(dy.shape)} / dS_final "
+                         f"{None if dS_final is None else tuple(dS_final.shape)} do not match "
+                         f"x {tuple(x.shape)}, N {N}")
+    if chunk > MAX_CHUNK or P > MAX_P or N > MAX_N:
+        raise ValueError(f"chunk {chunk}, P {P}, N {N}: the kernel takes chunk <= {MAX_CHUNK}, "
+                         f"P <= {MAX_P}, N <= {MAX_N}")
+    x, B, C, dy = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, B, C, dy))
+    ds_final = None if dS_final is None else dS_final.float().contiguous()
+    plan = ssd_bwd_plan(x, B, chunk)
+    dev = x.device
+    dx = _output(x, x.dtype)
+    ddt, dloga = _output(dt, torch.float32), _output(loga, torch.float32)
+    dB, dC = torch.empty_like(B, memory_format=torch.contiguous_format), \
+        torch.empty_like(C, memory_format=torch.contiguous_format)
+    n_chunks = s // chunk
+    s_in = torch.empty((b, H, n_chunks, P, N), dtype=torch.float32, device=dev)
+    ds_out = torch.empty((b, H, n_chunks, N, P), dtype=torch.float32, device=dev)
+    part_b, part_c = (torch.empty((b, plan.groups, s, N), dtype=torch.float32, device=dev)
+                      for _ in range(2))
+    B4, C4, dB4, dC4 = (_per_head(t, H) for t in (B, C, dB, dC))
+    strides = (ctypes.c_longlong * 33)(
+        *(st for t in (x, B4, C4, dt, loga, dy, dx, ddt, dloga, dB4, dC4) for st in t.stride()[:3])
+    )
+    with torch.cuda.device(dev):
+        err = _bwd_fn()(
+            x.data_ptr(), B.data_ptr(), C.data_ptr(), dt.data_ptr(), loga.data_ptr(),
+            dy.data_ptr(), None if ds_final is None else ds_final.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), dloga.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            s_in.data_ptr(), ds_out.data_ptr(), part_b.data_ptr(), part_c.data_ptr(),
+            DTYPE_CODES[x.dtype], DTYPE_CODES[dy.dtype], b, H, s, P, N, chunk, strides,
+            plan.as_array(), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"SSD chunk-scan backward launch failed (cudaError {err}) for x "
+                           f"{tuple(x.shape)} {x.dtype}, B {tuple(B.shape)}, dy {dy.dtype}, "
+                           f"chunk {chunk}, plan {plan}")
+    bwd_launches += 1
+    return dx, dB, dC, ddt, dloga

@@ -308,3 +308,15 @@ def mlp_fwd(params: dict, x: torch.Tensor) -> torch.Tensor:
     h = x @ params["w_in"].to(cd)
     act = torch.nn.functional.silu(g.float()).to(cd) * h
     return act @ params["w_out"].to(cd)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Next-token cross-entropy in fp32 over the (padded, masked) vocab,
+    averaged over the tokens whose label is >= 0 (labels < 0 are not scored):
+    (ce, the scored token count, at least 1), as the reference's losses."""
+    labels = labels.long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    mask = (labels >= 0).float()
+    nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    denom = mask.sum().clamp(min=1.0)
+    return (nll * mask).sum() / denom, denom

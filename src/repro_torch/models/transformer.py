@@ -144,12 +144,7 @@ class DecoderLM:
         masked in ``logits``); labels < 0 are not scored.  Returns (ce + 0.01
         aux, {"ce", "aux", "tokens"}), as the reference's."""
         logits, aux = self.forward(params, batch)
-        labels = batch["labels"].long()
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        mask = (labels >= 0).float()
-        nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
-        denom = mask.sum().clamp(min=1.0)
-        ce = (nll * mask).sum() / denom
+        ce, denom = L.cross_entropy(logits, batch["labels"])
         return ce + 0.01 * aux, {"ce": ce, "aux": aux, "tokens": denom}
 
     def _layer_stack(self, params: dict, x: torch.Tensor, attn_fn, caches: dict):

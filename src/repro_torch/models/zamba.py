@@ -1,30 +1,33 @@
 """Zamba2-style hybrid LM: Mamba2 (SSD) backbone + one *shared* attention
 block applied every ``attn_every`` layers (arXiv:2411.15242).  PyTorch
-counterpart of the reference's ``models/zamba.py``, prefill forward and
-recurrent decode.
+counterpart of the reference's ``models/zamba.py``: training (``forward``,
+``loss``), prefill forward and recurrent decode.
 
 Mamba2 blocks use the SSD recurrence with scalar-per-head decay:
     S_t = a_t * S_{t-1} + dt_t * (x_t outer B_t),   y_t = S_t C_t + D x_t
 with a short depthwise causal conv on the (x, B, C) path.  The forward runs
 the chunkwise-parallel scan through ``ops.ssd_chunk_scan`` (the hand-written
-CUDA kernel on a GPU; the reference runs the same chunk recurrence as a
-``lax.scan``), decode a single recurrent step in plain tensor code.  The
-shared attention is ``layers.attention_fwd`` (the flash-attention kernel) in
-the forward and a ring-buffer KV cache capped at ``cfg.long_context_window``
-in decode.
+CUDA kernels on a GPU, forward and backward; the reference runs the same
+chunk recurrence as a ``lax.scan``), decode a single recurrent step in plain
+tensor code.  The shared attention is ``layers.attention_fwd`` (the
+flash-attention kernel) in the forward and a ring-buffer KV cache capped at
+``cfg.long_context_window`` in decode.
 
 As in ``models/transformer.py``: parameters and caches are explicit
 dictionaries, layers a Python list (the reference stacks them
 ``(n_units, attn_every, ...)`` for two nested scans), caches are updated in
-place and returned.  ``A_log``, ``D`` and ``dt_bias`` are held in fp32
-whatever the weights' dtype (the reference reads them as fp32 at every use).
-``loss`` belongs to the training slice.
+place and returned.  Under ``remat``, while autograd records, each Mamba2
+layer runs under ``torch.utils.checkpoint`` and the shared block does not
+(the reference's ``jax.checkpoint`` of ``m_body``).  ``A_log``, ``D`` and
+``dt_bias`` are held in fp32 whatever the weights' dtype (the reference reads
+them as fp32 at every use).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
@@ -105,12 +108,13 @@ def _dims(p: dict) -> tuple[int, int, int, int]:
 
 
 def mamba2_fwd(params: dict, x: torch.Tensor, eps: float, chunk: int = CHUNK) -> torch.Tensor:
-    """Chunkwise-parallel SSD over the full sequence (prefill).  x: (b, s, d).
-    The sequence is padded to a multiple of ``chunk`` with dt = loga = 0, so
-    the padding neither decays nor feeds the state; x stays in the model's
-    (b, s, H, P) layout and B/C stay shared by the heads (head-stride-0
-    views); y comes back from the kernel in fp32 and stays fp32 until D x is
-    added, as in the reference."""
+    """Chunkwise-parallel SSD over the full sequence (training, prefill).
+    x: (b, s, d).  The sequence is padded to a multiple of ``chunk`` with
+    dt = loga = 0, so the padding neither decays nor feeds the state; x stays
+    in the model's (b, s, H, P) layout and B/C go in as (b, s, N), shared by
+    the heads (so their gradient comes back summed over the heads); y comes
+    back from the kernel in fp32 and stays fp32 until D x is added, as in the
+    reference."""
     p = params["ssm"]
     cd = x.dtype
     b, s, _ = x.shape
@@ -127,9 +131,7 @@ def mamba2_fwd(params: dict, x: torch.Tensor, eps: float, chunk: int = CHUNK) ->
         xh, B, C, dt, loga = (F.pad(t, (0,) * (2 * t.dim() - 3) + (pad,))
                               for t in (xh, B, C, dt, loga))
     y, _ = ops.ssd_chunk_scan(
-        xh.transpose(1, 2),
-        B[:, None].expand(-1, H, -1, -1), C[:, None].expand(-1, H, -1, -1),
-        dt.transpose(1, 2), loga.transpose(1, 2),
+        xh.transpose(1, 2), B, C, dt.transpose(1, 2), loga.transpose(1, 2),
         chunk=chunk, out_dtype=torch.float32,
     )                                                        # (b, H, s_pad, P) fp32
     y = y.transpose(1, 2)[:, :s] + xh[:, :s] * p["D"].float()[:, None]
@@ -204,7 +206,8 @@ class ZambaLM:
         }
 
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"]["tokens"].to(self.opts.cdt)[tokens.long()]
+        # F.embedding: its CUDA backward sums a row's gradients in a fixed order
+        return F.embedding(tokens.long(), params["embed"]["tokens"].to(self.opts.cdt))
 
     def _logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
@@ -227,16 +230,32 @@ class ZambaLM:
         x = x + h
         return x + L.mlp_fwd(sp["mlp"], L.rmsnorm(sp["mlp_norm"], x, cfg.norm_eps))
 
+    def _mamba_layer(self, lp: dict, x: torch.Tensor) -> torch.Tensor:
+        return x + mamba2_fwd(lp, x, self.cfg.norm_eps)
+
     def forward(self, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """batch["tokens"] (b, s) -> (logits (b, s, padded_vocab), aux = 0)."""
-        cfg = self.cfg
+        """batch["tokens"] (b, s) -> (logits (b, s, padded_vocab), aux: a zero
+        fp32 scalar, as the reference's)."""
         x = self._embed(params, batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        remat = self.opts.remat and torch.is_grad_enabled()
         for _, layers in self._units(params):
             for _, lp in layers:
-                x = x + mamba2_fwd(lp, x, cfg.norm_eps)
+                if remat:
+                    # a layer draws no random numbers: no RNG state to keep
+                    x = checkpoint(self._mamba_layer, lp, x, use_reentrant=False,
+                                   preserve_rng_state=False)
+                else:
+                    x = self._mamba_layer(lp, x)
             x = self._shared_attn_fwd(params["shared"], x, positions)
-        return self._logits(params, x), torch.zeros((), device=x.device)
+        return self._logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+        """``layers.cross_entropy`` of the logits: (ce, {"ce", "aux",
+        "tokens"}), as the reference's; the hybrid has no aux term."""
+        logits, aux = self.forward(params, batch)
+        ce, denom = L.cross_entropy(logits, batch["labels"])
+        return ce, {"ce": ce, "aux": aux, "tokens": denom}
 
     # ----------------------------------------------------------------- serve
     def kv_len(self, max_len: int) -> int:

@@ -39,7 +39,8 @@ def test_file_imports_neither_jax_nor_the_reference(path):
 def test_cuda_sources_have_a_plain_c_interface():
     """No PyTorch headers in the kernels: they build in seconds with nvcc alone."""
     sources = sorted((ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob("*.cu"))
-    assert {s.name for s in sources} == {"rmsnorm.cu", "flash_attention.cu", "ssd_chunk.cu"}
+    assert {s.name for s in sources} == {"rmsnorm.cu", "flash_attention.cu", "ssd_chunk.cu",
+                                         "ssd_chunk_bwd.cu"}
     for src in sources:
         text = src.read_text()
         assert "torch/" not in text and "ATen" not in text

@@ -407,7 +407,8 @@ class TestOpsDispatch:
         torch.testing.assert_close(ops.rmsnorm(x, scale, 1e-5), ref.rmsnorm_ref(x, scale, 1e-5),
                                    rtol=0, atol=0)
         assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "ssd_chunk_scan": 0,
-                                       "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
+                                       "rmsnorm_bwd": 0, "flash_attention_bwd": 0,
+                                       "ssd_chunk_scan_bwd": 0}
 
     def test_causal_with_more_queries_than_keys_is_rejected(self):
         q = torch.zeros(1, 2, 8, 16)
@@ -426,7 +427,8 @@ class TestOpsDispatch:
     def test_launch_counts_name_every_kernel(self):
         ops.reset_launch_counts()
         assert set(ops.launch_counts()) == {"rmsnorm", "flash_attention", "ssd_chunk_scan",
-                                            "rmsnorm_bwd", "flash_attention_bwd"}
+                                            "rmsnorm_bwd", "flash_attention_bwd",
+                                            "ssd_chunk_scan_bwd"}
         x, B = torch.zeros(1, 1, 8, 4), torch.zeros(1, 1, 8, 4)
         ops.ssd_chunk_scan(x, B, B, torch.zeros(1, 1, 8), torch.zeros(1, 1, 8), chunk=4)
         assert ops.launch_counts()["ssd_chunk_scan"] == 0   # CPU: the plain version
@@ -1258,14 +1260,20 @@ class TestAutograd:
         assert ops.rmsnorm(torch.randn(2, 8), torch.ones(8)).grad_fn is None
 
     def test_ssd_scan_on_a_cuda_tensor_that_requires_grad_raises(self):
-        """No backward kernel yet: the CUDA forward would cut the graph, so it
-        raises first (a tensor that reports itself as CUDA stands in for the
-        card; the kernel is never reached)."""
+        """A CUDA tensor that requires grad goes through the autograd Function
+        to the kernel's wrapper, never to the plain version: where the kernel
+        cannot run, that raises (a tensor that reports itself as CUDA stands in
+        for the card; the wrapper is stubbed to fail as a missing build
+        would)."""
 
         class OnCard(torch.Tensor):
             is_cuda = property(lambda self: True)
 
         x = torch.zeros(1, 1, 8, 4).as_subclass(OnCard).requires_grad_(True)
         B = torch.zeros(1, 1, 8, 4)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ops.ssd_chunk_scan(x, B, B, torch.zeros(1, 1, 8), torch.zeros(1, 1, 8), chunk=4)
+        with mock.patch.object(ssd_cuda, "ssd_chunk_scan_cuda",
+                               side_effect=RuntimeError("no kernel here")), \
+                mock.patch.object(ref, "ssd_chunk_scan_ref") as plain:
+            with pytest.raises(RuntimeError, match="no kernel here"):
+                ops.ssd_chunk_scan(x, B, B, torch.zeros(1, 1, 8), torch.zeros(1, 1, 8), chunk=4)
+        assert plain.call_count == 0

@@ -174,22 +174,28 @@ def model_pair(arch: str, remat: bool, vocab: int | None = None, seed: int = 0):
     return jm, jp, tm, cfg_t
 
 
-def _case(arch, remat, microbatches, vocab, param_dtype="float32"):
+def _case(arch, remat, microbatches, vocab, param_dtype="float32", seq=16):
     name = f"{arch}-{remat}-{microbatches}-{vocab}"   # the fp32 cases keep their ids
-    return pytest.param(arch, remat, microbatches, vocab, param_dtype,
+    name += "" if seq == 16 else f"-seq{seq}"
+    return pytest.param(arch, remat, microbatches, vocab, param_dtype, seq,
                         id=name if param_dtype == "float32" else f"{name}-{param_dtype}")
+
+
+# leaves the port holds in fp32 whatever the weights' dtype: the norm scales,
+# and the Mamba2 constants the reference reads as fp32 at every use
+FP32_LEAVES = ("['norm_scale']", "['A_log']", "['D']", "['dt_bias']")
 
 
 def bf16_weights(jax_params: dict, cfg) -> dict:
     """The reference's tree with its weights rounded to bf16 and held in bf16,
-    the norm scales fp32: the port's bf16-weight tree, converted back."""
+    the fp32 leaves fp32: the port's bf16-weight tree, converted back."""
     port = from_jax_params(jax_tree_np(jax_params), cfg, torch.bfloat16, "cpu")
     return jax.tree_util.tree_map_with_path(
-        lambda path, a: jnp.asarray(a, jnp.float32 if "norm" in jax.tree_util.keystr(path)
-                                    else jnp.bfloat16), to_jax_layout(port))
+        lambda path, a: jnp.asarray(a, jnp.float32 if jax.tree_util.keystr(path).endswith(FP32_LEAVES)
+                                    else jnp.bfloat16), to_jax_layout(port, cfg))
 
 
-@pytest.mark.parametrize("arch,remat,microbatches,vocab,param_dtype", [
+@pytest.mark.parametrize("arch,remat,microbatches,vocab,param_dtype,seq", [
     _case("minicpm-2b", False, 1, None),
     _case("minicpm-2b", True, 1, None),
     _case("minicpm-2b", False, 2, None),
@@ -200,8 +206,15 @@ def bf16_weights(jax_params: dict, cfg) -> dict:
     _case("minicpm-2b", False, 1, None, "bfloat16"),
     _case("minicpm-2b", False, 2, None, "bfloat16"),
     _case("minicpm-2b", True, 4, None, "bfloat16"),
+    # the hybrid: Mamba2 layers (remat each) and the shared attention block
+    _case("zamba2-2.7b", False, 1, None),
+    _case("zamba2-2.7b", True, 1, None),
+    _case("zamba2-2.7b", False, 2, None),
+    _case("zamba2-2.7b", True, 2, None),
+    _case("zamba2-2.7b", True, 1, None, seq=300),   # three chunks: dS carried, a padded tail
+    _case("zamba2-2.7b", False, 1, None, "bfloat16"),
 ])
-def test_loss_and_grads_match_the_reference(arch, remat, microbatches, vocab, param_dtype):
+def test_loss_and_grads_match_the_reference(arch, remat, microbatches, vocab, param_dtype, seq):
     """fp32 weights: each gradient leaf within 1e-4 of its largest element.
     bf16 weights: the gradients are fp32 (each microbatch's bf16 gradient
     summed in fp32, as the reference sums), each leaf within 4e-4 of its norm:
@@ -212,7 +225,7 @@ def test_loss_and_grads_match_the_reference(arch, remat, microbatches, vocab, pa
     scan the reference adds the bf16 gradients of the table's two uses in
     bf16, the port adds them in fp32 before its one rounding."""
     jm, jp, tm, cfg = model_pair(arch, remat, vocab)
-    batch = SyntheticDataset(cfg.vocab, 16, 4, seed=3).batch(0)
+    batch = SyntheticDataset(cfg.vocab, seq, 4, seed=3).batch(0)
     batch["labels"][0, :5] = -1          # masked labels are not scored
     dtype = getattr(torch, param_dtype)
     if dtype == torch.bfloat16:
@@ -229,9 +242,9 @@ def test_loss_and_grads_match_the_reference(arch, remat, microbatches, vocab, pa
     assert all(g.dtype == torch.float32 for g in jax.tree.leaves(grads))
     if dtype == torch.float32:
         assert all(p.grad is g for p, g in zip(jax.tree.leaves(params), jax.tree.leaves(grads)))
-        assert_trees_close(to_jax_layout(grads), jax_tree_np(jgrads), rel=1e-4)
+        assert_trees_close(to_jax_layout(grads, cfg), jax_tree_np(jgrads), rel=1e-4)
         return
-    got, want = to_jax_layout(grads), jax_tree_np(jgrads)
+    got, want = to_jax_layout(grads, cfg), jax_tree_np(jgrads)
     for (path, g), w in zip(jax.tree_util.tree_leaves_with_path(got), jax.tree.leaves(want)):
         name = jax.tree_util.keystr(path)
         rel = 4e-3 if name == "['embed']['tokens']" else 4e-4
@@ -246,11 +259,12 @@ def test_to_jax_layout_inverts_the_converter():
 
 
 # ------------------------------------------------------------------ trainer
-def trainer_pair(tmp_path, total: int, fail_at=(), ckpt_every: int = 100):
-    """The reference's trainer and the port's on the same reduced minicpm-2b,
+def trainer_pair(tmp_path, total: int, fail_at=(), ckpt_every: int = 100,
+                 arch: str = "minicpm-2b"):
+    """The reference's trainer and the port's on the same reduced ``arch``,
     data stream and initial weights (the reference's, converted: the port's
     model draws them from its ``init``, which the test substitutes)."""
-    cfg_j, cfg_t = jax_get_config("minicpm-2b").reduced(), get_config("minicpm-2b").reduced()
+    cfg_j, cfg_t = jax_get_config(arch).reduced(), get_config(arch).reduced()
     jm = jax_build_model(cfg_j, JaxOptions(compute_dtype="float32", remat=False))
     init = jax_tree_np(jm.init(jax.random.PRNGKey(0)))
     tm = build_model(cfg_t, ModelOptions(**FP32, remat=False), device="cpu")
@@ -343,6 +357,50 @@ class TestTrainer:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
+class TestZambaTrainer:
+    """The hybrid through both trainers: remat off, fp32, reduced zamba2-2.7b."""
+
+    def test_loss_history_matches_the_reference(self, tmp_path):
+        mine, theirs = trainer_pair(tmp_path, 12, arch="zamba2-2.7b")
+        mine.run()
+        theirs.run()
+        got, want = mine.losses(), theirs.losses()
+        assert len(got) == len(want) == 12
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+        assert got[-1] < got[0]
+
+    def test_restart_resumes_bit_identically(self, tmp_path):
+        """A crashed-and-resumed run (its restore template built under fake
+        tensors by ``ZambaLM.init``) ends bit for bit where an uninterrupted
+        one does."""
+        crashed, _ = trainer_pair(tmp_path / "a", 8, fail_at=[5], ckpt_every=4, arch="zamba2-2.7b")
+        crashed.run()
+        assert [h for h in crashed.history if h.get("event") == "restart"]
+        clean, _ = trainer_pair(tmp_path / "b", 8, ckpt_every=4, arch="zamba2-2.7b")
+        clean.run()
+        a = final_checkpoint(tmp_path / "a" / "port", 8)
+        b = final_checkpoint(tmp_path / "b" / "port", 8)
+        assert a.keys() == b.keys() and any("A_log" in k for k in a)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+    def test_init_under_fake_tensors_draws_nothing(self):
+        """``Trainer``'s restore builds its template under ``FakeTensorMode``:
+        ``ZambaLM.init`` runs there without storage and leaves its generator
+        untouched."""
+        from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+
+        model = build_model(get_config("zamba2-2.7b").reduced(), ModelOptions(remat=True),
+                            device="cpu")
+        generator = torch.Generator().manual_seed(0)
+        before = generator.get_state()
+        with FakeTensorMode():
+            params = model.init(generator)
+        leaves = jax.tree.leaves(params)
+        assert leaves and all(isinstance(t, FakeTensor) for t in leaves)
+        assert torch.equal(before, generator.get_state())
+
+
 # --------------------------------------------------------------- checkpoint
 class TestCheckpointer:
     def tree(self):
@@ -402,6 +460,13 @@ class TestLauncher:
     def test_cpu_run_returns_zero(self, tmp_path, capsys):
         rc = launch_train.main(["--device", "cpu", "--steps", "12", "--log-every", "4",
                                 "--ckpt-every", "6", "--ckpt-dir", str(tmp_path)])
+        assert rc == 0
+        assert "done: first logged loss" in capsys.readouterr().out
+        assert Checkpointer(tmp_path).latest_step() == 12
+
+    def test_zamba_cpu_run_returns_zero(self, tmp_path, capsys):
+        rc = launch_train.main(["--arch", "zamba2-2.7b", "--device", "cpu", "--steps", "12",
+                                "--log-every", "4", "--ckpt-every", "6", "--ckpt-dir", str(tmp_path)])
         assert rc == 0
         assert "done: first logged loss" in capsys.readouterr().out
         assert Checkpointer(tmp_path).latest_step() == 12

@@ -18,7 +18,7 @@ from repro.models import build_model as jax_build_model
 from repro.models import layers as JL
 from repro.models import zamba as JZ
 from repro_torch.configs import get_config
-from repro_torch.convert import from_jax_params
+from repro_torch.convert import from_jax_params, to_jax_layout
 from repro_torch.models import ModelOptions, ZambaLM, build_model
 from repro_torch.models import layers as L
 from repro_torch.models import zamba as Z
@@ -138,6 +138,28 @@ class TestConvert:
             assert ssm[name].dtype == torch.float32
             close(ssm[name], jp["units"]["ssm"][name][1, 1], atol=0)
         assert tp["shared"]["attn_norm"]["norm_scale"].dtype == torch.float32
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_to_jax_layout_inverts_the_converter(self, pair, dtype):
+        """``to_jax_layout`` gives back the reference's tree, units stacked
+        (n_units, attn_every, ...), leaf for leaf (bf16 weights: their bf16
+        values, the norm scales and Mamba2 constants exact)."""
+        _, jp, tm, _ = pair
+        want = jax.tree.map(lambda a: np.asarray(a, np.float32), jp)
+        got = to_jax_layout(from_jax_params(want, tm.cfg, dtype, "cpu"), tm.cfg)
+        assert jax.tree.structure(got) == jax.tree.structure(want)
+        for (path, g), w in zip(jax.tree_util.tree_leaves_with_path(got), jax.tree.leaves(want)):
+            name = jax.tree_util.keystr(path)
+            assert g.shape == w.shape and g.dtype == np.float32, name
+            exact = dtype == torch.float32 or name.endswith(("['norm_scale']", "['A_log']",
+                                                            "['D']", "['dt_bias']"))
+            expect = w if exact else torch.from_numpy(w).to(dtype).float().numpy()
+            np.testing.assert_array_equal(g, expect, err_msg=name)
+
+    def test_to_jax_layout_of_the_hybrid_needs_its_config(self, pair):
+        _, _, _, tp = pair
+        with pytest.raises(ValueError, match="attn_every"):
+            to_jax_layout(tp)
 
     def test_layer_count_mismatch_raises(self, pair):
         _, jp, tm, _ = pair
