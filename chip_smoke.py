@@ -18,7 +18,8 @@ raises and the script exits non-zero:
    SSD scan or its backward; for a backward, its autograd backward with the
    forward outside the timed region) with CUDA events after warm-up; checks
    the route each launch plan took (flash, RMSNorm, and the SSD scan's route,
-   sequence segments and heads per block), that the flash forward's out is
+   sequence segments and heads per block; its backward's route, with the
+   bf16 terms of its fp32 operands and each pass's blocks), that the flash forward's out is
    bit-identical with and without its log-sum-exp, and that two calls of any
    backward on the same inputs agree bit for bit; the RMSNorm backward's two
    kernels (row pass, dscale pass) are also timed apart with torch.profiler.
@@ -62,7 +63,8 @@ With ``--profile`` five further phases, after ``serve``, ``zamba``,
 prefill of each served model, one fp32-compute ``loss_and_grads`` of
 ``train_parity``'s model (the launcher's dtype) and one full-depth train step
 of each trained model with ``torch.profiler`` (device-busy time against the
-host's wall clock, and the flash and SSD kernels' shares).
+host's wall clock, and the flash and SSD kernels' shares, the SSD backward's
+kernels apart).
 
 Then the ``kernels`` summary line (the three forwards and the three
 backwards: launches over the serve, zamba, train and zamba_train paths,
@@ -703,7 +705,8 @@ def ssd_bwd_case(b: int, H: int, s: int, P: int, N: int, chunk: int, dtype: torc
     views, B/C as (b, s, N) shared by the heads (their gradients summed over
     the heads), dt/loga as (b, s, H); else every tensor (b, H, s, .)
     contiguous, B/C per head.  ``ds_final``: a gradient of S_final too (the
-    model drops S_final)."""
+    model drops S_final).  Fails if the plan's route is not the one the inputs
+    call for (tensor cores: bf16 x/B/C at chunk 128, P = N = 64)."""
     dev = gen.device
 
     def rand(*shape, scale=1.0, to=dtype):
@@ -733,11 +736,25 @@ def ssd_bwd_case(b: int, H: int, s: int, P: int, N: int, chunk: int, dtype: torc
         if not torch.equal(g1, g2):
             raise AssertionError(f"{what} {n}: two calls on the same inputs differ")
     cs = min(chunk, s)
-    plan = _ssd.ssd_bwd_plan(x, B, cs)
+    n_chunks = s // cs
+    plan = _ssd.ssd_bwd_plan(x, B, C, dy, cs)
+    tc = plan.route == "tensor_cores"
+    if (dtype == torch.bfloat16 and (cs, P, N) == (128, 64, 64)) != tc:
+        raise AssertionError(f"ssd_chunk_scan_bwd x{tuple(x.shape)} {dtype} took {plan.route}")
     case = {
         "kernel": "ssd_chunk_scan_bwd", "shape": [b, H, s, P, N], "chunk": cs,
         "route": plan.route, "heads_per_group": plan.heads_per_group, "groups": plan.groups,
-        "chunk_kernel_blocks": plan.groups * (s // cs) * b,
+        # bf16 terms of each fp32 operand on the tensor cores (dy's: 1 where it is bf16)
+        "terms": {"dy": _ssd.bwd_dy_terms(dy_dtype), "S_in_dS_gcb_dcb_xw": _ssd.BWD_TERMS}
+        if tc else None,
+        # the states pass: each chunk's local states at once (tensor cores) or
+        # one block a (b, h, direction) walking the chunks (CUDA cores); then
+        # the composition (tensor cores: one thread a float4 of a (b, h)'s
+        # P x N, both directions)
+        "states_kernel_blocks": n_chunks * H * b if tc else 2 * H * b,
+        "compose_kernel_blocks": 2 * -(-b * H * P * N // 4 // 256) if tc else 0,
+        "chunk_kernel_blocks": plan.groups * n_chunks * b,
+        "smem_bytes": {"states": plan.states_smem_bytes, "chunk": plan.chunk_smem_bytes},
         "layout": "model: x/dy (b,s,H,P), B/C (b,s,N) shared" if shared
         else "(b,H,s,.) contiguous, B/C per head",
         "dtype": str(dtype).removeprefix("torch."), "dy_dtype": str(dy_dtype).removeprefix("torch."),
@@ -757,20 +774,35 @@ def ssd_bwd_case(b: int, H: int, s: int, P: int, N: int, chunk: int, dtype: torc
         plain=(lambda *a: ref.ssd_chunk_scan_bwd_ref(*a, chunk), [args], max(1, iters // 4)),
         library=None,   # no PyTorch call computes the SSD backward
     )
-    # operations, fp32: per (b, h, chunk) the two P-wide chunk x chunk products
+    # operations: per (b, h, chunk) the two P-wide chunk x chunk products
     # (dy x^T, gcb^T dy) over their causal half and five chunk x P x N products
     # (the states S_in and dS, dS B^T, dy S_in, x dS); the three N-wide chunk x
     # chunk products (C B^T, dcb B, dcb^T C) per (b, h, chunk) where B/C are per
     # head, once per (b, chunk) where they are shared (gcb_h = gate_h * C B^T and
-    # sum_h dcb_h^T C = (sum_h dcb_h)^T C)
+    # sum_h dcb_h^T C = (sum_h dcb_h)^T C); at the bf16 tensor-core rate on
+    # that route, else the fp32 rate of the CUDA cores
     heads_bc = 1 if shared else H
     pairs = cs * (cs + 1) // 2
-    flops = 2 * b * (s // cs) * (H * (pairs * 2 * P + 5 * cs * P * N) + heads_bc * pairs * 3 * N)
+    flops = 2 * b * n_chunks * (H * (pairs * 2 * P + 5 * cs * P * N) + heads_bc * pairs * 3 * N)
     nbytes = (2 * x.numel() * dtype.itemsize + dy.numel() * dy_dtype.itemsize
               + 4 * b * heads_bc * s * N * dtype.itemsize + 4 * b * H * s * 4
               + (dS.numel() * 4 if ds_final else 0))
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    by_ops = flops / PEAK_FLOPS[torch.bfloat16 if tc else torch.float32] * 1e3
+    case["ops_rate"] = "bf16 tensor cores" if tc else "fp32 CUDA cores"
+    if tc:
+        # what the kernels issue: 36 whole 16 x 16 tiles of each causal product,
+        # every product of split terms (both operands fp32: six of nine)
+        td = _ssd.bwd_dy_terms(dy_dtype)
+        both = 6 if td == 3 else 3
+        tiles = 36 * 16 * 16
+        per_head = 2 * cs * P * N * (both + 3 + 3) + 2 * tiles * P * (td + both)
+        states = 2 * cs * P * N * 3 * (2 * n_chunks - 2)
+        per_group = 2 * tiles * N * (1 + 3 + 3)
+        case["flops_with_terms"] = (b * H * (n_chunks * per_head + states)
+                                    + b * n_chunks * plan.groups * per_group)
+        case["ops_with_terms_ms"] = case["flops_with_terms"] / PEAK_FLOPS[torch.bfloat16] * 1e3
+    case["bound_by_bytes_ms"], case["bound_by_ops_ms"] = by_bytes, by_ops
     case["bound_ms"] = max(by_bytes, by_ops)
     case["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
     case["kernel_tflops"] = flops / case["kernel_ms"] / 1e9
@@ -873,6 +905,7 @@ def kernels_phase(cfg, zcfg, mcfg, dev: torch.device) -> dict[str, dict]:
     ssd_bwd_main = ssd_bwd_case(4, H, 1024, P, N, 128, bf16, gen, 5, True)
     zamba_train_cases = [
         ssd_bwd_main,
+        ssd_bwd_case(4, H, 1024, P, N, 128, bf16, gen, 5, True, bf16),     # bf16 dy: one term
         ssd_bwd_case(4, H, 1024, P, N, 128, fp32, gen, 3, True),           # the launcher's fp32
         ssd_bwd_case(2, H, 1024, P, N, 128, bf16, gen, 3, False, ds_final=True),   # per head
         ssd_bwd_case(1, H, 384, P, N, 128, bf16, gen, 10, True, ds_final=True),    # 300 tokens, padded
@@ -1517,11 +1550,20 @@ def _profiled(fn, repeats: int) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     flash_ms = sum(ms for name, (ms, _) in by_name.items() if "flash_" in name)
     ssd_ms = sum(ms for name, (ms, _) in by_name.items() if "ssd_" in name)
+    # the SSD backward's kernels (ssd_bwd_*) apart from the forward's, each by name
+    ssd_bwd: dict[str, float] = {}
+    for name, (ms, _) in by_name.items():
+        if "ssd_bwd_" in name:
+            short = re.search(r"ssd_bwd_\w+", name).group(0)
+            ssd_bwd[short] = ssd_bwd.get(short, 0.0) + ms / repeats
     return {
         "wall_ms": wall_ms / repeats, "device_busy_ms": busy_ms / repeats,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "flash_kernels_ms": flash_ms / repeats, "flash_kernels_share": flash_ms / busy_ms,
         "ssd_kernels_ms": ssd_ms / repeats, "ssd_kernels_share": ssd_ms / busy_ms,
+        "ssd_bwd_kernels_ms": sum(ssd_bwd.values()),
+        "ssd_fwd_kernels_ms": ssd_ms / repeats - sum(ssd_bwd.values()),
+        "ssd_bwd_kernels": ssd_bwd,
         "device_ops": sum(n for _, n in by_name.values()) / repeats,
         "top_kernels": [{"name": name[:80], "ms": ms / repeats, "calls": n / repeats}
                         for name, (ms, n) in top],

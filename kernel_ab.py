@@ -23,7 +23,10 @@ training forward calls it, and bf16 rows shifted one element off 16 bytes, as
 ``chip_smoke.py`` runs them); the SSD
 scan in zamba2's model layout -- x ``(b, s, H, P)`` bf16 as a transposed
 view, B/C ``(b, s, N)`` shared by the heads, dt/loga fp32, y fp32 -- over
-``SSD_ITERS`` calls); the RMSNorm backward at minicpm-2b's training step in
+``SSD_ITERS`` calls); the SSD scan's backward at zamba2-2.7b's training step
+in model layout (bf16 x, fp32 dy, B/C ``(b, s, N)`` shared, dS_final dropped)
+and per head at ``b = 2`` (``(b, H, s, .)`` contiguous, with a dS_final)
+(``SSD_BWD``); the RMSNorm backward at minicpm-2b's training step in
 bf16 (the register route) and fp32 (the block route) (``RMSNORM_BWD``); and
 one fp32-compute ``loss_and_grads`` of minicpm-2b at 4 layers under
 ``torch.profiler`` (device-busy ms and the flash kernels' share).
@@ -55,6 +58,8 @@ FLASH_CORE = [  # (b, hq, hkv, s, hd, dtype, element offset, model layout, backw
 ]
 FLASH_CORE_ITERS = 10
 SSD = [(1, 80, 32768, 64, 64), (2, 80, 1024, 64, 64)]   # (b, H, s, P, N): zamba2's 32k forward, b = 2
+SSD_BWD = [(4, 80, 1024, 64, 64, True), (2, 80, 1024, 64, 64, False)]   # (b, H, s, P, N, B/C shared)
+SSD_BWD_ITERS = 20
 RMSNORM_BWD = [((4, 1024, 2304), "bfloat16"), ((4, 1024, 2304), "float32")]   # minicpm-2b's step
 
 
@@ -65,6 +70,7 @@ def child(root: str) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import ssd_chunk as ssd
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -129,6 +135,22 @@ def child(root: str) -> dict:
         loga = -torch.nn.functional.softplus(rand(b, s, H, dtype=torch.float32)).transpose(1, 2)
         out["ms"][f"ssd x{(b, H, s, P)} N {N}"] = device_ms(
             ops.ssd_chunk_scan, x, B, C, dt, loga, 128, torch.float32, iters=SSD_ITERS)
+    f32 = torch.float32
+    for b, H, s, P, N, shared in SSD_BWD:
+        if shared:   # the model's layout: x, dy (b, s, H, P), dt/loga (b, s, H)
+            x, dy = rand(b, s, H, P).transpose(1, 2), rand(b, s, H, P, dtype=f32).transpose(1, 2)
+            B, C = (rand(b, s, N) * 0.5 for _ in range(2))
+            dt, loga = (rand(b, s, H, dtype=f32).transpose(1, 2) for _ in range(2))
+            dS = None
+        else:
+            x, dy = rand(b, H, s, P), rand(b, H, s, P, dtype=f32)
+            B, C = (rand(b, H, s, N) * 0.5 for _ in range(2))
+            dt, loga = rand(b, H, s, dtype=f32), rand(b, H, s, dtype=f32)
+            dS = rand(b, H, P, N, dtype=f32)
+        dt, loga = torch.nn.functional.softplus(dt), -torch.nn.functional.softplus(loga)
+        name = f"ssd_bwd x{(b, H, s, P)} N {N} {'B/C shared' if shared else 'per head'}"
+        out["ms"][name] = device_ms(ssd.ssd_chunk_scan_bwd_cuda, x, B, C, dt, loga, dy, dS, 128,
+                                    iters=SSD_BWD_ITERS)
     for shape, dtype in RMSNORM_BWD:
         x, dy = (rand(*shape, dtype=getattr(torch, dtype)) for _ in range(2))
         scale = 1.0 + 0.1 * rand(shape[-1], dtype=torch.float32)

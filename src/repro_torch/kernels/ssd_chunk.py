@@ -26,10 +26,14 @@ per call whatever the number of kernels it launched.
 The backward (``ssd_chunk_scan_bwd_cuda``, planned by ``ssd_bwd_plan``) takes
 B and C either per head, ``(b, H, s, N)``, or as ``(b, s, N)`` shared by the
 heads, and then returns their gradient summed over the heads, ``(b, s, N)``.
-It runs three kernels (each chunk's incoming state and outgoing state
-gradient; every chunk at once, a group of heads a block; the groups' dB/dC
-partials summed in order) on workspaces the wrapper allocates.
-``bwd_launches`` counts its calls that reached the card.
+It has the forward's two routes.  On the tensor cores (bf16 x/B/C at chunk
+128, P 64, N 64, 16-byte-aligned rows of x, B, C and dy) it runs four kernels:
+every chunk's local state and state gradient at once, their composition into
+each chunk's incoming state and outgoing state gradient, every chunk at once
+a group of heads a block, and the ordered sum of the groups' dB/dC partials.
+On the CUDA cores three: the states walked chunk by chunk, the chunks, the
+sum.  Workspaces are allocated here.  ``bwd_launches`` counts its calls that
+reached the card.
 """
 
 from __future__ import annotations
@@ -66,15 +70,19 @@ STATE_ONLY_COST = 0.3
 launches = 0
 bwd_launches = 0
 
-# The backward (``csrc/ssd_chunk_bwd.cu``): 256 threads a block, one block an
-# SM by shared memory; the chunk kernel's cost of a block beside one head's,
-# in head-times (its B/C staging and its two chunk x chunk dB/dC products,
-# estimated from the kernel's operation counts).
+# The backward (``csrc/ssd_chunk_bwd.cu``): its chunk kernel has 256 threads a
+# block on both routes and one block an SM by shared memory.  A block's fixed
+# cost beside one head's, in head-times, estimated from the kernels' operation
+# counts: on the CUDA cores its B/C staging and its two chunk x chunk dB/dC
+# products; on the tensor cores its B/C staging, C B^T and the dB/dC products
+# with dcb in three terms (about 2 000 mma a block against 5 700 a head).
 BWD_THREADS = 256
 BWD_STATES_SMEM = 4 * (2 * 128 * 64 + 2 * 128)
 BWD_CHUNK_SMEM = 4 * (128 * 65 + 128 * 64 + 128 * 65 + 128 * 64 + 128 * 129 + 8 * 128
                       + 2 * 8 * 128 + 8)
 BWD_BLOCK_COST = 0.6
+BWD_TC_BLOCK_COST = 0.4
+BWD_TERMS = 3               # bf16 terms of each fp32 operand on the tensor cores (``TERMS``)
 BWD_PLAN_LEN = 9
 REDUCE_BLOCKS_MAX = 4 * N_SM
 
@@ -88,6 +96,30 @@ def tc_smem(heads_per_block: int, state_only: bool) -> int:
         + 2 * heads_per_block * TC_CHUNK * 4
     s_split = 0 if state_only else TC_S_TERMS * heads_per_block * TC_P * TC_LD * 2
     return 2 * stage + s_split
+
+
+def bwd_dy_terms(dy_dtype: torch.dtype) -> int:
+    """bf16 terms of dy on the backward's tensor-core route: bf16 dy is exact."""
+    return 1 if dy_dtype == torch.bfloat16 else BWD_TERMS
+
+
+def bwd_tc_states_smem(dy_dtype: torch.dtype) -> int:
+    """Dynamic shared memory of the backward's tensor-core states kernel
+    (``TcStatesLayout``): x and B (bf16), then C and dy (fp32 rows of 68, or
+    bf16) in the same place; cum, dt, exp(cum) and exp(cum_L - cum) dt."""
+    tile = TC_CHUNK * TC_LD * 2
+    dy = TC_CHUNK * 68 * 4 if dy_dtype == torch.float32 else tile
+    return tile + max(tile, dy) + 4 * TC_CHUNK * 4
+
+
+def bwd_tc_chunk_smem(dy_dtype: torch.dtype) -> int:
+    """Dynamic shared memory of the backward's tensor-core chunk kernel
+    (``TcChunkLayout``): B, C, x, dy's terms (bf16), S_in's or dS's terms, C
+    B^T and the group's dcb (fp32, 36 tiles of 16 x 16), then its vectors."""
+    tile = TC_CHUNK * TC_LD * 2
+    frags = 36 * 16 * 16 * 4
+    vectors = 4 * (5 * TC_CHUNK + 8 * TC_CHUNK + 2 * TC_CHUNK + 2 * TC_CHUNK + 8)
+    return (3 + bwd_dy_terms(dy_dtype)) * tile + BWD_TERMS * TC_P * TC_LD * 2 + 2 * frags + vectors
 
 
 def blocks_per_sm(threads: int, smem: int) -> int:
@@ -158,11 +190,11 @@ def ssd_plan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, chunk: int,
 
 @dataclasses.dataclass(frozen=True)
 class SSDBwdPlan:
-    route: str                     # "cuda_cores", the only route
+    route: str                     # "tensor_cores" or "cuda_cores"
     heads_per_group: int
     groups: int                    # the chunk kernel's grid is (groups, chunks, b)
-    threads: int
-    states_smem_bytes: int
+    threads: int                   # the chunk kernel's
+    states_smem_bytes: int         # the states kernel's (each chunk's local states, or the walk)
     chunk_smem_bytes: int
     reduce_blocks: int
     partials_per_head: int         # R: groups summed into each head of dB/dC
@@ -176,7 +208,7 @@ class SSDBwdPlan:
         return (ctypes.c_longlong * BWD_PLAN_LEN)(*values)
 
 
-def groups_for(H: int, units: int, slots: int) -> int:
+def groups_for(H: int, units: int, slots: int, block_cost: float = BWD_BLOCK_COST) -> int:
     """Head groups of the backward's chunk kernel for ``units`` = b * chunks
     blocks per group: the count of least estimated time, waves of ``slots``
     blocks times a block's heads plus its fixed cost; no group is empty."""
@@ -184,28 +216,45 @@ def groups_for(H: int, units: int, slots: int) -> int:
     for g in range(1, H + 1):
         hpg = -(-H // g)
         g_eff = -(-H // hpg)
-        t = -(-units * g_eff // slots) * (hpg + BWD_BLOCK_COST)
+        t = -(-units * g_eff // slots) * (hpg + block_cost)
         best = min(best, (t, g_eff))
     return best[1]
 
 
-def ssd_bwd_plan(x: torch.Tensor, B: torch.Tensor, chunk: int) -> SSDBwdPlan:
+def bwd_tc_aligned(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor) -> bool:
+    """16-byte-aligned base addresses and batch/head/sequence strides of x, B,
+    C and dy (B and C as given, or their heads' view)."""
+    return (all(t.data_ptr() % 16 == 0 for t in (x, B, C, dy))
+            and all(st * t.element_size() % 16 == 0 for t in (x, B, C, dy) for st in t.stride()[:-1]))
+
+
+def ssd_bwd_plan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                 chunk: int) -> SSDBwdPlan:
     """The launch of ``ssd_chunk_scan_bwd`` for these inputs (``chunk`` the
-    one used; ``B`` as the caller passed it: ``(b, s, N)`` shared by the heads,
-    or ``(b, H, s, N)``).  Pure: reads shapes only, so it runs on CPU and meta
-    tensors too."""
+    one used; ``B``/``C`` as the caller passed them: ``(b, s, N)`` shared by
+    the heads, or ``(b, H, s, N)``).  Pure: reads dtypes, shapes, strides and
+    addresses only, so it runs on CPU and meta tensors too."""
     b, H, s, P = x.shape
     N = B.shape[-1]
     units = b * (s // chunk)
+    tc = (x.dtype == B.dtype == C.dtype == torch.bfloat16 and dy.dtype in DTYPE_CODES
+          and (chunk, P, N) == (TC_CHUNK, TC_P, TC_N) and bwd_tc_aligned(x, B, C, dy))
+    if tc:
+        route, states_smem, chunk_smem = ("tensor_cores", bwd_tc_states_smem(dy.dtype),
+                                          bwd_tc_chunk_smem(dy.dtype))
+        cost = BWD_TC_BLOCK_COST
+    else:
+        route, states_smem, chunk_smem, cost = ("cuda_cores", BWD_STATES_SMEM, BWD_CHUNK_SMEM,
+                                                BWD_BLOCK_COST)
     if B.dim() == 3:
-        groups = groups_for(H, units, N_SM)
+        groups = groups_for(H, units, N_SM * blocks_per_sm(BWD_THREADS, chunk_smem), cost)
         hpg = -(-H // groups)
         partials, out_heads = groups, 1
     else:
         groups, hpg, partials, out_heads = H, 1, 1, H
     reduce_blocks = max(1, min(REDUCE_BLOCKS_MAX, -(-b * out_heads * s * N // BWD_THREADS)))
-    return SSDBwdPlan("cuda_cores", hpg, groups, BWD_THREADS, BWD_STATES_SMEM, BWD_CHUNK_SMEM,
-                      reduce_blocks, partials, out_heads)
+    return SSDBwdPlan(route, hpg, groups, BWD_THREADS, states_smem, chunk_smem, reduce_blocks,
+                      partials, out_heads)
 
 
 @functools.cache
@@ -321,7 +370,7 @@ def _bwd_fn():
         ctypes.c_void_p, ctypes.c_void_p,                    # dy dS_final
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # dx ddt dloga
         ctypes.c_void_p, ctypes.c_void_p,                    # dB dC
-        ctypes.c_void_p, ctypes.c_void_p,                    # S_in, dS (workspace)
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # S_in, dS, decays (workspace)
         ctypes.c_void_p, ctypes.c_void_p,                    # dB, dC partials (workspace)
         ctypes.c_int, ctypes.c_int,                          # dtype codes: x/B/C, dy
         ctypes.c_int, ctypes.c_int, ctypes.c_int,            # b H s
@@ -367,15 +416,19 @@ def ssd_chunk_scan_bwd_cuda(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, d
                          f"P <= {MAX_P}, N <= {MAX_N}")
     x, B, C, dy = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, B, C, dy))
     ds_final = None if dS_final is None else dS_final.float().contiguous()
-    plan = ssd_bwd_plan(x, B, chunk)
+    plan = ssd_bwd_plan(x, B, C, dy, chunk)
     dev = x.device
     dx = _output(x, x.dtype)
     ddt, dloga = _output(dt, torch.float32), _output(loga, torch.float32)
     dB, dC = torch.empty_like(B, memory_format=torch.contiguous_format), \
         torch.empty_like(C, memory_format=torch.contiguous_format)
     n_chunks = s // chunk
-    s_in = torch.empty((b, H, n_chunks, P, N), dtype=torch.float32, device=dev)
-    ds_out = torch.empty((b, H, n_chunks, N, P), dtype=torch.float32, device=dev)
+    # each chunk's S_in and outgoing dS: [p][n] on the tensor cores, dS [n][p]
+    # on the CUDA cores; the chunks' decays on the tensor cores only
+    s_in, ds_out = (torch.empty((b, H, n_chunks, P * N), dtype=torch.float32, device=dev)
+                    for _ in range(2))
+    decay = (torch.empty((b, H, n_chunks), dtype=torch.float32, device=dev)
+             if plan.route == "tensor_cores" else None)
     part_b, part_c = (torch.empty((b, plan.groups, s, N), dtype=torch.float32, device=dev)
                       for _ in range(2))
     B4, C4, dB4, dC4 = (_per_head(t, H) for t in (B, C, dB, dC))
@@ -387,13 +440,14 @@ def ssd_chunk_scan_bwd_cuda(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, d
             x.data_ptr(), B.data_ptr(), C.data_ptr(), dt.data_ptr(), loga.data_ptr(),
             dy.data_ptr(), None if ds_final is None else ds_final.data_ptr(),
             dx.data_ptr(), ddt.data_ptr(), dloga.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-            s_in.data_ptr(), ds_out.data_ptr(), part_b.data_ptr(), part_c.data_ptr(),
+            s_in.data_ptr(), ds_out.data_ptr(), None if decay is None else decay.data_ptr(),
+            part_b.data_ptr(), part_c.data_ptr(),
             DTYPE_CODES[x.dtype], DTYPE_CODES[dy.dtype], b, H, s, P, N, chunk, strides,
             plan.as_array(), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"SSD chunk-scan backward launch failed (cudaError {err}) for x "
-                           f"{tuple(x.shape)} {x.dtype}, B {tuple(B.shape)}, dy {dy.dtype}, "
+        raise RuntimeError(f"SSD chunk-scan backward ({plan.route}) launch failed (cudaError "
+                           f"{err}) for x {tuple(x.shape)} {x.dtype}, B {tuple(B.shape)}, dy {dy.dtype}, "
                            f"chunk {chunk}, plan {plan}")
     bwd_launches += 1
     return dx, dB, dC, ddt, dloga

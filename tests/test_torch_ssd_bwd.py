@@ -1,7 +1,9 @@
 """The SSD chunk scan's backward: the port's plain analytic backward
 (``ref.ssd_chunk_scan_bwd_ref``) against ``jax.vjp`` of the reference's chunk
 recurrence, and ``ops.ssd_chunk_scan`` as an autograd Function; the backward
-kernel's launch plan on meta tensors at every shape ``chip_smoke.py`` gives it.
+kernel's launch plan (two routes) on meta tensors at every shape
+``chip_smoke.py`` gives it; the tensor-core route's bf16 split of each fp32
+operand, emulated in torch.
 
 The reference's Pallas ``ssd_chunk_scan`` has no VJP (a ``pallas_call`` is not
 differentiable in interpret mode), so the reference here is its own oracle,
@@ -231,32 +233,64 @@ class TestBackwardWrapper:
 
 
 # Every SSD backward case of chip_smoke.py (kernels phase), and the training
-# phases' shapes: (b, H, s, P, N, chunk, B/C shared by the heads)
+# phases' shapes: (b, H, s, P, N, chunk, B/C shared by the heads, x's dtype,
+# dy's dtype); shared cases in the model's layout, the others contiguous
 PLAN_SSD_BWD = [
-    (4, 80, 1024, 64, 64, 128, True),     # zamba2-2.7b's training step
-    (1, 80, 384, 64, 64, 128, True),      # zamba_train_parity's 300 tokens, padded
-    (1, 8, 384, 64, 64, 128, True),
-    (2, 80, 1024, 64, 64, 128, False),    # per head
-    (2, 2, 64, 16, 8, 16, False),         # the reference's shapes
-    (1, 4, 128, 32, 16, 32, False),
-    (2, 1, 32, 8, 8, 32, False),
-    (2, 2, 64, 16, 8, 16, True),
-    (8, 4, 128, 32, 16, 128, True),       # the launcher's reduced zamba2, 64 tokens padded
+    (4, 80, 1024, 64, 64, 128, True, "bfloat16", "float32"),   # zamba2-2.7b's training step
+    (4, 80, 1024, 64, 64, 128, True, "bfloat16", "bfloat16"),
+    (4, 80, 1024, 64, 64, 128, True, "float32", "float32"),    # the launcher's fp32
+    (1, 80, 384, 64, 64, 128, True, "bfloat16", "float32"),    # zamba_train_parity's 300 tokens, padded
+    (1, 8, 384, 64, 64, 128, True, "float32", "float32"),
+    (2, 80, 1024, 64, 64, 128, False, "bfloat16", "float32"),  # per head
+    (2, 2, 64, 16, 8, 16, False, "float32", "float32"),        # the reference's shapes
+    (1, 4, 128, 32, 16, 32, False, "float32", "float32"),
+    (2, 1, 32, 8, 8, 32, False, "float32", "float32"),
+    (2, 2, 64, 16, 8, 16, False, "bfloat16", "bfloat16"),
+    (1, 4, 128, 32, 16, 32, False, "bfloat16", "bfloat16"),
+    (2, 1, 32, 8, 8, 32, False, "bfloat16", "bfloat16"),
+    (2, 2, 64, 16, 8, 16, True, "float32", "float32"),
+    # the launcher's reduced zamba2, 64 tokens padded
+    (8, 4, 128, 32, 16, 128, True, "float32", "float32"),
 ]
 
 
-def meta_bwd(b, H, s, P, N, chunk, shared):
-    x = torch.empty(b, s, H, P, device="meta").transpose(1, 2)
-    B = torch.empty((b, s, N) if shared else (b, H, s, N), device="meta")
-    return x, B, min(chunk, s)
+def meta_bwd(b, H, s, P, N, chunk, shared, dtype="bfloat16", dy_dtype="float32", offset=0,
+             dy_offset=0):
+    """``ssd_bwd_plan``'s arguments as meta tensors: shared cases in the
+    model's layout (x and dy as transposed views of (b, s, H, P), B/C (b, s,
+    N)), others contiguous; ``offset``/``dy_offset`` shift x's / dy's storage
+    by that many elements."""
+    def held(dt_, off):
+        if shared:
+            t = torch.empty(b * s * H * P + off, dtype=dt_, device="meta")[off:]
+            return t.view(b, s, H, P).transpose(1, 2)
+        return torch.empty(b * H * s * P + off, dtype=dt_, device="meta")[off:].view(b, H, s, P)
+
+    dt_ = getattr(torch, dtype)
+    x, dy = held(dt_, offset), held(getattr(torch, dy_dtype), dy_offset)
+    B, C = (torch.empty((b, s, N) if shared else (b, H, s, N), dtype=dt_, device="meta")
+            for _ in range(2))
+    return x, B, C, dy, min(chunk, s)
+
+
+def takes_tensor_cores(b, H, s, P, N, chunk, shared, dtype, dy_dtype):
+    return dtype == "bfloat16" and (min(chunk, s), P, N) == (128, 64, 64)
 
 
 class TestSSDBwdPlan:
     @pytest.mark.parametrize("case", PLAN_SSD_BWD)
-    def test_groups_cover_the_heads(self, case):
-        b, H, s, P, N, chunk, shared = case
+    def test_route(self, case):
+        """bf16 x/B/C at chunk 128, P = N = 64 with aligned rows take the
+        tensor cores, whatever dy's dtype; fp32 and the reference's shapes the
+        CUDA cores."""
         plan = ssd_cuda.ssd_bwd_plan(*meta_bwd(*case))
-        assert plan.route == "cuda_cores" and plan.threads == ssd_cuda.BWD_THREADS
+        assert plan.route == ("tensor_cores" if takes_tensor_cores(*case) else "cuda_cores")
+        assert plan.threads == ssd_cuda.BWD_THREADS
+
+    @pytest.mark.parametrize("case", PLAN_SSD_BWD)
+    def test_groups_cover_the_heads(self, case):
+        b, H, s, P, N, chunk, shared = case[:7]
+        plan = ssd_cuda.ssd_bwd_plan(*meta_bwd(*case))
         hpg, G = plan.heads_per_group, plan.groups
         assert (G - 1) * hpg < H <= G * hpg   # no empty group, every head in one
         if shared:
@@ -267,34 +301,176 @@ class TestSSDBwdPlan:
 
     @pytest.mark.parametrize("case", PLAN_SSD_BWD)
     def test_shared_memory_fits_a_block(self, case):
+        """On either route the states pass and the chunk kernel fit a block,
+        and the chunk kernel runs one block an SM."""
         from repro_torch.kernels import flash_attention as fa_cuda
 
         plan = ssd_cuda.ssd_bwd_plan(*meta_bwd(*case))
         assert 0 < plan.states_smem_bytes <= plan.chunk_smem_bytes <= fa_cuda.SMEM_LIMIT
+        assert ssd_cuda.blocks_per_sm(plan.threads, plan.chunk_smem_bytes) == 1
+
+    def test_tensor_core_shared_memory(self):
+        """The tensor-core kernels' layouts: the chunk kernel holds x, B, C,
+        dy in three bf16 terms (one where dy is bf16), S_in's or dS's three
+        terms, C B^T and the group's dcb in fp32; the states kernel four blocks
+        an SM."""
+        tile, stile, frags = 128 * 72 * 2, 64 * 72 * 2, 36 * 16 * 16 * 4
+        vectors = 4 * (5 * 128 + 8 * 128 + 4 * 128 + 8)
+        for dy_dtype, terms in ((torch.float32, 3), (torch.bfloat16, 1)):
+            assert ssd_cuda.bwd_dy_terms(dy_dtype) == terms
+            assert ssd_cuda.bwd_tc_chunk_smem(dy_dtype) == \
+                (3 + terms) * tile + 3 * stile + 2 * frags + vectors
+            assert ssd_cuda.blocks_per_sm(128, ssd_cuda.bwd_tc_states_smem(dy_dtype)) >= 4
+        assert ssd_cuda.bwd_tc_chunk_smem(torch.float32) == 220704
 
     def test_the_training_shape_fills_the_card(self):
-        """At zamba2-2.7b's training step the chunk kernel's blocks fill the
-        132 SMs once, one block an SM (its shared memory)."""
+        """At zamba2-2.7b's training step (b x chunks = 32) the chunk kernel's
+        blocks fill the 132 SMs once, one block an SM (its shared memory), on
+        the tensor cores."""
+        b, H, s = PLAN_SSD_BWD[0][:3]
         plan = ssd_cuda.ssd_bwd_plan(*meta_bwd(*PLAN_SSD_BWD[0]))
-        blocks = plan.groups * 8 * 4
+        assert plan.route == "tensor_cores"
+        blocks = plan.groups * (s // 128) * b
         assert ssd_cuda.N_SM * 0.9 <= blocks <= ssd_cuda.N_SM
         assert ssd_cuda.blocks_per_sm(plan.threads, plan.chunk_smem_bytes) == 1
+
+    @pytest.mark.parametrize("case", [PLAN_SSD_BWD[1], PLAN_SSD_BWD[3]])
+    def test_bf16_dy_and_300_tokens_fill_the_card(self, case):
+        """The same with bf16 dy, and at 300 tokens padded to 384, where b x
+        chunks is 3 and groups of two heads fill the card."""
+        b, H, s = case[:3]
+        plan = ssd_cuda.ssd_bwd_plan(*meta_bwd(*case))
+        assert plan.route == "tensor_cores"
+        blocks = plan.groups * (s // 128) * b
+        assert ssd_cuda.N_SM * 0.9 <= blocks <= ssd_cuda.N_SM
+
+    @pytest.mark.parametrize("what", ["fp32 x", "x offset", "dy offset", "chunk 64", "P 32",
+                                      "N 32"])
+    def test_other_inputs_take_the_cuda_cores(self, what):
+        args = dict(b=1, H=8, s=512, P=64, N=64, chunk=128, shared=True, dtype="bfloat16",
+                    dy_dtype="float32")
+        args.update({"fp32 x": {"dtype": "float32"}, "chunk 64": {"chunk": 64},
+                     "P 32": {"P": 32}, "N 32": {"N": 32}}.get(what, {}))
+        plan = ssd_cuda.ssd_bwd_plan(*meta_bwd(**args, offset=int(what == "x offset"),
+                                               dy_offset=int(what == "dy offset")))
+        assert plan.route == "cuda_cores"
 
     def test_groups_rule(self):
         assert ssd_cuda.groups_for(80, 32, 132) == 4     # 128 blocks of 20 heads
         assert ssd_cuda.groups_for(80, 132, 132) == 1    # the chunks alone fill the card
+        assert ssd_cuda.groups_for(80, 32, 132, ssd_cuda.BWD_TC_BLOCK_COST) == 4
+        assert ssd_cuda.groups_for(80, 3, 132, ssd_cuda.BWD_TC_BLOCK_COST) == 40
         for units in (1, 3, 8, 50):
             g = ssd_cuda.groups_for(80, units, 132)
             hpg = -(-80 // g)
             assert (g - 1) * hpg < 80 <= g * hpg
 
+    @staticmethod
+    def layout(plan):
+        return [ssd_cuda.ROUTES.index(plan.route), plan.heads_per_group, plan.groups,
+                plan.threads, plan.states_smem_bytes, plan.chunk_smem_bytes,
+                plan.reduce_blocks, plan.partials_per_head, plan.out_heads]
+
     def test_plan_array_layout(self):
         plan = ssd_cuda.ssd_bwd_plan(*meta_bwd(*PLAN_SSD_BWD[0]))
-        assert list(plan.as_array()) == [0, plan.heads_per_group, plan.groups, plan.threads,
-                                         plan.states_smem_bytes, plan.chunk_smem_bytes,
-                                         plan.reduce_blocks, plan.partials_per_head,
-                                         plan.out_heads]
+        assert list(plan.as_array()) == self.layout(plan)
+        assert plan.as_array()[0] == 1   # tensor cores
         assert len(plan.as_array()) == ssd_cuda.BWD_PLAN_LEN
+
+    def test_plan_array_layout_cuda_cores(self):
+        plan = ssd_cuda.ssd_bwd_plan(*meta_bwd(*PLAN_SSD_BWD[2]))
+        assert list(plan.as_array()) == self.layout(plan)
+        assert plan.as_array()[0] == 0
+        assert len(plan.as_array()) == ssd_cuda.BWD_PLAN_LEN
+
+
+class TestSSDBwdSplitPrecision:
+    """Why the backward's tensor-core route splits each fp32 operand into
+    three bf16 terms, as the forward does (``test_torch_kernels.py::
+    TestSSDSplitPrecision``), on the same chunk, whose prefix sum passes |cum|
+    = 100: each product that takes an fp32 operand, emulated with bf16
+    rounding (each product of terms exact, as the tensor cores form it in
+    fp32), against the exact product, by the 1e-4 rule (rtol = atol).  One
+    term misses it by far; two meet it with little margin (up to 0.95 of the
+    allowance, dy S_in and dy x^T); three sit at fp32 level.  Where both
+    operands are fp32 the products of terms i + j <= 2 run (six of nine).  dy
+    in bf16 is exact: one term."""
+
+    @staticmethod
+    def chunk():
+        rng = np.random.default_rng(0)
+        cs, P, N = 128, 64, 64
+        loga = -np.abs(rng.standard_normal(cs) * 0.5 + 0.78).astype(np.float32)
+        dt = np.logaddexp(rng.standard_normal(cs), 0.0).astype(np.float32)
+        C, B = (rng.standard_normal((cs, N)).astype(np.float32) * 0.5 for _ in range(2))
+        x = rng.standard_normal((cs, P)).astype(np.float32)
+        C, B, x = (torch.from_numpy(a).bfloat16().float() for a in (C, B, x))
+        dt = torch.from_numpy(dt)
+        cum = torch.cumsum(torch.from_numpy(loga).double(), 0).float()
+        tri = torch.ones(cs, cs, dtype=torch.bool).tril()
+        gate = torch.where(tri, torch.exp(torch.where(tri, cum[:, None] - cum[None, :], 0.0)), 0.0)
+        # the cotangents and the states, fp32 from a second seed
+        rng = np.random.default_rng(1)
+        dy, S, dS = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                     for shape in ((cs, P), (P, N), (P, N)))
+        gcb = gate * (C @ B.T)
+        dW = (dy.double() @ x.double().T).float()
+        dcb = dW * gate * dt[None, :]
+        w = torch.exp(cum[-1] - cum) * dt
+        dy16 = dy.bfloat16().float()
+        # name: (A, B, A fp32?, B fp32?), each product as the kernels form it
+        return cum, {
+            "dW^T = x dy^T": (x, dy.T, False, True),
+            "gcb^T dy": (gcb.T, dy, True, True),
+            "dy S_in": (dy, S, True, True),
+            "dS B^T": (B, dS.T, False, True),
+            "x dS": (x, dS, False, True),
+            "dcb^T C": (dcb.T, C, True, False),
+            "dcb B": (dcb, B, True, False),
+            "(x w)^T B": ((x * w[:, None]).T, B, True, False),
+            "(exp(cum) dy)^T C": ((dy * torch.exp(cum)[:, None]).T, C, True, False),
+            "gcb^T dy, dy bf16": (gcb.T, dy16, True, False),
+            "dy S_in, dy bf16": (dy16, S, False, True),
+        }
+
+    @staticmethod
+    def terms(v, k):
+        out = []
+        for _ in range(k):
+            out.append(v.bfloat16().float())
+            v = v - out[-1]
+        return out
+
+    def ratio(self, a, b, ka, kb):
+        """The worst |got - exact| / (1e-4 (1 + |exact|)) with ``ka``/``kb``
+        terms of a and b (0: the operand as it is, exact in bf16); both split:
+        the products of terms i + j < max(ka, kb)."""
+        A = self.terms(a, ka) if ka else [a]
+        Bt = self.terms(b, kb) if kb else [b]
+        top = max(len(A), len(Bt))
+        got = sum(ai.double() @ bj.double() for i, ai in enumerate(A) for j, bj in enumerate(Bt)
+                  if i + j < top)
+        exact = a.double() @ b.double()
+        return ((got - exact).abs() / (1e-4 * (1 + exact.abs()))).max().item()
+
+    PRODUCTS = ["dW^T = x dy^T", "gcb^T dy", "dy S_in", "dS B^T", "x dS", "dcb^T C", "dcb B",
+                "(x w)^T B", "(exp(cum) dy)^T C", "gcb^T dy, dy bf16", "dy S_in, dy bf16"]
+
+    @pytest.mark.parametrize("name", PRODUCTS)
+    @pytest.mark.parametrize("k,lo,hi", [(1, 1.0, np.inf), (2, 0.0, 1.0),
+                                         (ssd_cuda.BWD_TERMS, 0.0, 1e-2)])
+    def test_terms_against_the_rule(self, name, k, lo, hi):
+        cum, products = self.chunk()
+        assert cum[-1].abs() > 100
+        a, b, a32, b32 = products[name]
+        ratio = self.ratio(a, b, k if a32 else 0, k if b32 else 0)
+        assert lo < ratio <= hi
+
+    def test_the_kernel_term_counts(self):
+        """Three terms of every fp32 operand; dy's count by its dtype."""
+        assert ssd_cuda.BWD_TERMS == 3
+        assert ssd_cuda.bwd_dy_terms(torch.float32) == 3
+        assert ssd_cuda.bwd_dy_terms(torch.bfloat16) == 1
 
 
 class TestOverflowingGate:
