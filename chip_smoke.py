@@ -9,9 +9,11 @@ raises and the script exits non-zero:
 1. ``env``     -- the card (name, power limit), torch/CUDA versions, TF32 setting.
 2. ``build``   -- compiles ``src/repro_torch/kernels/csrc/*.cu`` with nvcc
    (one process per source, all at once).
-3. ``kernels`` -- calls each kernel's wrapper at the shapes the four model
-   paths give it (glm4-9b's serving, zamba2-2.7b's prefill, minicpm-2b's and
-   zamba2-2.7b's training steps; plus ragged, unaligned and small cases), holds
+3. ``kernels`` -- calls each kernel's wrapper at the shapes the model paths
+   give it (glm4-9b's and qwen3-moe-235b-a22b's serving, zamba2-2.7b's
+   prefill, minicpm-2b's, zamba2-2.7b's, qwen3-moe's and phi-3-vision-4.2b's
+   training steps, the last with flash attention at head dim 96 on both
+   routes; plus ragged, unaligned and small cases), holds
    the result against the plain PyTorch version on the same inputs, and times
    kernel, plain version and the one PyTorch library call that computes the
    same function (a yardstick; the port never calls it; none exists for the
@@ -49,26 +51,48 @@ raises and the script exits non-zero:
 10. ``trainer`` -- the reduced config on the card through
    ``repro_torch.launch.train.main``, and a ``Trainer`` restarted by a
    ``FaultInjector`` against an uninterrupted one (final checkpoints
-   bit-identical); then reduced zamba2-2.7b through the launcher, once with a
-   step failing and restored, once uninterrupted (bit-identical).
+   bit-identical); then reduced zamba2-2.7b, qwen3-moe-235b-a22b and
+   phi-3-vision-4.2b through the launcher, each once with a step failing and
+   restored, once uninterrupted (bit-identical: the MoE's dispatch and
+   combine sum in a fixed order).
 11. ``zamba_train_parity`` -- ``train_parity`` for zamba2-2.7b at full width,
    12 layers (two units), fp32 masters, fp32 and bf16 compute.
 12. ``zamba_train`` -- zamba2-2.7b at full width and depth (54 Mamba2 layers,
    the shared block applied 9 times), bf16 compute on fp32 masters, remat of
    each Mamba2 layer: 8 steps of ``make_train_step`` under its cosine schedule,
    with ``train``'s checks and reports.
+13. ``moe_parity`` -- qwen3-moe-235b-a22b (128 experts, top-8) at full width,
+   2 layers: ``parity``, the plain run held to the kernel run's routes; fp32
+   routes identical, in bf16 the share the plain run would flip reported
+   (rule in the phase).
+14. ``moe_serve`` -- qwen3-moe at full width and 12 of its 94 layers (62 GB of
+   bf16 weights: one card's cut) through ``serve``'s engine, requests and
+   checks.
+15. ``moe_train_parity`` -- ``train_parity`` for qwen3-moe at 1 layer, the
+   plain run held to the kernel run's routes (rule in the phase).
+16. ``moe_train`` -- qwen3-moe at full width and 1 layer (59.7 GB of fp32
+   weights, gradients and AdamW moments): ``train``'s 8 steps, checks and
+   reports, a finite aux loss at every step, model FLOPs over the active
+   (top-8) experts.
+17. ``vlm_train_parity`` -- ``train_parity`` for phi-3-vision-4.2b at full
+   width, 4 layers, with 576 patch embeddings from a seed before the 1024
+   tokens (flash attention at head dim 96 over 1600 positions).
+18. ``vlm_train`` -- phi-3-vision at full width and depth (32 layers): 8
+   steps of ``train`` with its patches.
 
-With ``--profile`` five further phases, after ``serve``, ``zamba``,
-``train_parity``, ``train`` and ``zamba_train``, trace a decode step and a
-prefill of each served model, one fp32-compute ``loss_and_grads`` of
-``train_parity``'s model (the launcher's dtype) and one full-depth train step
-of each trained model with ``torch.profiler`` (device-busy time against the
-host's wall clock, and the flash and SSD kernels' shares, the SSD backward's
-kernels apart).
+With ``--profile`` further phases, after ``serve``, ``zamba``,
+``train_parity``, ``train``, ``zamba_train``, ``moe_serve``, ``moe_train`` and
+``vlm_train``, trace a decode step and a prefill of each served model, one
+fp32-compute ``loss_and_grads`` of ``train_parity``'s model (the launcher's
+dtype) and one train step of each trained model with ``torch.profiler``
+(device-busy time against the host's wall clock, and the flash and SSD
+kernels' shares, the SSD backward's kernels apart, the MoE's routing,
+dispatch, expert GEMMs and combine apart).
 
 Then the ``kernels`` summary line (the three forwards and the three
-backwards: launches over the serve, zamba, train and zamba_train paths,
-error, times and roofline bound per kernel), the card as ``nvidia-smi`` names it,
+backwards: launches over every main path -- serve, zamba, train,
+zamba_train, moe_serve, moe_train, vlm_train -- error, times and roofline
+bound per kernel), the card as ``nvidia-smi`` names it,
 and the verdict as the last line.  There is no CPU path: without a CUDA device the
 script exits non-zero before printing anything.
 """
@@ -76,6 +100,7 @@ script exits non-zero before printing anything.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -103,6 +128,7 @@ from repro_torch.kernels import rmsnorm as _rms  # noqa: E402
 from repro_torch.kernels import ssd_chunk as _ssd  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import ModelOptions, build_model  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.optim import AdamWConfig, get_schedule, init_opt_state  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
@@ -809,11 +835,12 @@ def ssd_bwd_case(b: int, H: int, s: int, P: int, N: int, chunk: int, dtype: torc
     return case
 
 
-def kernels_phase(cfg, zcfg, mcfg, dev: torch.device) -> dict[str, dict]:
+def kernels_phase(cfg, zcfg, mcfg, qcfg, vcfg, dev: torch.device) -> dict[str, dict]:
     """Every kernel case; returns the case of each kernel at its main paths'
     heaviest shape (zamba2-2.7b's 32k prefill for the three forwards,
     minicpm-2b's training step for the RMSNorm and flash backwards, zamba2's
-    for the SSD backward)."""
+    for the SSD backward).  ``qcfg``/``vcfg``: qwen3-moe-235b-a22b's and
+    phi-3-vision-4.2b's shapes (flash at hd 96 on both routes)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     hd = cfg.resolved_head_dim
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -920,7 +947,32 @@ def kernels_phase(cfg, zcfg, mcfg, dev: torch.device) -> dict[str, dict]:
         rmsnorm_case((4, 1024, zcfg.d_model), bf16, gen, 50),
         rmsnorm_bwd_case((4, 1024, zcfg.d_model), bf16, gen, 50),
     ]
-    emit({"phase": "kernels", "cases": cases + zamba_cases + train_cases + zamba_train_cases})
+    # qwen3-moe-235b-a22b's prefill and training step (GQA 16:1 at hd 128, d
+    # 4096), phi-3-vision-4.2b's step (576 patches + 1024 tokens, MHA at hd 96,
+    # d 3072) and hd 96 on the CUDA cores (fp32, ragged, unaligned bf16)
+    qh, qkv, qhd, qd = qcfg.n_heads, qcfg.n_kv_heads, qcfg.resolved_head_dim, qcfg.d_model
+    vh, vhd, vd, vs = vcfg.n_heads, vcfg.resolved_head_dim, vcfg.d_model, TRAIN_SEQ + vcfg.n_patches
+    b = TRAIN_BATCH
+    moe_vlm_cases = [
+        flash_case(1, qh, qkv, 1024, 1024, qhd, bf16, gen, 20, True),    # the largest bucket
+        flash_case(b, qh, qkv, TRAIN_SEQ, TRAIN_SEQ, qhd, bf16, gen, 10, True, with_lse=True),
+        flash_bwd_case(b, qh, qkv, TRAIN_SEQ, TRAIN_SEQ, qhd, bf16, gen, 10, True),
+        flash_case(b, vh, vh, vs, vs, vhd, bf16, gen, 10, True, with_lse=True),
+        flash_bwd_case(b, vh, vh, vs, vs, vhd, bf16, gen, 10, True),
+        flash_lse_case(b, vh, vh, vs, vhd, bf16, gen),
+        flash_case(b, vh, vh, vs, vs, vhd, fp32, gen, 3, True, with_lse=True),   # the launcher's
+        flash_bwd_case(b, vh, vh, vs, vs, vhd, fp32, gen, 3, True),
+        flash_lse_case(b, vh, vh, vs, vhd, fp32, gen),
+        flash_case(1, 4, 4, 150, 150, vhd, fp32, gen, 20, False),            # ragged
+        flash_case(1, 4, 4, 150, 150, vhd, bf16, gen, 20, False, offset=1),  # unaligned
+        flash_bwd_case(1, 4, 4, 150, 150, vhd, bf16, gen, 20, False, offset=1),
+        rmsnorm_case((b, vs, vd), bf16, gen, 50),
+        rmsnorm_bwd_case((b, vs, vd), bf16, gen, 50),
+        rmsnorm_case((b, TRAIN_SEQ, qd), bf16, gen, 50),
+        rmsnorm_bwd_case((b, TRAIN_SEQ, qd), bf16, gen, 50),
+    ]
+    emit({"phase": "kernels", "cases": cases + zamba_cases + train_cases + zamba_train_cases
+          + moe_vlm_cases})
     return {"rmsnorm": rmsnorm_main, "flash_attention": flash_main, "ssd_chunk_scan": ssd_main,
             "rmsnorm_bwd": rmsnorm_bwd_main, "flash_attention_bwd": flash_bwd_main,
             "ssd_chunk_scan_bwd": ssd_bwd_main}
@@ -947,7 +999,7 @@ def leaf_paths(tree, path: str = "") -> list[str]:
 
 
 # leaves held in fp32 whatever the weights' dtype
-FP32_LEAVES = ("norm_scale", "A_log", "D", "dt_bias")
+FP32_LEAVES = ("norm_scale", "A_log", "D", "dt_bias", "router")
 
 
 def cast(tree, dtype):
@@ -1010,10 +1062,139 @@ def parity_phase(cfg, dev: torch.device) -> None:
     emit(report)
 
 
+# ---------------------------------------------------------------------- MoE
+# qwen3-moe-235b-a22b does not fit one card at its 94 layers (4.98 GB of bf16
+# weights a layer): serving keeps 12 (59.7 GB, with 2.49 GB of embedding and
+# head), training 1 (16 bytes a parameter of weights, gradients and AdamW
+# moments: 59.7 GB); widths are the published ones.  Full depth needs the
+# parallelism layer (ROADMAP A6).
+MOE_SERVE_LAYERS = 12
+MOE_TRAIN_LAYERS = 1
+
+
+def recorded_routes():
+    """(log, patch): under ``patch`` every ``moe_route`` call appends its
+    (expert_idx, keep), each (tokens, k), to ``log`` (comparison only)."""
+    log, real = [], model_layers.moe_route
+
+    def route(logits, top_k, capacity, expert_idx=None):
+        out = real(logits, top_k, capacity, expert_idx)
+        log.append((out[2].reshape(-1, top_k), out[4].reshape(-1, top_k)))
+        return out
+
+    return log, mock.patch.object(model_layers, "moe_route", route)
+
+
+def pinned_routes(log):
+    """(flips, patch): under ``patch`` the i-th ``moe_route`` call takes the
+    choices of ``log``'s i-th call in place of its own, and ``flips`` gathers
+    how many of its own choices differed (comparison only)."""
+    calls, flips, real = iter(log), [], model_layers.moe_route
+
+    def route(logits, top_k, capacity, expert_idx=None):
+        own = real(logits, top_k, capacity)[2]
+        pinned = next(calls)[0].view_as(own)
+        flips.append((own != pinned).sum())
+        return real(logits, top_k, capacity, pinned)
+
+    return flips, mock.patch.object(model_layers, "moe_route", route)
+
+
+def moe_parity_phase(cfg, dev: torch.device, n_layers: int = 2) -> None:
+    """qwen3-moe-235b-a22b at full width and ``n_layers`` layers: one padded
+    prefill (its bucket's padding routes and takes capacity, as in the
+    reference) and a few paged decode steps (8 lanes, 7 idle, which route
+    too), logits through the kernels against logits through the plain
+    versions, ``parity``'s rule (fp32 within TOL[float32] elementwise, bf16
+    within TOL[bfloat16] times the largest |logit|).  The plain run takes the
+    kernel run's routing choices (``pinned_routes``).  fp32: its own choices
+    must be the same.  bf16: where a kernel rounds the normed input one step
+    apart from the plain version, a near-tie at the 8th of 128 choices flips
+    (and, through capacity, later pairs' kept flags); a flipped token's
+    output then differs wholly and reaches every later token of its sequence
+    through attention (holding only the positions whose own routes agree kept
+    fewer than half of them, and those outside the rule), so the share of its
+    own choices that differ is reported, not held."""
+    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    n_pages, ps, max_blocks, lanes = 64, 16, 16, 8
+    prompt_len, bucket, n_decode = 200, 256, 3
+    gen = torch.Generator(device=dev).manual_seed(2)
+    master = build_model(cfg, ModelOptions("float32", "float32"), dev).init(gen)
+    prompt = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+    prompt[0, :prompt_len] = torch.randint(0, cfg.vocab, (prompt_len,), device=dev, generator=gen)
+    step_tokens = torch.randint(0, cfg.vocab, (n_decode, lanes, 1), device=dev, generator=gen)
+    table = torch.full((lanes, max_blocks), -1, dtype=torch.int32, device=dev)
+    n_blocks = -(-(prompt_len + n_decode) // ps)
+    table[0, :n_blocks] = torch.arange(n_blocks, dtype=torch.int32, device=dev)
+    active = torch.zeros(lanes, dtype=torch.bool, device=dev)
+    active[0] = True
+
+    @torch.no_grad()
+    def run(model, params) -> list[torch.Tensor]:
+        pages = model.init_paged_cache(n_pages, ps)
+        logits, _ = model.prefill_paged(params, pages, table[0], prompt_len, prompt)
+        outs = [logits[0, :prompt_len, :cfg.vocab].float()]
+        lengths = torch.zeros(lanes, dtype=torch.int32, device=dev)
+        for i in range(n_decode):
+            lengths[0] = prompt_len + i
+            logits, _ = model.decode_step_paged(params, pages, table, lengths, step_tokens[i], active)
+            outs.append(logits[0, :, :cfg.vocab].float())
+        torch.cuda.synchronize()
+        return outs
+
+    report = {"phase": "moe_parity", "model": cfg.name, "n_layers": n_layers,
+              "n_experts": cfg.n_experts, "top_k": cfg.top_k, "prompt_len": prompt_len,
+              "bucket": bucket, "decode_steps": n_decode,
+              "rule": "the plain run takes the kernel run's routing choices; fp32: its own "
+                      "must be the same"}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        model = build_model(cfg, ModelOptions(name, name), dev)
+        params = cast(master, dtype)
+        ops.reset_launch_counts()
+        log, recording = recorded_routes()
+        with recording:
+            through_kernels = run(model, params)
+        counts = ops.launch_counts()
+        flips, pinning = pinned_routes(log)
+        with plain_kernels(), pinning:
+            through_plain = run(model, params)
+        if ops.launch_counts() != counts or counts["flash_attention"] != n_layers:
+            raise AssertionError(f"moe_parity: the plain run launched kernels, or the kernel run "
+                                 f"did not: {counts} -> {ops.launch_counts()}")
+        # every routed (token, layer, k): the bucket's padding and the idle lanes too
+        n_routes = sum(i.numel() for i, _ in log)
+        flipped = sum(int(f) for f in flips)
+        scale = max(b.abs().max().item() for b in through_plain)
+        finite = all(torch.isfinite(a).all().item() for a in through_kernels)
+        if dtype == torch.float32:
+            if flipped:
+                raise AssertionError(f"moe_parity float32: {flipped} of {n_routes} routes differ")
+            diff = max(compare(a, b, "moe_parity float32 logits")
+                       for a, b in zip(through_kernels, through_plain))
+            tol = TOL[dtype]
+        else:
+            diff = max((a - b).abs().max().item() for a, b in zip(through_kernels, through_plain))
+            tol = TOL[dtype] * scale
+        if not finite or not diff <= tol:
+            raise AssertionError(f"moe_parity {name}: max abs logit diff {diff} > {tol} "
+                                 f"(finite={finite})")
+        report[name] = {"max_abs_logit_diff": diff, "tol": tol, "max_abs_logit": scale,
+                        "routes": n_routes, "routes_the_plain_run_would_flip": flipped,
+                        "route_flip_share": flipped / n_routes, "launches": counts}
+        del params
+    emit(report)
+
+
 # -------------------------------------------------------------------- serve
-def serve_phase(cfg, dev: torch.device, n_layers: int):
+def serve_phase(cfg, dev: torch.device, n_layers: int, phase: str = "serve"):
+    """``cfg`` at full width and ``n_layers`` layers (bf16, random weights
+    from a seed) serving 16 seeded Poisson requests through ``ServeEngine``;
+    checks every result, the page allocator and the exact launches.  Returns
+    the launches, the model and its parameters."""
+    full_depth = cfg.n_layers
     if n_layers != cfg.n_layers:
-        print(f"NOTE: depth cut from {cfg.n_layers} to {n_layers} layers; widths unchanged")
+        print(f"NOTE: {cfg.name}'s depth cut from {cfg.n_layers} to {n_layers} layers; "
+              "widths unchanged", flush=True)
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = build_model(cfg, ModelOptions("bfloat16", "bfloat16"), dev)
     t0 = time.perf_counter()
@@ -1061,8 +1242,9 @@ def serve_phase(cfg, dev: torch.device, n_layers: int):
 
     report = ServeReport.from_run(results, stats)
     emit({
-        "phase": "serve", "model": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-        "params": cfg.param_count(), "dtype": "bfloat16",
+        "phase": phase, "model": cfg.name, "n_layers": cfg.n_layers, "full_depth": full_depth,
+        "d_model": cfg.d_model, "params": cfg.param_count(),
+        "active_params": cfg.active_param_count(), "dtype": "bfloat16",
         "engine": dataclasses.asdict(engine_cfg), "init_s": init_s, "wall_s_with_warmup": wall_s,
         "prefills": stats.prefills, "decode_steps": stats.decode_steps,
         "launches": counts, "launches_in_warmup": {
@@ -1266,20 +1448,35 @@ def zamba_train_launches(cfg, remat: bool) -> dict[str, int]:
             "ssd_chunk_scan_bwd": layers}
 
 
+def train_data(cfg, seed: int = 0) -> SyntheticDataset:
+    """TRAIN_BATCH x TRAIN_SEQ tokens a batch, and for a VLM its patch
+    embeddings from the same seed, as the launcher makes them."""
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patches"] = ((TRAIN_BATCH, cfg.n_patches, cfg.d_model), "float32")
+    return SyntheticDataset(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=seed, extra_specs=extra)
+
+
 def train_parity_phase(cfg, dev: torch.device, n_layers: int = 4, phase: str = "train_parity",
                        launches=train_launches) -> None:
-    """``cfg`` (minicpm-2b; zamba2-2.7b for ``zamba_train_parity``) at full
-    width and ``n_layers`` layers, fp32 masters: the loss and every
-    parameter's gradient on one batch, through the kernels (``launches``: the
-    exact launches expected) against autograd through the plain versions, in
-    fp32 and in bf16 compute.
+    """``cfg`` (minicpm-2b; zamba2-2.7b, qwen3-moe-235b-a22b and
+    phi-3-vision-4.2b for the other ``*_train_parity`` phases) at full width
+    and ``n_layers`` layers, fp32 masters: the loss and every parameter's
+    gradient on one batch, through the kernels (``launches``: the exact
+    launches expected) against autograd through the plain versions, in fp32
+    and in bf16 compute.
     Rule, per leaf: ||g_kernels - g_plain|| <= rel ||g_plain|| (Frobenius),
     rel = 1e-4 in fp32 (sums in another order) and 5e-2 in bf16 (about 13
     units of bf16 rounding, 2^-8, for a gradient that passes a few dozen
     bf16 roundings); the loss within 1e-5 (fp32) and 1e-2 (bf16) of the plain
-    one, relative."""
+    one, relative.  A MoE's plain run takes the kernel run's routing choices
+    (``pinned_routes``): a near-tie that a kernel's rounding flips would swap
+    a token's experts and move whole expert gradients, which is no measure
+    of the kernels; the share of choices the plain run would have made
+    otherwise is reported, and must be 0 in fp32.  ce and aux are reported
+    apart."""
     cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    batch = batch_to_device(SyntheticDataset(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0).batch(0), dev)
+    batch = batch_to_device(train_data(cfg).batch(0), dev)
     report = {"phase": phase, "model": cfg.name, "n_layers": n_layers,
               "tokens": TRAIN_BATCH * TRAIN_SEQ, "rule": {"float32": 1e-4, "bfloat16": 5e-2}}
     master = None
@@ -1288,12 +1485,15 @@ def train_parity_phase(cfg, dev: torch.device, n_layers: int = 4, phase: str = "
         if master is None:
             master = model.init(torch.Generator(device=dev).manual_seed(4))
         ops.reset_launch_counts()
-        loss_k, _, grads = loss_and_grads(model, master, batch)
+        log, recording = recorded_routes()
+        with recording:
+            loss_k, metrics_k, grads = loss_and_grads(model, master, batch)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         got = [g.clone() for g in tree_leaves(grads)]
-        with plain_kernels():
-            loss_p, _, grads = loss_and_grads(model, master, batch)
+        flips, pinning = pinned_routes(log)
+        with plain_kernels(), pinning:
+            loss_p, metrics_p, grads = loss_and_grads(model, master, batch)
         torch.cuda.synchronize()
         want = tree_leaves(grads)
         if counts != launches(cfg, remat=False) or ops.launch_counts() != counts:
@@ -1309,10 +1509,17 @@ def train_parity_phase(cfg, dev: torch.device, n_layers: int = 4, phase: str = "
                         "worst_leaf": leaf_paths(master)[worst],
                         "median_leaf_rel_diff": sorted(rels)[len(rels) // 2],
                         "max_abs_grad_diff": max((a - b).abs().max().item() for a, b in zip(got, want))}
+        for part in ("ce", "aux"):
+            report[name][f"{part}_kernels"] = metrics_k[part].item()
+            report[name][f"{part}_plain"] = metrics_p[part].item()
+        if cfg.is_moe:
+            n_routes = sum(i.numel() for i, _ in log)
+            report[name]["route_flip_share_unpinned"] = sum(int(f) for f in flips) / n_routes
+        flipped = cfg.is_moe and name == "float32" and report[name]["route_flip_share_unpinned"] > 0
         # every gradient finite on both sides: a NaN compares false with any rule
         finite = all(bool(torch.isfinite(g).all()) for g in got + list(want))
         report[name]["launches"] = counts
-        if not (finite and all(r <= rel for r in rels) and loss_diff <= loss_rel):
+        if flipped or not (finite and all(r <= rel for r in rels) and loss_diff <= loss_rel):
             raise AssertionError(f"{phase} {name}: {report[name]} (finite={finite})")
         del got, want, grads
     emit(report)
@@ -1322,16 +1529,17 @@ def run_train_steps(model, dev: torch.device, steps: int, expected: dict) -> dic
     """``steps`` steps of ``make_train_step`` for ``model`` (fp32 masters and
     AdamW state): ``SyntheticDataset(seed 0)`` batches of TRAIN_BATCH x
     TRAIN_SEQ tokens under the config's schedule (peak TRAIN_LR, 2 warm-up
-    steps).  Checks finite, falling loss (the first within 0.5 of ln(vocab)),
-    every gradient present and finite, and ``expected``, the exact launches of
-    every step."""
+    steps).  Checks finite, falling loss, the first step's cross-entropy
+    within 0.5 of ln(vocab) (a MoE's loss adds 0.01 aux to it), a finite aux
+    loss at every step, every gradient present and finite, and ``expected``,
+    the exact launches of every step."""
     cfg = model.cfg
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     opt_state = init_opt_state(params)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    data = SyntheticDataset(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    data = train_data(cfg)
     step_fn = make_train_step(model, AdamWConfig(lr=get_schedule(cfg.lr_schedule, TRAIN_LR, 2, steps)))
     torch.cuda.reset_peak_memory_stats()
     history, totals = [], dict.fromkeys(expected, 0)
@@ -1345,7 +1553,8 @@ def run_train_steps(model, dev: torch.device, steps: int, expected: dict) -> dic
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()   # waits for the step
             history.append({"step": step + 1, "loss": loss, "grad_norm": gnorm, "lr": metrics["lr"],
-                            "ms": (time.perf_counter() - t0) * 1e3})
+                            "ms": (time.perf_counter() - t0) * 1e3, "ce": metrics["ce"].item(),
+                            "aux": metrics["aux"].item()})
             counts = ops.launch_counts()
             if counts != expected:
                 raise AssertionError(f"{cfg.name} train step {step + 1}: launches {counts}, "
@@ -1358,35 +1567,47 @@ def run_train_steps(model, dev: torch.device, steps: int, expected: dict) -> dic
     grads_ok = all(p.grad is not None for p in leaves) and \
         bool(torch.stack([torch.isfinite(p.grad).all() for p in leaves]).all())
     losses = [h["loss"] for h in history]
-    first_ok = abs(losses[0] - math.log(cfg.vocab)) < 0.5
+    first_ok = abs(history[0]["ce"] - math.log(cfg.vocab)) < 0.5
     if not (grads_ok and first_ok and all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
-                                          for h in history) and losses[-1] < losses[0]):
-        raise AssertionError(f"{cfg.name} train: grads present and finite {grads_ok}, first loss "
-                             f"{losses[0]} against ln(vocab) {math.log(cfg.vocab)}, history {history}")
+                                          and math.isfinite(h["aux"]) for h in history)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"{cfg.name} train: grads present and finite {grads_ok}, first ce "
+                             f"{history[0]['ce']} against ln(vocab) {math.log(cfg.vocab)}, "
+                             f"history {history}")
     step_ms = sorted(h["ms"] for h in history[1:])[(steps - 1) // 2]
     return {"init_s": init_s, "history": history, "step_ms": step_ms, "peak_gb": peak_gb,
             "grads_ok": grads_ok, "totals": totals, "n_params": sum(t.numel() for t in leaves),
             "state": (model, params, opt_state, step_fn, data)}
 
 
-def train_phase(cfg, dev: torch.device, steps: int = TRAIN_STEPS):
-    """minicpm-2b at full width and depth with the reference's defaults: bf16
-    compute, fp32 masters and AdamW state, remat; ``run_train_steps`` under
-    its WSD schedule.  Returns the launches of all steps, the model,
-    parameters, optimizer state, step function and dataset."""
+def train_phase(cfg, dev: torch.device, steps: int = TRAIN_STEPS, phase: str = "train",
+                full_depth: int | None = None):
+    """``cfg`` (minicpm-2b; qwen3-moe-235b-a22b at MOE_TRAIN_LAYERS for
+    ``moe_train``, phi-3-vision-4.2b for ``vlm_train``) at full width with the
+    reference's defaults: bf16 compute, fp32 masters and AdamW state, remat;
+    ``run_train_steps`` under its schedule.  Model FLOPs count a MoE's active
+    parameters (top_k of n_experts, as ``active_param_count``) and a VLM's
+    patch positions, which run through every layer.  Returns the launches of
+    all steps, the model, parameters, optimizer state, step function and
+    dataset."""
     model = build_model(cfg, ModelOptions("float32", "bfloat16", remat=True), dev)
     expected = train_launches(cfg, remat=True)
     run = run_train_steps(model, dev, steps, expected)
     step_ms = run["step_ms"]
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    n = cfg.param_count()
+    seq = TRAIN_SEQ + cfg.n_patches                        # positions a sequence
+    n = cfg.active_param_count()
     hd = cfg.resolved_head_dim
-    attn_fwd = 4 * TRAIN_BATCH * cfg.n_heads * (TRAIN_SEQ * (TRAIN_SEQ + 1) // 2) * hd * cfg.n_layers
-    model_flops = 6 * n * tokens + 3 * attn_fwd            # forward + backward (2x)
-    remat_flops = 2 * n * tokens + attn_fwd                # the layers' forward again
+    attn_fwd = 4 * TRAIN_BATCH * cfg.n_heads * (seq * (seq + 1) // 2) * hd * cfg.n_layers
+    prefix = 2 * TRAIN_BATCH * cfg.n_patches * cfg.d_model ** 2   # patch_proj's forward
+    model_flops = 6 * n * TRAIN_BATCH * seq + 3 * attn_fwd + 3 * prefix   # forward + backward (2x)
+    remat_flops = 2 * n * TRAIN_BATCH * seq + attn_fwd     # the layers' forward again
     emit({
-        "phase": "train", "model": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-        "params": n, "param_dtype": "float32", "compute_dtype": "bfloat16", "remat": True,
+        "phase": phase, "model": cfg.name, "n_layers": cfg.n_layers,
+        "full_depth": full_depth or cfg.n_layers, "d_model": cfg.d_model,
+        "params": cfg.param_count(), "active_params": n, "params_initialised": run["n_params"],
+        "positions_a_sequence": seq, "param_dtype": "float32", "compute_dtype": "bfloat16",
+        "remat": True,
         "schedule": {"name": cfg.lr_schedule, "peak_lr": TRAIN_LR, "warmup_steps": 2},
         "batch": [TRAIN_BATCH, TRAIN_SEQ], "steps": steps, "init_s": run["init_s"],
         "history": run["history"],
@@ -1398,6 +1619,7 @@ def train_phase(cfg, dev: torch.device, steps: int = TRAIN_STEPS):
                                   "(2L + 1) + 2L, flash_attention 2L; backward kernels "
                                   "rmsnorm_bwd 2L + 1, flash_attention_bwd L",
         "grads_present_and_finite": run["grads_ok"],
+        **({"aux_history": [h["aux"] for h in run["history"]]} if cfg.is_moe else {}),
     })
     return run["totals"], *run["state"]
 
@@ -1480,22 +1702,26 @@ def trainer_phase(cfg, dev: torch.device) -> None:
         if not same:
             raise AssertionError("trainer: the restarted run's final checkpoint differs from the "
                                  "uninterrupted run's")
-        zamba = zamba_launcher_restart(tmp)
+        restarts = {key: launcher_restart(tmp, arch) for key, arch in (
+            ("zamba2_launcher_restart", "zamba2-2.7b"),
+            ("qwen3_moe_launcher_restart", "qwen3-moe-235b-a22b"),
+            ("phi3_vision_launcher_restart", "phi-3-vision-4.2b"))}
     emit({"phase": "trainer", "launcher_rc": rc, "launcher_s": launch_s,
           "config": f"{small.name} reduced", "restart_bit_identical": same,
-          "leaves_compared": len(a), "zamba2_launcher_restart": zamba})
+          "leaves_compared": len(a), **restarts})
 
 
-def zamba_launcher_restart(tmp: str, steps: int = 12, fail_at: int = 8) -> dict:
-    """Reduced zamba2-2.7b on the card through ``launch.train.main`` twice:
-    once with a ``FaultInjector`` that fails step ``fail_at`` once (the
-    ``Trainer`` restores the last checkpoint, its template built under fake
-    tensors by ``ZambaLM.init``), once uninterrupted; both return 0 and their
-    final checkpoints agree bit for bit."""
+def launcher_restart(tmp: str, arch: str, steps: int = 12, fail_at: int = 8) -> dict:
+    """Reduced ``arch`` on the card through ``launch.train.main`` twice: once
+    with a ``FaultInjector`` that fails step ``fail_at`` once (the ``Trainer``
+    restores the last checkpoint, its template built under fake tensors by
+    the model's ``init``), once uninterrupted; both return 0 and their final
+    checkpoints agree bit for bit.  A MoE's dispatch and combine are held to
+    determinism on the card here: their sums have a fixed order."""
     import repro_torch.train as train_pkg
 
     finals, rcs, restarts = [], [], []
-    for name, faults in (("zamba_restarted", [fail_at]), ("zamba_uninterrupted", [])):
+    for name, faults in ((f"{arch}_restarted", [fail_at]), (f"{arch}_uninterrupted", [])):
         trainers = []
 
         def make(*args, **kwargs):
@@ -1504,7 +1730,7 @@ def zamba_launcher_restart(tmp: str, steps: int = 12, fail_at: int = 8) -> dict:
 
         path = os.path.join(tmp, name)
         with mock.patch.object(train_pkg, "Trainer", make):
-            rcs.append(launch_train.main(["--arch", "zamba2-2.7b", "--device", "cuda",
+            rcs.append(launch_train.main(["--arch", arch, "--device", "cuda",
                                           "--ckpt-dir", path, "--steps", str(steps),
                                           "--log-every", "4", "--ckpt-every", str(steps // 2)]))
         restarts.append(sum(h.get("event") == "restart" for h in trainers[0].history))
@@ -1515,29 +1741,61 @@ def zamba_launcher_restart(tmp: str, steps: int = 12, fail_at: int = 8) -> dict:
     a, b = finals
     same = a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
     if rcs != [0, 0] or restarts != [1, 0] or not same:
-        raise AssertionError(f"zamba2 launcher restart: rc {rcs}, restarts {restarts}, final "
+        raise AssertionError(f"{arch} launcher restart: rc {rcs}, restarts {restarts}, final "
                              f"checkpoints bit-identical {same}")
     return {"launcher_rcs": rcs, "restarts": restarts, "steps": steps, "failed_at": fail_at,
             "restart_bit_identical": same, "leaves_compared": len(a)}
 
 
 # ------------------------------------------------------------------ profile
-def _profiled(fn, repeats: int) -> dict:
+# The MoE's pieces (models/layers.py), each traced as a profiler range of its
+# name by ``_profiled(..., moe=True)``: routing, slot assignment, dispatch,
+# the expert GEMMs and combine (forward, and the remat recompute), and the
+# backward of the dispatch and combine gathers.
+MOE_PIECES = ("moe_route", "moe_slots", "moe_dispatch", "moe_experts", "moe_combine")
+
+
+def _moe_ranges(stack: contextlib.ExitStack) -> None:
+    from torch.profiler import record_function
+
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return call
+
+    for name in MOE_PIECES:
+        stack.enter_context(mock.patch.object(model_layers, name,
+                                              ranged(name, getattr(model_layers, name))))
+    gather = model_layers._GatherRows
+    stack.enter_context(mock.patch.object(gather, "backward", staticmethod(
+        ranged("moe_gather_bwd", gather.backward))))
+
+
+def _profiled(fn, repeats: int, moe: bool = False) -> dict:
     """Run ``fn`` ``repeats`` times under torch.profiler: wall and device-busy
-    milliseconds per repeat, kernels launched per repeat, heaviest kernels."""
+    milliseconds per repeat, kernels launched per repeat, heaviest kernels.
+    ``moe``: also the device milliseconds under each of MOE_PIECES' ranges,
+    and under autograd's BmmBackward0 (the expert GEMMs' backward, with the
+    combine's small weighted sum)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(repeats):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    with contextlib.ExitStack() as stack:
+        if moe:
+            _moe_ranges(stack)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(repeats):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, list[float]] = {}
+    ranges = (*MOE_PIECES, "moe_gather_bwd")
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        # a range shows on the device's timeline too, as its span: not a kernel
+        if evt.device_type == torch.autograd.DeviceType.CUDA and evt.name not in ranges:
             us = getattr(evt, "device_time", None)
             if us is None:
                 us = evt.cuda_time
@@ -1556,7 +1814,18 @@ def _profiled(fn, repeats: int) -> dict:
         if "ssd_bwd_" in name:
             short = re.search(r"ssd_bwd_\w+", name).group(0)
             ssd_bwd[short] = ssd_bwd.get(short, 0.0) + ms / repeats
+    pieces = {}
+    if moe:
+        for evt in prof.events():
+            name = "BmmBackward0" if "BmmBackward0" in evt.name else evt.name
+            if name in (*ranges, "BmmBackward0") and \
+                    evt.device_type == torch.autograd.DeviceType.CPU:
+                us = getattr(evt, "device_time_total", None)
+                us = evt.cuda_time_total if us is None else us
+                pieces[name] = pieces.get(name, 0.0) + us / 1e3 / repeats
     return {
+        **({"moe_pieces_ms": pieces, "moe_pieces_share": sum(pieces.values()) / busy_ms * repeats}
+           if moe else {}),
         "wall_ms": wall_ms / repeats, "device_busy_ms": busy_ms / repeats,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "flash_kernels_ms": flash_ms / repeats, "flash_kernels_share": flash_ms / busy_ms,
@@ -1571,7 +1840,7 @@ def _profiled(fn, repeats: int) -> dict:
 
 
 @torch.no_grad()
-def profile_phase(model, params, dev: torch.device) -> None:
+def profile_phase(model, params, dev: torch.device, phase: str = "profile") -> None:
     """Where a decode step (8 lanes, 512 tokens cached each) and a 1024-token
     prefill spend their time: host wall clock against device-busy time.  The
     profiler itself slows the host, so the idle share is an upper estimate."""
@@ -1594,9 +1863,10 @@ def profile_phase(model, params, dev: torch.device) -> None:
         logits, _ = model.prefill_paged(params, pages, prefill_table, 1024, prompt)
         return int(torch.argmax(logits[0, 1023]))
 
-    emit({"phase": "profile", "n_layers": model.cfg.n_layers,
-          "decode_step_8_lanes_512_cached": _profiled(decode, 5),
-          "prefill_1024": _profiled(prefill, 2)})
+    moe = model.cfg.is_moe
+    emit({"phase": phase, "model": model.cfg.name, "n_layers": model.cfg.n_layers,
+          "decode_step_8_lanes_512_cached": _profiled(decode, 5, moe),
+          "prefill_1024": _profiled(prefill, 2, moe)})
 
 
 def profile_train_phase(model, params, opt_state, step_fn, data,
@@ -1611,7 +1881,7 @@ def profile_train_phase(model, params, opt_state, step_fn, data,
         return metrics["loss"].item()
 
     emit({"phase": phase, "model": model.cfg.name, "n_layers": model.cfg.n_layers,
-          "tokens": TRAIN_BATCH * TRAIN_SEQ, "train_step": _profiled(step, 1)})
+          "tokens": TRAIN_BATCH * TRAIN_SEQ, "train_step": _profiled(step, 1, model.cfg.is_moe)})
 
 
 def profile_fp32_step_phase(cfg, dev: torch.device, n_layers: int = 4) -> None:
@@ -1688,7 +1958,8 @@ def main() -> None:
         raise AssertionError(f"ptxas ignored setmaxnreg (C7508) in {ignored}")
 
     cfg, zcfg, mcfg = get_config("glm4-9b"), get_config("zamba2-2.7b"), get_config("minicpm-2b")
-    cases = kernels_phase(cfg, zcfg, mcfg, dev)
+    qcfg, vcfg = get_config("qwen3-moe-235b-a22b"), get_config("phi-3-vision-4.2b")
+    cases = kernels_phase(cfg, zcfg, mcfg, qcfg, vcfg, dev)
     torch.cuda.empty_cache()   # the 32k plain attention's graph pool
     parity_phase(cfg, dev)
     serve_counts, model, params = serve_phase(cfg, dev, args.layers or cfg.n_layers)
@@ -1721,25 +1992,55 @@ def main() -> None:
         profile_train_phase(*train_state, phase="profile_zamba_train")
     del train_state
     torch.cuda.empty_cache()
+    moe_parity_phase(qcfg, dev)
+    torch.cuda.empty_cache()
+    moe_serve_counts, model, params = serve_phase(qcfg, dev, MOE_SERVE_LAYERS, "moe_serve")
+    if args.profile:
+        profile_phase(model, params, dev, phase="profile_moe")
+    del model, params
+    torch.cuda.empty_cache()
+    print(f"NOTE: {qcfg.name}'s depth cut from {qcfg.n_layers} to {MOE_TRAIN_LAYERS} layer(s) "
+          "for training; widths unchanged", flush=True)
+    qcfg_train = dataclasses.replace(qcfg, n_layers=MOE_TRAIN_LAYERS)
+    train_parity_phase(qcfg_train, dev, MOE_TRAIN_LAYERS, "moe_train_parity")
+    torch.cuda.empty_cache()
+    moe_train_counts, *train_state = train_phase(qcfg_train, dev, phase="moe_train",
+                                                 full_depth=qcfg.n_layers)
+    if args.profile:
+        profile_train_phase(*train_state, phase="profile_moe_train")
+    del train_state
+    torch.cuda.empty_cache()
+    train_parity_phase(vcfg, dev, 4, "vlm_train_parity")
+    torch.cuda.empty_cache()
+    vlm_train_counts, *train_state = train_phase(vcfg, dev, phase="vlm_train")
+    if args.profile:
+        profile_train_phase(*train_state, phase="profile_vlm_train")
+    del train_state
+    torch.cuda.empty_cache()
     # every kernel ran on a main path: the three forwards on zamba2's, rmsnorm
-    # and flash attention on glm4's and minicpm-2b's training, their backwards on
-    # the latter, every forward and backward on zamba2's training
+    # and flash attention on glm4's and qwen3-moe's serving and on every
+    # training, their backwards on every training, the SSD scan's forward and
+    # backward on zamba2's training
+    trained = (train_counts, moe_train_counts, vlm_train_counts)
     if min(zamba_counts[k] for k in ("rmsnorm", "flash_attention", "ssd_chunk_scan")) <= 0 or \
-            min(serve_counts["rmsnorm"], serve_counts["flash_attention"]) <= 0 or \
-            min(train_counts[k] for k in ("rmsnorm", "flash_attention", "rmsnorm_bwd",
-                                          "flash_attention_bwd")) <= 0 or \
+            min(c[k] for c in (serve_counts, moe_serve_counts)
+                for k in ("rmsnorm", "flash_attention")) <= 0 or \
+            min(c[k] for c in trained for k in ("rmsnorm", "flash_attention", "rmsnorm_bwd",
+                                                "flash_attention_bwd")) <= 0 or \
             min(zamba_train_counts.values()) <= 0:
         raise AssertionError(f"a main path never launched a kernel: serve {serve_counts}, "
                              f"zamba {zamba_counts}, train {train_counts}, "
-                             f"zamba_train {zamba_train_counts}")
+                             f"zamba_train {zamba_train_counts}, moe_serve {moe_serve_counts}, "
+                             f"moe_train {moe_train_counts}, vlm_train {vlm_train_counts}")
+    paths = (serve_counts, zamba_counts, train_counts, zamba_train_counts, moe_serve_counts,
+             moe_train_counts, vlm_train_counts)
 
     def summary(name: str, source: str, replaces: str) -> dict:
         case = cases[name]
         return {
             "name": name, "route": "cuda", "plan_route": case.get("route", "cuda_cores"),
             "source": source, "replaces": replaces,
-            "launches": serve_counts[name] + zamba_counts[name] + train_counts[name]
-            + zamba_train_counts[name],
+            "launches": sum(c[name] for c in paths),
             "max_abs_err": case["max_abs_err"],
             "ms": case["kernel_ms"], "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],

@@ -25,9 +25,9 @@ def _norm(p, i=None, device="cpu") -> dict:
     return {"norm_scale": _leaf(scale, torch.float32, device)}
 
 
-# Mamba2 leaves kept in fp32 whatever ``dtype`` is: the reference reads them as
-# fp32 at every use, and their values must survive exactly.
-_FP32_SSM = ("A_log", "D", "dt_bias")
+# Leaves kept in fp32 whatever ``dtype`` is: the reference reads them as fp32
+# at every use, and their values must survive exactly (Mamba2's, the MoE router).
+_FP32_LEAVES = ("A_log", "D", "dt_bias", "router")
 
 
 def _zamba_params(tree: dict, cfg: ArchConfig, dtype: torch.dtype, device) -> dict:
@@ -42,7 +42,7 @@ def _zamba_params(tree: dict, cfg: ArchConfig, dtype: torch.dtype, device) -> di
         "embed": {"tokens": _leaf(tree["embed"]["tokens"], dtype, device)},
         "layers": [
             {
-                "ssm": {n: _leaf(w[u][j], torch.float32 if n in _FP32_SSM else dtype, device)
+                "ssm": {n: _leaf(w[u][j], torch.float32 if n in _FP32_LEAVES else dtype, device)
                         for n, w in units["ssm"].items()},
                 "norm": _norm(units["norm"], (u, j), device),
             }
@@ -61,16 +61,16 @@ def _zamba_params(tree: dict, cfg: ArchConfig, dtype: torch.dtype, device) -> di
 
 def from_jax_params(tree: dict, cfg: ArchConfig, dtype: torch.dtype = torch.float32,
                     device: torch.device | str = "cuda") -> dict:
-    """``tree``: the reference ``DecoderLM.init`` (dense family) or
-    ``ZambaLM.init`` (hybrid) pytree with numpy leaves.  Weights are cast to
-    ``dtype``; norm scales, and the Mamba2 ``A_log``/``D``/``dt_bias``, stay
-    fp32.  The tensors go to ``device``, the card unless the caller asks for
-    the CPU; once the tree is checked, a missing card raises."""
+    """``tree``: the reference ``DecoderLM.init`` (dense, MoE or VLM family)
+    or ``ZambaLM.init`` (hybrid) pytree with numpy leaves.  Weights are cast
+    to ``dtype``; norm scales, the MoE router and the Mamba2
+    ``A_log``/``D``/``dt_bias`` stay fp32.  The tensors go to ``device``, the
+    card unless the caller asks for the CPU; once the tree is checked, a
+    missing card raises."""
     if "units" in tree:
         return _zamba_params(tree, cfg, dtype, device)
     layers = tree["layers"]
-    if "moe" in layers or "patch_proj" in tree:
-        raise NotImplementedError("only the dense family is ported so far")
+    ffn = "moe" if "moe" in layers else "mlp"
     n_layers = np.asarray(layers["attn"]["wq"]).shape[0]
     if n_layers != cfg.n_layers:
         raise ValueError(f"pytree has {n_layers} layers, config {cfg.name} has {cfg.n_layers}")
@@ -84,15 +84,16 @@ def from_jax_params(tree: dict, cfg: ArchConfig, dtype: torch.dtype = torch.floa
                          for n in ("wq", "wk", "wv", "wo")},
                 "attn_norm": _norm(layers["attn_norm"], i, device),
                 "ffn_norm": _norm(layers["ffn_norm"], i, device),
-                "mlp": {n: _leaf(layers["mlp"][n][i], dtype, device)
-                        for n in ("w_gate", "w_in", "w_out")},
+                ffn: {n: _leaf(w[i], torch.float32 if n in _FP32_LEAVES else dtype, device)
+                      for n, w in layers[ffn].items()},
             }
             for i in range(n_layers)
         ],
         "final_norm": _norm(tree["final_norm"], device=device),
     }
-    if "lm_head" in tree:
-        params["lm_head"] = _leaf(tree["lm_head"], dtype, device)
+    for name in ("lm_head", "patch_proj"):
+        if name in tree:
+            params[name] = _leaf(tree[name], dtype, device)
     return params
 
 
@@ -111,10 +112,11 @@ def _stack(layers: list[dict], shape: tuple[int, ...]) -> dict:
 def to_jax_layout(tree: dict, cfg: ArchConfig | None = None) -> dict:
     """The inverse of :func:`from_jax_params`: the port's tree (parameters,
     or gradients of the same shape) as fp32 numpy arrays in the reference's
-    layout.  Dense family: each per-layer leaf stacked on a leading
-    ``(n_layers, ...)`` axis.  Hybrid (``cfg`` names ``attn_every``): the Mamba2
-    layers as the reference's ``units``, stacked ``(n_units, attn_every,
-    ...)``, beside ``shared``, ``embed``, ``final_norm`` and ``lm_head``."""
+    layout.  Dense, MoE and VLM families: each per-layer leaf stacked on a
+    leading ``(n_layers, ...)`` axis.  Hybrid (``cfg`` names ``attn_every``):
+    the Mamba2 layers as the reference's ``units``, stacked ``(n_units,
+    attn_every, ...)``, beside ``shared``, ``embed``, ``final_norm`` and
+    ``lm_head``."""
     layers = tree["layers"]
     out = {
         "embed": {"tokens": _host(tree["embed"]["tokens"])},
@@ -129,6 +131,7 @@ def to_jax_layout(tree: dict, cfg: ArchConfig | None = None) -> dict:
                          for group, leaves in tree["shared"].items()}
     else:
         out["layers"] = _stack(layers, (len(layers),))
-    if "lm_head" in tree:
-        out["lm_head"] = _host(tree["lm_head"])
+    for name in ("lm_head", "patch_proj"):
+        if name in tree:
+            out[name] = _host(tree[name])
     return out

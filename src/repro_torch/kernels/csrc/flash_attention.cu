@@ -47,7 +47,7 @@
 //        (zero-filled keys are masked to -inf in the scores).  The head dim is
 //        loaded in slabs of at most 64 columns, each with the widest swizzle
 //        its row allows (16 -> 32 B, 32 -> 64 B, 64 -> 128 B): hd 80 = 64 + 16,
-//        hd 128 = 64 + 64; Q K^T runs one k-step per 16 columns of a slab and
+//        hd 96 = 64 + 32, hd 128 = 64 + 64; Q K^T runs one k-step per 16 columns of a slab and
 //        P V one product per slab, so no column of hd 80 is padded.
 //      - Only the tiles that cross the causal diagonal, and the ragged last
 //        tile, are masked.
@@ -124,7 +124,8 @@ struct Strides {
 //    issued before tile t is computed.  bf16 rows (here never 16-byte
 //    aligned) are copied element by element: loaded into registers where
 //    cp.async would be issued and widened into the ring after the tile's
-//    products, so their loads overlap the products too (up to hd 80);
+//    products, so their loads overlap the products too (up to hd 96 in the
+//    forward, hd 80 in the backward);
 //    unaligned fp32 (rare) is copied element by element in place.
 //  * Arithmetic is fp32 FMA throughout (no TF32); e^x is ex2.approx of x
 //    log2 e (relative error 2^-22), as on the wgmma route.  Masks are
@@ -208,11 +209,14 @@ __device__ __forceinline__ float core_exp(float x) {
 // bf16 rows of two walked tensors held in registers, two elements a register,
 // from their loads (issued before a tile's products) to their stores into
 // the ring as fp32 (after them), so that element copies overlap the products.
-// Up to hd 80: at hd 128 the backward's kernels would spill (ptxas), so its
-// bf16 rows are copied in place as unaligned fp32 rows are.
-template <typename T, int HD, int ROWS>
+// Up to MAX_HD: the forward's kernel holds them up to hd 96, the backward's
+// up to hd 80 (ptxas: at hd 96 the backward's dK/dV kernel would spill, at
+// hd 128 both), and beyond that bf16 rows are copied in place as unaligned
+// fp32 rows are.
+constexpr int CORE_HELD_FWD_HD = 96, CORE_HELD_BWD_HD = 80;
+template <typename T, int HD, int ROWS, int MAX_HD>
 struct CoreHeld {
-    static constexpr bool used = sizeof(T) == 2 && HD <= 80;
+    static constexpr bool used = sizeof(T) == 2 && HD <= MAX_HD;
     static_assert(ROWS * HD % (2 * CORE_NT) == 0, "pairs of elements split evenly over the threads");
     static constexpr int N = used ? ROWS * HD / CORE_NT : 2;   // elements a tensor a thread
     unsigned v[2][N / 2];
@@ -379,10 +383,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
     // K/V tile t into its stage, one commit group a call; bf16 rows are only
     // fetched into `held` here, and stored by place(t)
-    CoreHeld<T, HD, C> held;
+    CoreHeld<T, HD, C, CORE_HELD_FWD_HD> held;
     auto issue = [&](int t) {
         if (t < n_tiles) {
-            if constexpr (CoreHeld<T, HD, C>::used) {
+            if constexpr (CoreHeld<T, HD, C, CORE_HELD_FWD_HD>::used) {
                 held.template fetch<0>(kb, ks.s, t * C, skv);
                 held.template fetch<1>(vb, vs.s, t * C, skv);
             } else {
@@ -394,7 +398,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         core_commit();
     };
     auto place = [&](int t) {
-        if constexpr (CoreHeld<T, HD, C>::used) {
+        if constexpr (CoreHeld<T, HD, C, CORE_HELD_FWD_HD>::used) {
             if (t < n_tiles) {
                 float* st = ring + (t % L::STAGES) * L::STAGE;
                 held.template put<0>(st);
@@ -497,6 +501,7 @@ template <> struct Slabs<16> { static constexpr int W0 = 16, W1 = 0; };
 template <> struct Slabs<32> { static constexpr int W0 = 32, W1 = 0; };
 template <> struct Slabs<64> { static constexpr int W0 = 64, W1 = 0; };
 template <> struct Slabs<80> { static constexpr int W0 = 64, W1 = 16; };
+template <> struct Slabs<96> { static constexpr int W0 = 64, W1 = 32; };
 template <> struct Slabs<128> { static constexpr int W0 = 64, W1 = 64; };
 
 // Shared memory in bytes from a 1024-byte-aligned base (the 128-byte swizzle
@@ -518,8 +523,9 @@ struct WgLayout {
     // Overlapping tile t's softmax with tile t - 1's P V keeps S, P and O live
     // at once (96 + HD / 2 registers a thread).  At hd 128 ptxas then
     // serialises the products (C7512, too few registers), so that kernel runs
-    // the tiles one after the other.
-    static constexpr bool overlap = HD <= 80;
+    // the tiles one after the other; up to hd 96 it fits (ptxas: 168
+    // registers, no spill, no C7512).
+    static constexpr bool overlap = HD <= 96;
 };
 
 struct TmaMaps {
@@ -1215,6 +1221,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, fl
         case 32: return launch<T, 32>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
         case 64: return launch<T, 64>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
         case 80: return launch<T, 80>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
+        case 96: return launch<T, 96>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
         case 128: return launch<T, 128>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
         default: return cudaErrorInvalidValue;
     }
@@ -1265,7 +1272,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, fl
 // Shared memory in floats (kernels/flash_attention.py, `core_bwd_layout`):
 // the two owned (64, hd) tiles, STAGES stages of the two walked (32, hd)
 // tiles (and, dK/dV, their 32 lse and 32 D), the (64, 32) P / dS tile.
-// 3 stages up to hd 64, 2 beyond: two blocks an SM up to hd 80.
+// 3 stages up to hd 64, 2 beyond: two blocks an SM up to hd 96.
 template <int HD>
 struct CoreBwd {
     static constexpr int C = 32;
@@ -1309,10 +1316,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const int kv_end = causal ? min(skv, min(q0 + CORE_ROWS, sq) + off) : skv;
     const int n_tiles = (kv_end + C - 1) / C;
 
-    CoreHeld<T, HD, C> held;   // as in the forward
+    CoreHeld<T, HD, C, CORE_HELD_BWD_HD> held;   // as in the forward
     auto issue = [&](int t) {
         if (t < n_tiles) {
-            if constexpr (CoreHeld<T, HD, C>::used) {
+            if constexpr (CoreHeld<T, HD, C, CORE_HELD_BWD_HD>::used) {
                 held.template fetch<0>(kb, ks.s, t * C, skv);
                 held.template fetch<1>(vb, vs.s, t * C, skv);
             } else {
@@ -1324,7 +1331,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         core_commit();
     };
     auto place = [&](int t) {
-        if constexpr (CoreHeld<T, HD, C>::used) {
+        if constexpr (CoreHeld<T, HD, C, CORE_HELD_BWD_HD>::used) {
             if (t < n_tiles) {
                 float* st = ring + (t % L::STAGES) * L::STAGE_DQ;
                 held.template put<0>(st);
@@ -1440,12 +1447,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const int per_head = (sq + C - 1) / C - first;
     const int n_walk = share * per_head;
 
-    CoreHeld<T, HD, C> held;   // as in the forward
+    CoreHeld<T, HD, C, CORE_HELD_BWD_HD> held;   // as in the forward
     auto issue = [&](int w) {   // walked tile w: head h_first + w / per_head
         if (w < n_walk) {
             const int h = h_first + w / per_head, c0 = (first + w % per_head) * C;
             float* st = ring + (w % L::STAGES) * L::STAGE_DKV;
-            if constexpr (CoreHeld<T, HD, C>::used) {
+            if constexpr (CoreHeld<T, HD, C, CORE_HELD_BWD_HD>::used) {
                 held.template fetch<0>(q + b * qs.b + h * qs.h, qs.s, c0, sq);
                 held.template fetch<1>(dout + b * dos.b + h * dos.h, dos.s, c0, sq);
             } else {
@@ -1463,7 +1470,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         core_commit();
     };
     auto place = [&](int w) {
-        if constexpr (CoreHeld<T, HD, C>::used) {
+        if constexpr (CoreHeld<T, HD, C, CORE_HELD_BWD_HD>::used) {
             if (w < n_walk) {
                 float* st = ring + (w % L::STAGES) * L::STAGE_DKV;
                 held.template put<0>(st);
@@ -2396,6 +2403,7 @@ int dispatch_bwd(const BwdArgs& a, const long long* plan, int vec, cudaStream_t 
         case 32: return launch_bwd<T, 32>(a, plan, vec, stream);
         case 64: return launch_bwd<T, 64>(a, plan, vec, stream);
         case 80: return launch_bwd<T, 80>(a, plan, vec, stream);
+        case 96: return launch_bwd<T, 96>(a, plan, vec, stream);
         case 128: return launch_bwd<T, 128>(a, plan, vec, stream);
         default: return cudaErrorInvalidValue;
     }
@@ -2407,6 +2415,7 @@ int dispatch_bwd_wgmma(const BwdArgs& a, const long long* plan, cudaStream_t str
         case 32: return launch_bwd_wgmma<32>(a, plan, stream);
         case 64: return launch_bwd_wgmma<64>(a, plan, stream);
         case 80: return launch_bwd_wgmma<80>(a, plan, stream);
+        case 96: return launch_bwd_wgmma<96>(a, plan, stream);
         case 128: return launch_bwd_wgmma<128>(a, plan, stream);
         default: return cudaErrorInvalidValue;
     }
@@ -2444,6 +2453,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
             case 32: return launch_wgmma<32>(q, k, v, o, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
             case 64: return launch_wgmma<64>(q, k, v, o, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
             case 80: return launch_wgmma<80>(q, k, v, o, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 96: return launch_wgmma<96>(q, k, v, o, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
             case 128: return launch_wgmma<128>(q, k, v, o, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
             default: return cudaErrorInvalidValue;
         }

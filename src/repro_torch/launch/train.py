@@ -58,7 +58,11 @@ def main(argv=None) -> int:
     opts = ModelOptions(param_dtype="float32", compute_dtype="float32", remat=bool(args.full))
     model = build_model(cfg, opts, device=args.device)
 
-    ds = SyntheticDataset(cfg.vocab, args.seq_len, args.global_batch, seed=args.seed)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patches"] = ((args.global_batch, cfg.n_patches, cfg.d_model), "float32")
+    ds = SyntheticDataset(cfg.vocab, args.seq_len, args.global_batch, seed=args.seed,
+                          extra_specs=extra)
     schedule = get_schedule(cfg.lr_schedule, args.lr, warmup_steps=max(1, args.steps // 20),
                             total_steps=args.steps)
     opt = AdamWConfig(lr=schedule)

@@ -1,5 +1,6 @@
 """Foundational layers: RMSNorm, RoPE, GQA attention (full-sequence prefill,
-dense-cache decode, paged decode, paged prefill) and the SwiGLU MLP.
+dense-cache decode, paged decode, paged prefill), the SwiGLU MLP and the
+grouped top-k MoE.
 
 PyTorch counterpart of the reference's ``models/layers.py``, in the same
 functional style: parameters are plain dictionaries of tensors in the
@@ -308,6 +309,157 @@ def mlp_fwd(params: dict, x: torch.Tensor) -> torch.Tensor:
     h = x @ params["w_in"].to(cd)
     act = torch.nn.functional.silu(g.float()).to(cd) * h
     return act @ params["w_out"].to(cd)
+
+
+# ----------------------------------------------------------------------- MoE
+def init_moe(generator: torch.Generator, d_model: int, n_experts: int, d_expert: int,
+             dtype: torch.dtype = torch.float32) -> dict:
+    """The router is fp32 whatever ``dtype`` is, as the reference's."""
+    return {
+        "router": dense_init(generator, (d_model, n_experts), dtype=torch.float32),
+        "w_gate": dense_init(generator, (n_experts, d_model, d_expert), in_axis=1, dtype=dtype),
+        "w_in": dense_init(generator, (n_experts, d_model, d_expert), in_axis=1, dtype=dtype),
+        "w_out": dense_init(generator, (n_experts, d_expert, d_model), in_axis=1, dtype=dtype),
+    }
+
+
+def _fp32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in IEEE fp32 whatever the caller's TF32 setting: the router's
+    logits decide the routes, and TF32 rounding flips near-ties."""
+    if not (a.is_cuda and torch.backends.cuda.matmul.allow_tf32):
+        return a @ b
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return a @ b
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+
+class _GatherRows(torch.autograd.Function):
+    """``out[m] = x[index[m]]`` for rows of ``x`` (n, d), with ``index[m] == n``
+    reading a zero row, where ``index`` is one-to-one on the rows it reads.
+    ``inverse`` (n, r) lists, for each row of ``x``, the rows of ``out`` that
+    read it (``len(index)`` where fewer than r do), so the backward is a gather
+    too, summing r terms in a fixed order: no atomics, the same bits on every
+    call (autograd's own backward of an index is a scatter-add)."""
+
+    @staticmethod
+    def forward(ctx, x, index, inverse):
+        ctx.save_for_backward(inverse)
+        return torch.cat([x, x.new_zeros(1, x.shape[1])])[index]
+
+    @staticmethod
+    def backward(ctx, dout):
+        (inverse,) = ctx.saved_tensors
+        padded = torch.cat([dout, dout.new_zeros(1, dout.shape[1])])
+        return padded[inverse].sum(1), None, None
+
+
+def moe_groups(n_tokens: int, n_experts: int, top_k: int, capacity_factor: float,
+               group_size: int = 512) -> tuple[int, int]:
+    """(group size, capacity per expert and group), the reference's rules:
+    ``group_size`` halved until it divides the token count, and capacity
+    ``max(4, ceil(top_k gs cf / E))``."""
+    gs = min(group_size, n_tokens)
+    while n_tokens % gs:
+        gs //= 2
+    return gs, max(4, math.ceil(top_k * gs / n_experts * capacity_factor))
+
+
+def moe_route(logits_fp32: torch.Tensor, top_k: int, capacity: int,
+              expert_idx: torch.Tensor | None = None):
+    """The reference's routing for one group tensor of router logits (G, gs,
+    E), fp32: (probs, renormalised gates (G, gs, k), expert_idx (G, gs, k),
+    queue position (G, gs, k), keep).  Top-k by a stable descending sort, so
+    that equal probabilities go to the lower expert index first, as
+    ``jax.lax.top_k``; each (token, k)'s position in its expert's queue is the
+    count of earlier pairs of its group in token-major, k-minor order.
+    ``expert_idx``: choices made elsewhere, taken in place of the top-k (a
+    comparison holding two runs to the same routes)."""
+    G, gs, E = logits_fp32.shape
+    probs = torch.softmax(logits_fp32, dim=-1)
+    if expert_idx is None:
+        expert_idx = torch.sort(probs.detach(), dim=-1, descending=True,
+                                stable=True).indices[..., :top_k]
+    gates = probs.gather(-1, expert_idx)
+    gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+    onehot = torch.nn.functional.one_hot(expert_idx, E).to(torch.int32).reshape(G, gs * top_k, E)
+    before = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+    pos = before.gather(-1, expert_idx.reshape(G, gs * top_k, 1)).reshape(G, gs, top_k)
+    return probs, gates, expert_idx, pos, pos < capacity
+
+
+def moe_slots(expert_idx: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor,
+              capacity: int, n_experts: int):
+    """Where each kept pair goes in the (E, G, C) buffer of expert inputs:
+    (slot (n, k) of each pair, E G C for a dropped one; the pair t k + kk each
+    slot holds, n k for none; the token each slot reads, n for none)."""
+    G, gs, top_k = expert_idx.shape
+    n, slots = G * gs, n_experts * G * capacity
+    group = torch.arange(G, device=pos.device)[:, None, None]
+    slot = torch.where(keep, (expert_idx * G + group) * capacity + pos, slots).reshape(n, top_k)
+    src_pair = torch.full((slots + 1,), n * top_k, dtype=torch.long, device=pos.device)
+    src_pair[slot.reshape(-1)] = torch.arange(n * top_k, device=pos.device)   # the spare slot
+    src_pair = src_pair[:slots]                                # is the only one written twice
+    return slot, src_pair, torch.where(src_pair < n * top_k, src_pair // top_k, n)
+
+
+def moe_dispatch(xt: torch.Tensor, src_token: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """Token rows (n, d) into the slots' rows (E G C, d), zeros where a slot
+    holds no pair."""
+    return _GatherRows.apply(xt, src_token, slot)
+
+
+def moe_experts(params: dict, xe: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU experts on (E, rows, d), one batched product per weight,
+    the SiLU in fp32 as ``mlp_fwd``'s."""
+    cd = xe.dtype
+    g = torch.bmm(xe, params["w_gate"].to(cd))
+    h = torch.bmm(xe, params["w_in"].to(cd))
+    act = torch.nn.functional.silu(g.float()).to(cd) * h
+    return torch.bmm(act, params["w_out"].to(cd))
+
+
+def moe_combine(ye: torch.Tensor, slot: torch.Tensor, src_pair: torch.Tensor,
+                weights: torch.Tensor) -> torch.Tensor:
+    """Each token's k expert outputs gathered from the slots' rows (E G C, d)
+    and summed with its weights (n, k): (n, d)."""
+    n, top_k = slot.shape
+    yk = _GatherRows.apply(ye, slot.reshape(-1), src_pair[:, None]).reshape(n, top_k, -1)
+    return torch.matmul(weights.reshape(n, 1, top_k), yk).reshape(n, -1)
+
+
+def moe_fwd(params: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
+            group_size: int = 512, return_aux: bool = False):
+    """Token-choice top-k MoE with grouped capacity, the reference's
+    ``moe_fwd``: tokens blocked into groups (``moe_groups``; groups run across
+    sequence boundaries), the router in fp32, pairs past their expert's
+    capacity dropped, SwiGLU experts, outputs summed with the gates rounded to
+    the compute dtype.  ``return_aux``: also the Switch load-balancing loss
+    ``E sum(mean probs * mean top-k counts)``, the counts from the choices
+    before the capacity drop.
+
+    Dispatch and combine are by index rather than the reference's one-hot
+    einsums (the same kept pairs, the same sums): kept pair (t, k) of group g
+    takes slot ``(e, g, pos)`` of an (E, G, C, d) buffer, the experts are one
+    batched product per weight over (E, G C, d), and each token gathers its k
+    outputs back and sums them weighted by its gates in one small product."""
+    b, s, d = x.shape
+    E = params["router"].shape[-1]
+    n = b * s
+    gs, capacity = moe_groups(n, E, top_k, capacity_factor, group_size)
+    xt = x.reshape(n, d)
+    logits = _fp32_matmul(xt.float(), params["router"]).reshape(n // gs, gs, E)
+    probs, gates, expert_idx, pos, keep = moe_route(logits, top_k, capacity)
+    slot, src_pair, src_token = moe_slots(expert_idx, pos, keep, capacity, E)
+    xe = moe_dispatch(xt, src_token, slot).reshape(E, -1, d)
+    ye = moe_experts(params, xe).reshape(-1, d)
+    out = moe_combine(ye, slot, src_pair, (gates * keep).to(x.dtype)).reshape(b, s, d)
+    if return_aux:
+        me = probs.reshape(n, E).mean(0)
+        counts = torch.nn.functional.one_hot(expert_idx.reshape(n, top_k), E).sum((0, 1))
+        return out, E * torch.sum(me * (counts.float() / n))
+    return out
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,6 +1,6 @@
 """Model registry: ``build_model(cfg)`` dispatch, counterpart of the
 reference's ``models/model_zoo.py`` for the families ported so far (dense,
-hybrid)."""
+MoE, VLM, hybrid)."""
 
 from __future__ import annotations
 
@@ -12,8 +12,6 @@ from repro_torch.models.zamba import ZambaLM
 
 # where each family still to be ported stands in ROADMAP.md, queue A
 _WAITING = {
-    "moe": "item 3 (MoE)",
-    "vlm": "item 2 (its patch prefix lives in `forward`)",
     "ssm": "item 6 (remaining families)",
     "audio": "item 6 (remaining families)",
 }
@@ -23,7 +21,7 @@ def build_model(cfg: ArchConfig, opts: ModelOptions | None = None,
                 device: torch.device | str = "cuda") -> DecoderLM | ZambaLM:
     """The model for ``cfg`` on ``device`` (a CUDA device unless the caller
     asks for the CPU; asking for CUDA where there is none raises)."""
-    if cfg.family == "dense" and not cfg.is_moe:
+    if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg, opts, device)
     if cfg.family == "hybrid":
         return ZambaLM(cfg, opts, device)

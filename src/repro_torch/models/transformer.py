@@ -1,6 +1,7 @@
-"""Decoder-only transformer LM, dense family (granite / minicpm / glm4 /
-phi4): the reference's ``models/transformer.py`` for training (``forward``,
-``loss``) and serving.
+"""Decoder-only transformer LM: dense (granite / minicpm / glm4 / phi4), MoE
+(dbrx / qwen3-moe) and VLM (phi-3-vision: the backbone behind a projected
+prefix of precomputed patch embeddings), the reference's
+``models/transformer.py`` for training (``forward``, ``loss``) and serving.
 
 Functional, like the reference: ``DecoderLM`` holds the configuration, the
 options and the device; parameters and caches are explicit dictionaries of
@@ -42,13 +43,15 @@ class ModelOptions:
     """Dtypes of the weights and of the activations.  For serving the weights
     are held once, in the compute dtype (the reference keeps fp32 masters and
     casts at every use); training passes ``param_dtype="float32"``, the
-    reference's masters.  Norm scales are always fp32.  ``remat``: recompute
-    each layer's activations in the backward (the reference's ``"full"``
-    policy; its ``"save_tp_outputs"`` waits for the parallelism layer)."""
+    reference's masters.  Norm scales and MoE routers are always fp32.
+    ``remat``: recompute each layer's activations in the backward (the
+    reference's ``"full"`` policy; its ``"save_tp_outputs"`` waits for the
+    parallelism layer).  ``moe_capacity_factor``: 0 takes the config's."""
 
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     remat: bool = True
+    moe_capacity_factor: float = 0.0
 
     @property
     def pdt(self) -> torch.dtype:
@@ -64,11 +67,8 @@ class DecoderLM:
 
     def __init__(self, cfg: ArchConfig, opts: ModelOptions | None = None,
                  device: torch.device | str = "cuda"):
-        if cfg.family != "dense" or cfg.is_moe:
-            raise NotImplementedError(
-                f"{cfg.name}: only the dense family is ported so far (MoE: ROADMAP queue A "
-                "item 3; VLM: item 2, its patch prefix lives in `forward`)"
-            )
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"DecoderLM does not serve family {cfg.family!r}")
         self.cfg = cfg
         self.opts = opts or ModelOptions()
         self.device = resolve_device(device)
@@ -89,7 +89,9 @@ class DecoderLM:
                                              cfg.n_kv_heads, hd, dtype=pdt),
                     "attn_norm": L.init_rmsnorm(cfg.d_model, self.device),
                     "ffn_norm": L.init_rmsnorm(cfg.d_model, self.device),
-                    "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype=pdt),
+                    **({"moe": L.init_moe(generator, cfg.d_model, cfg.n_experts, cfg.expert_ff,
+                                          dtype=pdt)} if cfg.is_moe else
+                       {"mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype=pdt)}),
                 }
                 for _ in range(cfg.n_layers)
             ],
@@ -97,6 +99,10 @@ class DecoderLM:
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = L.dense_init(generator, (cfg.d_model, cfg.padded_vocab), dtype=pdt)
+        if cfg.family == "vlm":
+            # the modality frontend is a stub: one adapter projecting precomputed
+            # patch embeddings into the backbone's space
+            params["patch_proj"] = L.dense_init(generator, (cfg.d_model, cfg.d_model), dtype=pdt)
         return params
 
     # --------------------------------------------------------------- pieces
@@ -115,29 +121,51 @@ class DecoderLM:
         return out
 
     # -------------------------------------------------------------- forward
-    def _layer(self, lp: dict, x: torch.Tensor, attn) -> torch.Tensor:
-        """One pre-norm block; ``attn(attn_params, normed_x) -> h``."""
-        eps = self.cfg.norm_eps
-        x = x + attn(lp["attn"], L.rmsnorm(lp["attn_norm"], x, eps))
-        return x + L.mlp_fwd(lp["mlp"], L.rmsnorm(lp["ffn_norm"], x, eps))
+    def _layer(self, lp: dict, x: torch.Tensor, attn, return_aux: bool = False):
+        """One pre-norm block; ``attn(attn_params, normed_x) -> h``.  Returns
+        (x, the MoE's aux loss where ``return_aux`` and the family has one,
+        else None)."""
+        cfg = self.cfg
+        x = x + attn(lp["attn"], L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps))
+        normed = L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps)
+        if not cfg.is_moe:
+            return x + L.mlp_fwd(lp["mlp"], normed), None
+        out = L.moe_fwd(lp["moe"], normed, top_k=cfg.top_k,
+                        capacity_factor=self.opts.moe_capacity_factor or cfg.capacity_factor,
+                        return_aux=return_aux)
+        h, aux = out if return_aux else (out, None)
+        return x + h, aux
 
     def forward(self, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """batch: {"tokens": (b, s) int} -> (logits (b, s, V), aux loss: a zero
-        fp32 scalar, as for the reference's dense family)."""
+        """batch: {"tokens": (b, s) int [, "patches": (b, P, d)]} -> (logits
+        (b, s, V), the MoE aux loss summed over the layers in fp32: a zero
+        scalar for the other families).  A VLM's projected patches go before
+        the tokens; positions and the causal mask run over the whole
+        sequence, and only the token positions are scored."""
+        cfg = self.cfg
         x = self.embed(params, batch["tokens"])
+        if cfg.family == "vlm":
+            cdt = self.opts.cdt
+            prefix = batch["patches"].to(cdt) @ params["patch_proj"].to(cdt)
+            x = torch.cat([prefix, x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         attn = lambda ap, normed: L.attention_fwd(ap, normed, positions, causal=True,
                                                   **self._attn_kwargs())
         remat = self.opts.remat and torch.is_grad_enabled()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in params["layers"]:
             if remat:
                 # a layer draws no random numbers: no RNG state to keep
-                x = checkpoint(self._layer, lp, x, attn, use_reentrant=False,
-                               preserve_rng_state=False)
+                x, layer_aux = checkpoint(self._layer, lp, x, attn, True, use_reentrant=False,
+                                          preserve_rng_state=False)
             else:
-                x = self._layer(lp, x, attn)
-        x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
-        return self.logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+                x, layer_aux = self._layer(lp, x, attn, True)
+            if layer_aux is not None:
+                aux = aux + layer_aux.float()
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        if cfg.family == "vlm":
+            x = x[:, cfg.n_patches:]   # score only the token positions
+        return self.logits(params, x), aux
 
     def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
         """Next-token cross-entropy in fp32 over the padded vocab (the padding
@@ -154,7 +182,7 @@ class DecoderLM:
         (h, cache)``; the slices are views, so the caches are updated in place."""
         for i, lp in enumerate(params["layers"]):
             layer_cache = {name: t[i] for name, t in caches.items()}
-            x = self._layer(lp, x, lambda ap, normed: attn_fn(ap, normed, layer_cache)[0])
+            x, _ = self._layer(lp, x, lambda ap, normed: attn_fn(ap, normed, layer_cache)[0])
         x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         return self.logits(params, x)
 
@@ -210,7 +238,8 @@ class DecoderLM:
                       length: int, tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
         """Prefill one sequence (tokens (1, S) padded, true length ``length``),
         scattering its KV into pages.  Returns (logits (1, S, V), pages); the
-        caller samples from position ``length - 1``."""
+        caller samples from position ``length - 1``.  A VLM serves text only,
+        as the reference's (no patches here)."""
         x = self.embed(params, tokens)
         attn = lambda ap, normed, pg: L.attention_prefill_paged(
             ap, normed, pg, block_table, length, **self._attn_kwargs())

@@ -468,6 +468,11 @@ PLAN_FLASH = [
     (1, 4, 2, 100, 70, 32, "float32", False, 0),
     (4, 36, 36, 1024, 1024, 64, "bfloat16", True, 0),    # minicpm-2b's training step
     (4, 36, 36, 1024, 1024, 64, "float32", True, 0),     # and in the launcher's fp32
+    (4, 32, 32, 1600, 1600, 96, "bfloat16", True, 0),    # phi-3-vision's step: 576 patches + 1024
+    (4, 32, 32, 1600, 1600, 96, "float32", True, 0),     # and in the launcher's fp32
+    (1, 4, 4, 150, 150, 96, "float32", False, 0),        # hd 96, ragged
+    (1, 4, 4, 150, 150, 96, "bfloat16", False, 1),       # and unaligned bf16
+    (1, 64, 4, 1024, 1024, 128, "bfloat16", True, 0),    # qwen3-moe's prefill, GQA 16:1
 ]
 # Every RMSNorm case of chip_smoke.py: (shape, dtype)
 PLAN_RMS = [
@@ -555,11 +560,12 @@ class TestFlashPlan:
     @pytest.mark.parametrize("hd,slabs", [(16, [(0, 16, 32)]), (32, [(0, 32, 64)]),
                                           (64, [(0, 64, 128)]),
                                           (80, [(0, 64, 128), (64, 16, 32)]),
-                                          (128, [(0, 64, 128), (64, 64, 128)])])
+                                          (128, [(0, 64, 128), (64, 64, 128)]),
+                                          (96, [(0, 64, 128), (64, 32, 64)])])
     def test_head_dim_slabs(self, hd, slabs):
         assert list(fa_cuda.head_dim_slabs(hd)) == slabs
 
-    @pytest.mark.parametrize("case", PLAN_FLASH[:3] + PLAN_FLASH[-1:])
+    @pytest.mark.parametrize("case", PLAN_FLASH[:3] + PLAN_FLASH[16:17])
     def test_plan_array_layout(self, case):
         plan = fa_cuda.flash_plan(*meta_attention(*case))
         values = list(plan.as_array())
@@ -877,6 +883,10 @@ PLAN_FLASH_BWD = [
     (1, 4, 2, 100, 70, 32, "float32", False, 0),         # non-causal, sq > skv
     (4, 36, 36, 1024, 1024, 64, "bfloat16", True, 1),    # unaligned bf16
     (2, 4, 4, 16, 16, 16, "float32", True, 0),           # the launcher's reduced config
+    (4, 32, 32, 1600, 1600, 96, "bfloat16", True, 0),    # phi-3-vision's step
+    (4, 32, 32, 1600, 1600, 96, "float32", True, 0),     # and in the launcher's fp32
+    (1, 4, 4, 150, 150, 96, "bfloat16", False, 1),       # hd 96 unaligned, ragged
+    (1, 64, 4, 1024, 1024, 128, "bfloat16", True, 0),    # qwen3-moe's training step, GQA 16:1
 ]
 
 

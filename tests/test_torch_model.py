@@ -210,16 +210,36 @@ class TestLogitsParity:
 
 
 class TestBuildModel:
-    @pytest.mark.parametrize("name", ["dbrx-132b", "qwen3-moe-235b-a22b", "phi-3-vision-4.2b",
-                                      "xlstm-350m", "whisper-tiny"])
+    @pytest.mark.parametrize("name", ["xlstm-350m", "whisper-tiny"])
     def test_families_not_ported_raise_naming_the_roadmap(self, name):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(get_config(name).reduced(), device="cpu")
 
-    @pytest.mark.parametrize("name", ["dbrx-132b", "phi-3-vision-4.2b"])
-    def test_decoder_lm_refuses_moe_and_vlm(self, name):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DecoderLM(get_config(name).reduced(), device="cpu")
+    def test_decoder_lm_refuses_other_families(self):
+        with pytest.raises(ValueError, match="does not serve family"):
+            DecoderLM(get_config("zamba2-2.7b").reduced(), device="cpu")
+
+    @pytest.mark.parametrize("name", ["dbrx-132b", "qwen3-moe-235b-a22b", "phi-3-vision-4.2b"])
+    def test_moe_and_vlm_configs_build_and_step(self, name):
+        """Both families build as ``DecoderLM``: a forward (a VLM with its
+        patch prefix, scored at the token positions only), a decode step, and
+        the MoE's aux loss."""
+        cfg = get_config(name).reduced()
+        model = build_model(cfg, FP32, device="cpu")
+        assert isinstance(model, DecoderLM)
+        params = model.init(torch.Generator().manual_seed(0))
+        assert ("moe" in params["layers"][0]) == cfg.is_moe
+        assert ("patch_proj" in params) == (cfg.family == "vlm")
+        batch = {"tokens": torch.zeros(2, 8, dtype=torch.int32)}
+        if cfg.family == "vlm":
+            batch["patches"] = torch.randn(2, cfg.n_patches, cfg.d_model)
+        with torch.no_grad():
+            logits, aux = model.forward(params, batch)
+            step, _ = model.decode_step(params, model.init_cache(2, 4),
+                                        torch.zeros(2, 1, dtype=torch.int32))
+        assert logits.shape == (2, 8, cfg.padded_vocab) and torch.isfinite(logits).all()
+        assert step.shape == (2, 1, cfg.padded_vocab) and torch.isfinite(step).all()
+        assert (float(aux) > 0) == cfg.is_moe
 
     @pytest.mark.parametrize("name", ["granite-8b", "minicpm-2b", "glm4-9b", "phi4-mini-3.8b"])
     def test_dense_configs_build_and_step(self, name):

@@ -41,16 +41,25 @@ from repro_torch.serve import (
 CFG = EngineConfig(max_batch=4, page_size=8, n_pages=32, max_blocks=4)
 
 
-@pytest.fixture(scope="module")
-def models():
+def _model_pair(arch: str):
     """One reference model and the port's model holding the same weights."""
-    cfg_j = jax_get_config("glm4-9b").reduced()
+    cfg_j = jax_get_config(arch).reduced()
     jm = jax_build_model(cfg_j, JaxOptions(compute_dtype="float32", remat=False))
     jp = jm.init(jax.random.PRNGKey(0))
-    cfg = get_config("glm4-9b").reduced()
+    cfg = get_config(arch).reduced()
     tm = build_model(cfg, ModelOptions("float32", "float32"), device="cpu")
     tp = from_jax_params(jax.tree.map(np.asarray, jp), cfg, torch.float32, "cpu")
     return cfg, jm, jp, tm, tp
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _model_pair("glm4-9b")
+
+
+@pytest.fixture(scope="module")
+def moe_models():
+    return _model_pair("qwen3-moe-235b-a22b")
 
 
 @pytest.fixture(scope="module")
@@ -263,8 +272,13 @@ def test_prefill_bucket_is_power_of_two():
 
 
 # ----------------------------------------------------- the slice as a whole
-def test_same_requests_same_tokens_as_the_reference_engine(models):
-    cfg, jm, jp, tm, tp = models
+@pytest.mark.parametrize("which", [pytest.param("models", id="glm4-9b"),
+                                   pytest.param("moe_models", id="qwen3-moe-235b-a22b")])
+def test_same_requests_same_tokens_as_the_reference_engine(which, request):
+    """The MoE case also holds the routing of the bucket's padding positions
+    and of the decode batch's idle lanes, which take capacity as the
+    reference's do."""
+    cfg, jm, jp, tm, tp = request.getfixturevalue(which)
     mixes = dict(prompt_mix=((4, 0.5), (8, 0.3), (16, 0.2)),
                  response_mix=((8, 0.5), (16, 0.35), (32, 0.15)))
     shape = dict(max_batch=4, page_size=8, n_pages=48, max_blocks=6)
