@@ -28,56 +28,67 @@ raises and the script exits non-zero:
 4. ``parity``  -- glm4-9b at full width, 4 layers: one padded prefill and a few
    decode steps, logits through the kernels against logits through the plain
    versions, in fp32 and in bf16.
-5. ``serve``   -- glm4-9b at full width and full depth (40 layers, bf16, random
+5. ``placement`` -- the scheduling core (``repro_torch.core``) on the card's
+   host, before serving as ``examples/serve.py`` orders it: two glm4-9b
+   replicas (TP 8, PP 2) through ``place_replicas`` on a 4 x 4 cluster (no
+   overlap, ``release`` restores every node); the "hier" tier at
+   ``bench_latency``'s workload (104 x 96 nodes, a 4096-GPU gpt-7b job, a
+   1 s budget): cold, flat MILP, warm re-solve after one node fails, the same
+   request again (hier within 1.1 x the flat weighted spread, "hier-warm",
+   "hier-cached"); a 9600-GPU job (TP 8, PP 8) on that cluster with 30 % of
+   its nodes taken through every registered policy, and the Arnold rank grid
+   of the "hier" placement (every TP group inside one node).  Its times are
+   the host CPU's, printed beside the card.
+6. ``serve``   -- glm4-9b at full width and full depth (40 layers, bf16, random
    weights from a seed) serving 16 seeded requests through ``ServeEngine``;
    checks every result, the page allocator and the kernels' launch counts.
-6. ``zamba_parity`` -- zamba2-2.7b at full width, 12 layers: a 300-token
+7. ``zamba_parity`` -- zamba2-2.7b at full width, 12 layers: a 300-token
    forward through the kernels against the plain versions in fp32 and bf16
    (weights and tokens from four seeds), and the fp32 teacher-forced decode
    against the forward (first seed).
-7. ``zamba``   -- zamba2-2.7b at full width and full depth (54 layers, bf16,
+8. ``zamba``   -- zamba2-2.7b at full width and full depth (54 layers, bf16,
    random weights from a seed): one 32768-token forward, then 128 decode
    steps at batch 8; checks the outputs and the exact launch counts.
-8. ``train_parity`` -- minicpm-2b at full width, 4 layers, fp32 masters: the
+9. ``train_parity`` -- minicpm-2b at full width, 4 layers, fp32 masters: the
    loss and every parameter's gradient on one batch of 4 x 1024 tokens
    through the kernels (forward and backward) against autograd through the
    plain versions, in fp32 and in bf16 compute (rule in the phase).
-9. ``train``   -- minicpm-2b at full width and full depth (40 layers) with the
+10. ``train``   -- minicpm-2b at full width and full depth (40 layers) with the
    reference's defaults (bf16 compute, fp32 masters and AdamW state, remat):
    8 steps of ``make_train_step`` on ``SyntheticDataset`` batches under a WSD
    schedule; checks finite, falling loss, every gradient present and finite,
    the exact launches of each step; reports step time, tokens/s, TFLOP/s and
    peak memory.
-10. ``trainer`` -- the reduced config on the card through
+11. ``trainer`` -- the reduced config on the card through
    ``repro_torch.launch.train.main``, and a ``Trainer`` restarted by a
    ``FaultInjector`` against an uninterrupted one (final checkpoints
    bit-identical); then reduced zamba2-2.7b, qwen3-moe-235b-a22b and
    phi-3-vision-4.2b through the launcher, each once with a step failing and
    restored, once uninterrupted (bit-identical: the MoE's dispatch and
    combine sum in a fixed order).
-11. ``zamba_train_parity`` -- ``train_parity`` for zamba2-2.7b at full width,
+12. ``zamba_train_parity`` -- ``train_parity`` for zamba2-2.7b at full width,
    12 layers (two units), fp32 masters, fp32 and bf16 compute.
-12. ``zamba_train`` -- zamba2-2.7b at full width and depth (54 Mamba2 layers,
+13. ``zamba_train`` -- zamba2-2.7b at full width and depth (54 Mamba2 layers,
    the shared block applied 9 times), bf16 compute on fp32 masters, remat of
    each Mamba2 layer: 8 steps of ``make_train_step`` under its cosine schedule,
    with ``train``'s checks and reports.
-13. ``moe_parity`` -- qwen3-moe-235b-a22b (128 experts, top-8) at full width,
+14. ``moe_parity`` -- qwen3-moe-235b-a22b (128 experts, top-8) at full width,
    2 layers: ``parity``, the plain run held to the kernel run's routes; fp32
    routes identical, in bf16 the share the plain run would flip reported
    (rule in the phase).
-14. ``moe_serve`` -- qwen3-moe at full width and 12 of its 94 layers (62 GB of
+15. ``moe_serve`` -- qwen3-moe at full width and 12 of its 94 layers (62 GB of
    bf16 weights: one card's cut) through ``serve``'s engine, requests and
    checks.
-15. ``moe_train_parity`` -- ``train_parity`` for qwen3-moe at 1 layer, the
+16. ``moe_train_parity`` -- ``train_parity`` for qwen3-moe at 1 layer, the
    plain run held to the kernel run's routes (rule in the phase).
-16. ``moe_train`` -- qwen3-moe at full width and 1 layer (59.7 GB of fp32
+17. ``moe_train`` -- qwen3-moe at full width and 1 layer (59.7 GB of fp32
    weights, gradients and AdamW moments): ``train``'s 8 steps, checks and
    reports, a finite aux loss at every step, model FLOPs over the active
    (top-8) experts.
-17. ``vlm_train_parity`` -- ``train_parity`` for phi-3-vision-4.2b at full
+18. ``vlm_train_parity`` -- ``train_parity`` for phi-3-vision-4.2b at full
    width, 4 layers, with 576 patch embeddings from a seed before the 1024
    tokens (flash attention at head dim 96 over 1600 positions).
-18. ``vlm_train`` -- phi-3-vision at full width and depth (32 layers): 8
+19. ``vlm_train`` -- phi-3-vision at full width and depth (32 layers): 8
    steps of ``train`` with its patches.
 
 With ``--profile`` further phases, after ``serve``, ``zamba``,
@@ -92,7 +103,7 @@ dispatch, expert GEMMs and combine apart).
 Then the ``kernels`` summary line (the three forwards and the three
 backwards: launches over every main path -- serve, zamba, train,
 zamba_train, moe_serve, moe_train, vlm_train -- error, times and roofline
-bound per kernel), the card as ``nvidia-smi`` names it,
+bound per kernel), the host's CPU model, the card as ``nvidia-smi`` names it,
 and the verdict as the last line.  There is no CPU path: without a CUDA device the
 script exits non-zero before printing anything.
 """
@@ -121,12 +132,23 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    Cluster,
+    JobSpec,
+    ModelSpec,
+    ScheduleRequest,
+    build_comm_matrix,
+    get_scheduler,
+    list_schedulers,
+    weighted_spread,
+)
 from repro_torch.data import Prefetcher, SyntheticDataset  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as _fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as _rms  # noqa: E402
 from repro_torch.kernels import ssd_chunk as _ssd  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch.mesh import arnold_rank_grid, grid_group_spread  # noqa: E402
 from repro_torch.models import ModelOptions, build_model  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.optim import AdamWConfig, get_schedule, init_opt_state  # noqa: E402
@@ -135,10 +157,13 @@ from repro_torch.serve import (  # noqa: E402
     EngineConfig,
     LengthMixture,
     LoadGenConfig,
+    ReplicaSpec,
     ServeEngine,
     ServeReport,
     generate_requests,
+    place_replicas,
 )
+from repro_torch.serve.placement import serving_model_spec  # noqa: E402
 from repro_torch.train import (  # noqa: E402
     FaultInjector,
     Trainer,
@@ -1186,6 +1211,149 @@ def moe_parity_phase(cfg, dev: torch.device, n_layers: int = 2) -> None:
 
 
 # -------------------------------------------------------------------- serve
+# ---------------------------------------------------------------- placement
+# bench_latency's gpt-7b and its scale-tier workload: 104 minipods x 96 nodes
+PLACE_MODEL7B = dict(name="gpt-7b", hidden=4096, layers=32, vocab=50304, seq_len=2048,
+                     global_batch=1024, micro_batch=1, d_ff=16384)
+PLACE_PODS, PLACE_NODES_PER_POD = 104, 96
+PLACE_ALPHA, PLACE_BUDGET_S = 0.3, 1.0
+
+
+def host_cpu_model() -> str:
+    """The host's CPU as /proc/cpuinfo describes it (the placement phase's
+    times are the host's): its model name, with vendor, family, model, MHz and
+    the CPU count beside it, since a virtual machine may report the name as
+    "unknown"."""
+    fields: dict[str, str] = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break                     # the first processor's block
+            key, _, value = line.partition(":")
+            fields[key.strip()] = value.strip()
+    return (f"{fields.get('model name', 'unknown')} ({fields.get('vendor_id', '?')} "
+            f"family {fields.get('cpu family', '?')} model {fields.get('model', '?')}, "
+            f"{fields.get('cpu MHz', '?')} MHz, {os.cpu_count()} CPUs)")
+
+
+def timed_schedule(name: str, comm, cluster, **kw):
+    """One request through the registry's ``name`` at the phase's alpha and
+    budget; returns the result and its wall seconds."""
+    t0 = time.perf_counter()
+    res = get_scheduler(name).schedule(ScheduleRequest(
+        comm=comm, cluster=cluster, alpha=PLACE_ALPHA, time_budget=PLACE_BUDGET_S, **kw))
+    return res, time.perf_counter() - t0
+
+
+def _valid_placement(res, comm, cluster, what: str) -> None:
+    ids = res.placement.node_ids()
+    if len(ids) != comm.n_cells or len(set(ids)) != len(ids) or \
+            not all(cluster.is_free(n) for n in ids):
+        raise AssertionError(f"{what}: invalid placement ({len(ids)} nodes, "
+                             f"{len(set(ids))} distinct, {comm.n_cells} cells)")
+
+
+def placement_phase(card: str, cpu: str) -> None:
+    """The scheduling core on the card's host, in ``examples/serve.py``'s
+    order (place the replicas, then serve one): (a) two glm4-9b replicas
+    (TP 8, PP 2) placed through ``place_replicas`` on a 4 x 4 cluster; (b)
+    the "hier" tier at ``bench_latency``'s 10k-node workload -- cold, flat
+    MILP, warm re-solve after one node fails, the same request again; (c) a
+    9600-GPU job (TP 8, PP 8, 150 DP groups, the paper's scale) on that
+    cluster with 30 % of its nodes taken, through every registered policy,
+    and the Arnold rank grid of the "hier" placement."""
+    # (a) replicas, as the serve example places them
+    cluster = Cluster.uniform(4, 4)
+    spec = ReplicaSpec(model=serving_model_spec(get_config("glm4-9b")), tp=8, pp=2, n_gpus=16)
+    t0 = time.perf_counter()
+    replicas = place_replicas(cluster, 2, spec, scheduler="mip,topo-aware")
+    replicas_s = time.perf_counter() - t0
+    ids = replicas.node_ids()
+    if len(ids) != 2 * spec.n_nodes or len(set(ids)) != len(ids) or \
+            cluster.n_free != cluster.n_nodes - len(ids):
+        raise AssertionError(f"replicas overlap or hold the wrong nodes: {ids}")
+    serve_replicas = [{"replica": p.replica_id, "node_ids": p.node_ids, "method": p.method,
+                       "served_by": p.result.stats.get("served_by"),
+                       "pp_spread": p.result.pp_spread} for p in replicas.placements]
+    replicas.release()
+    if cluster.n_free != cluster.n_nodes:
+        raise AssertionError(f"release left {cluster.n_nodes - cluster.n_free} nodes taken")
+
+    # (b) the scale tier: 9984 nodes, a 4096-GPU job, a 1 s budget
+    model = ModelSpec(**PLACE_MODEL7B)
+    cluster = Cluster.uniform(PLACE_PODS, PLACE_NODES_PER_POD)
+    comm = build_comm_matrix(JobSpec(n_gpus=4096, tp=8, pp=8, model=model))
+
+    cold, cold_wall = timed_schedule("hier", comm, cluster)
+    flat, flat_wall = timed_schedule("mip", comm, cluster)
+    victim = cold.placement.node_ids()[0]
+    warm, warm_wall = timed_schedule("hier", comm, cluster, prev_placement=cold.placement,
+                                     dirty_nodes=frozenset([victim]),
+                                     excluded_nodes=frozenset([victim]))
+    again, again_wall = timed_schedule("hier", comm, cluster)
+    for res, what in ((cold, "hier cold"), (flat, "flat mip"), (again, "hier again")):
+        _valid_placement(res, comm, cluster, what)
+    if victim in warm.placement.node_ids():
+        raise AssertionError("the warm re-solve kept the failed node")
+    hier_ws = weighted_spread(cold.placement, PLACE_ALPHA)
+    flat_ws = weighted_spread(flat.placement, PLACE_ALPHA)
+    if hier_ws > 1.1 * flat_ws:
+        raise AssertionError(f"hier weighted spread {hier_ws} > 1.1 x flat {flat_ws}")
+    if warm.method != "hier-warm" or again.method != "hier-cached":
+        raise AssertionError(f"warm {warm.method!r}, repeat {again.method!r}: expected "
+                             "'hier-warm' and 'hier-cached'")
+    scale = {
+        "cluster_nodes": cluster.n_nodes, "job_nodes": comm.n_cells,
+        "comm_shape": list(comm.shape), "alpha": PLACE_ALPHA, "budget_s": PLACE_BUDGET_S,
+        "hier_cold_s": cold.solve_seconds, "hier_cold_wall_s": cold_wall,
+        "hier_method": cold.method, "blocks": cold.stats["n_blocks"],
+        "blocks_touched": cold.stats["blocks_touched"],
+        "coarse_method": cold.stats["coarse_method"], "fine_methods": cold.stats["fine_methods"],
+        "mip_flat_s": flat.solve_seconds, "mip_flat_wall_s": flat_wall, "mip_method": flat.method,
+        "hier_weighted_spread": hier_ws, "flat_weighted_spread": flat_ws,
+        "hier_warm_s": warm.solve_seconds, "hier_warm_wall_s": warm_wall,
+        "warm_speedup_x": cold.solve_seconds / max(warm.solve_seconds, 1e-9),
+        "repeat_method": again.method, "repeat_s": again.solve_seconds,
+        "repeat_wall_s": again_wall, "cache": again.stats["cache"],
+    }
+
+    # (c) the paper's scale: 9600 GPUs on the same cluster, 30 % of it taken
+    cluster = Cluster.uniform(PLACE_PODS, PLACE_NODES_PER_POD)
+    rng = np.random.default_rng(0)
+    cluster.allocate(rng.choice(cluster.n_nodes, int(cluster.n_nodes * 0.3),
+                                replace=False).tolist())
+    comm = build_comm_matrix(JobSpec(n_gpus=9600, tp=8, pp=8, model=model))
+    policies, results = {}, {}
+    for name in list_schedulers():
+        res, wall = timed_schedule(name, comm, cluster)
+        _valid_placement(res, comm, cluster, name)
+        results[name] = res
+        policies[name] = {"method": res.method, "dp_spread": res.dp_spread,
+                          "pp_spread": res.pp_spread, "solve_s": res.solve_seconds,
+                          "wall_s": wall,
+                          "weighted_spread": weighted_spread(res.placement, PLACE_ALPHA)}
+    placed = results["hier"]
+    axes = ("pipe", "data", "model")
+    shape = (comm.n_cols, comm.job.dp, 8)
+    grid = arnold_rank_grid(placed.placement, 8, shape, np.arange(cluster.n_nodes * 8))
+    per_pod = PLACE_NODES_PER_POD * 8
+    spreads = {"model_nodes": grid_group_spread(grid, axes, "model", 8),
+               "data_pods": grid_group_spread(grid, axes, "data", per_pod),
+               "pipe_pods": grid_group_spread(grid, axes, "pipe", per_pod)}
+    want = {"model_nodes": 1, "data_pods": max(placed.dp_spread, 1),
+            "pipe_pods": max(placed.pp_spread, 1)}
+    if spreads != want:
+        raise AssertionError(f"rank grid spreads {spreads}, expected {want}")
+    emit({"phase": "placement", "card": card, "host_cpu": cpu,
+          "serve_replicas": {"model": "glm4-9b", "tp": spec.tp, "pp": spec.pp,
+                             "wall_s": replicas_s, "replicas": serve_replicas},
+          "scale": scale,
+          "paper_scale": {"n_gpus": 9600, "comm_shape": list(comm.shape),
+                          "free_nodes": cluster.n_free, "policies": policies,
+                          "rank_grid": {"shape": list(shape), "axes": list(axes),
+                                        "spreads": spreads}}})
+
+
 def serve_phase(cfg, dev: torch.device, n_layers: int, phase: str = "serve"):
     """``cfg`` at full width and ``n_layers`` layers (bf16, random weights
     from a seed) serving 16 seeded Poisson requests through ``ServeEngine``;
@@ -1942,8 +2110,9 @@ def main() -> None:
     # fp32 products stay full fp32 (the reference's fp32 tests are held to 1e-5)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = nvidia_smi_line()
-    emit({"phase": "env", "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+    card, cpu = nvidia_smi_line(), host_cpu_model()
+    emit({"phase": "env", "card": card, "host_cpu": cpu, "torch": torch.__version__,
+          "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
     _build.build_all(("-Xptxas", "-v") if args.ptxas_info else ())
@@ -1962,6 +2131,7 @@ def main() -> None:
     cases = kernels_phase(cfg, zcfg, mcfg, qcfg, vcfg, dev)
     torch.cuda.empty_cache()   # the 32k plain attention's graph pool
     parity_phase(cfg, dev)
+    placement_phase(card, cpu)
     serve_counts, model, params = serve_phase(cfg, dev, args.layers or cfg.n_layers)
     if args.profile:
         profile_phase(model, params, dev)
@@ -2066,6 +2236,7 @@ def main() -> None:
         summary("ssd_chunk_scan_bwd", "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
                 "src/repro/kernels/ssd_chunk.py:61"),
     ]})
+    print(f"host cpu: {cpu}", flush=True)
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

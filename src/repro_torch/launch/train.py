@@ -5,9 +5,11 @@ synthetic data pipeline -> AdamW (+schedule) -> fault-tolerant Trainer with
 checkpoint-restart, with the reference's flags and rules (``--full`` for the
 published config, else ``reduced()``; ``remat`` on with ``--full``; compute in
 fp32 when ``--devices`` is 0; fp32 master weights).  Runs on the card unless
-``--device cpu`` is given.  The sharded run (``--devices``, ``--mesh-shape``)
-and the Arnold placement (``--arnold``, ``--scheduler``) wait for the
-parallelism layer and the scheduling core (ROADMAP.md queue A items 5 and 6)
+``--device cpu`` is given.  The scheduling core is ported
+(:mod:`repro_torch.core`, with the Arnold-ordered mesh in
+:mod:`repro_torch.launch.mesh`), but the sharded run (``--devices``,
+``--mesh-shape``) and the Arnold placement of it (``--arnold``,
+``--scheduler``) wait for the parallelism layer (ROADMAP.md queue A item 6)
 and raise.
 """
 
@@ -43,8 +45,9 @@ def main(argv=None) -> int:
 
     if args.devices or args.arnold or args.scheduler is not None:
         raise NotImplementedError(
-            "--devices/--arnold/--scheduler need the parallelism layer and the scheduling core, "
-            "not ported yet (ROADMAP.md queue A items 5 and 6); this launcher trains on one device")
+            "--devices/--arnold/--scheduler need the parallelism layer, not ported yet "
+            "(ROADMAP.md queue A item 6; the scheduling core is ported as repro_torch.core); "
+            "this launcher trains on one device")
 
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticDataset

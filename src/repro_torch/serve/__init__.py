@@ -7,9 +7,8 @@
   admission, prefill + batched decode, page recycling)
 * :mod:`repro_torch.serve.loadgen`   -- seeded Poisson load generator +
   latency / throughput report
-
-Replica placement (the reference's ``serve/placement.py``) waits for the
-scheduling-core slice.
+* :mod:`repro_torch.serve.placement` -- topology-aware replica placement via
+  the unified Scheduler registry (:mod:`repro_torch.core`)
 """
 
 from repro_torch.serve.engine import EngineConfig, EngineStats, ServeEngine
@@ -21,6 +20,7 @@ from repro_torch.serve.loadgen import (
     generate_requests,
     run_benchmark,
 )
+from repro_torch.serve.placement import ReplicaPlacement, ReplicaSet, ReplicaSpec, place_replicas
 from repro_torch.serve.request import GenerationRequest, GenerationResult
 
 __all__ = [
@@ -28,5 +28,6 @@ __all__ = [
     "OutOfPages", "PageAllocator", "PagedCacheConfig", "PagedKVCache",
     "LengthMixture", "LoadGenConfig", "ServeReport",
     "generate_requests", "run_benchmark",
+    "ReplicaPlacement", "ReplicaSet", "ReplicaSpec", "place_replicas",
     "GenerationRequest", "GenerationResult",
 ]

@@ -28,7 +28,8 @@ def imported_roots(path: Path) -> set[str]:
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"ops.py", "layers.py", "transformer.py", "engine.py", "chip_smoke.py", "adamw.py",
-            "trainer.py", "checkpointer.py", "pipeline.py"} <= names
+            "trainer.py", "checkpointer.py", "pipeline.py", "mip.py", "hierarchical.py",
+            "scheduler.py", "fabric.py", "placement.py", "mesh.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -52,6 +53,15 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import sys, shutil\n"
         "import repro_torch, repro_torch.serve, repro_torch.models, repro_torch.convert\n"
         "import repro_torch.kernels.ops, repro_torch.train, repro_torch.launch.train\n"
+        "import repro_torch.core, repro_torch.topo, repro_torch.launch.mesh\n"
+        "from repro_torch.serve import place_replicas\n"
+        "import warnings; warnings.simplefilter('ignore', DeprecationWarning)\n"
+        "from repro_torch import core as c\n"
+        "m = c.ModelSpec(name='m', hidden=64, layers=2, vocab=100, seq_len=8, global_batch=8)\n"
+        "comm = c.build_comm_matrix(c.JobSpec(n_gpus=32, tp=8, pp=2, model=m))\n"
+        "cl = c.Cluster.uniform(2, 4)\n"
+        "c.schedule_mip(comm, cl, alpha=0.5); c.best_fit(comm, cl)  # their lazy imports\n"
+        "c.HierarchicalScheduler().schedule(c.ScheduleRequest(comm=comm, cluster=cl))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))\n"
         "assert not bad, bad\n"
         "import repro_torch.kernels._build as b\n"
