@@ -17,8 +17,8 @@ solve so cost scales with the *pods a job touches*, not cluster size:
    straddle blocks are placed by a best-fit splitter.  Blocks the coarse
    stage did not select are never looked at.
 3. **Warm-start re-solve** -- when the request carries ``prev_placement``
-   and a small ``dirty_nodes`` set (failure churn, the path the
-   reference's ``FailureManager``/``TraceSimulator`` exercise), the previous placement
+   and a small ``dirty_nodes`` set (failure churn, the path
+   ``FailureManager``/``TraceSimulator`` exercise), the previous placement
    is repaired locally (same-pod free node first, then pods the affected
    groups already span) instead of re-solving from scratch.
 4. **Placement cache** -- solved counts matrices are memoized in a
@@ -237,7 +237,7 @@ class HierarchicalScheduler:
 
         Returns a result (method ``"hier-warm"``) or None to fall through
         to the cold path.  Replacement preference mirrors
-        the reference's ``FailureManager``: same domain (spread unchanged), then a
+        :class:`FailureManager`: same domain (spread unchanged), then a
         domain the affected groups already span (nearest by fabric hop
         distance first), then any free node.
         """

@@ -6,7 +6,7 @@ bisection bandwidth at the core tier, so every pair of distinct minipods is
 equidistant: traffic goes leaf -> spine -> core -> spine -> leaf no matter
 which pods it connects.  That uniformity is why the paper can characterize
 degradation purely as a function of the *number* of minipods spanned
-(Fig. 4b/4c) -- the reference's CLOS network model keeps that calibration.
+(Fig. 4b/4c) -- the CLOS network model keeps that calibration.
 """
 
 from __future__ import annotations
