@@ -13,7 +13,10 @@ raises and the script exits non-zero:
    give it (glm4-9b's and qwen3-moe-235b-a22b's serving, zamba2-2.7b's
    prefill, minicpm-2b's, zamba2-2.7b's, qwen3-moe's and phi-3-vision-4.2b's
    training steps, the last with flash attention at head dim 96 on both
-   routes; plus ragged, unaligned and small cases), holds
+   routes; xlstm-350m's norms and whisper-tiny's, with its flash attention
+   without a causal mask over 1500 frames and across 448 queries to 1500
+   keys, forward and backward on both routes; plus ragged, unaligned and small
+   cases), holds
    the result against the plain PyTorch version on the same inputs, and times
    kernel, plain version and the one PyTorch library call that computes the
    same function (a yardstick; the port never calls it; none exists for the
@@ -104,10 +107,34 @@ raises and the script exits non-zero:
    tokens (flash attention at head dim 96 over 1600 positions).
 20. ``vlm_train`` -- phi-3-vision at full width and depth (32 layers): 8
    steps of ``train`` with its patches.
+21. ``xlstm_parity`` -- xlstm-350m at full width, 4 layers (one unit: 3
+   mLSTM + 1 sLSTM): a 256-token forward at batch 2 through the kernels
+   against the plain versions in fp32 and bf16, and 16 teacher-forced decode
+   steps against the forward.
+22. ``xlstm`` -- xlstm-350m at full width and depth (24 layers, bf16, random
+   weights from a seed): a 1024-token forward at batch 1, then 128 decode
+   steps at batch 8; exact launch counts.  Its recurrences are plain tensor
+   code a step at a time (the reference's ``lax.scan``), host-bound.
+23. ``xlstm_train_parity`` -- ``train_parity`` for xlstm-350m at 4 layers.
+24. ``xlstm_train`` -- xlstm-350m at full width and depth: 3 steps of 4 x
+   256 tokens (its sequence cut from 4096, printed on a NOTE line), remat of
+   each unit and every 128 recurrence steps; the loss must fall on each
+   step's own batch.
+25. ``whisper_parity`` -- whisper-tiny at full width and depth (4 + 4
+   layers): a forward over 1500 frames and 448 tokens at batch 2, kernels
+   against plain in fp32 and bf16, then ``prefill_cross`` and 16
+   teacher-forced decode steps against the forward; again with 24 frames.
+26. ``whisper`` -- whisper-tiny served (bf16): ``prefill_cross`` of 8 lanes of
+   1500 frames, then 128 decode steps; exact launch counts.
+27. ``whisper_train_parity`` -- ``train_parity`` for whisper-tiny at full depth.
+28. ``whisper_train`` -- whisper-tiny trained: 8 steps of 4 x (1500 frames +
+   448 tokens), remat of each layer.
 
 With ``--profile`` further phases, after ``serve``, ``zamba``,
-``train_parity``, ``train``, ``zamba_train``, ``moe_serve``, ``moe_train`` and
-``vlm_train``, trace a decode step and a prefill of each served model, one
+``train_parity``, ``train``, ``zamba_train``, ``moe_serve``, ``moe_train``,
+``vlm_train``, ``xlstm``, ``xlstm_train``, ``whisper`` and ``whisper_train``,
+trace a decode step and a prefill (a forward, Whisper's ``prefill_cross``) of
+each served model, one
 fp32-compute ``loss_and_grads`` of ``train_parity``'s model (the launcher's
 dtype) and one train step of each trained model with ``torch.profiler``
 (device-busy time against the host's wall clock, and the flash and SSD
@@ -116,7 +143,8 @@ dispatch, expert GEMMs and combine apart).
 
 Then the ``kernels`` summary line (the three forwards and the three
 backwards: launches over every main path -- serve, zamba, train,
-zamba_train, moe_serve, moe_train, vlm_train -- error, times and roofline
+zamba_train, moe_serve, moe_train, vlm_train, xlstm, xlstm_train, whisper,
+whisper_train -- error, times and roofline
 bound per kernel), the host's CPU model, the card as ``nvidia-smi`` names it,
 and the verdict as the last line.  There is no CPU path: without a CUDA device the
 script exits non-zero before printing anything.
@@ -168,6 +196,7 @@ from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.mesh import arnold_rank_grid, grid_group_spread  # noqa: E402
 from repro_torch.models import ModelOptions, build_model  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.models.whisper import N_FRAMES  # noqa: E402
 from repro_torch.optim import AdamWConfig, get_schedule, init_opt_state  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
@@ -209,6 +238,19 @@ SSD_STATE_TOL = 1e-4
 # timing yardstick of earlier runs.
 ZAMBA_SEQ = 32768
 ZAMBA_ATTN_SEQ = 4096
+
+# xlstm-350m: its serving forward's tokens (batch 1: eight 128-step segments)
+# and its training step's 4 x 256 tokens (two segments).  Its recurrences run a
+# step at a time on the host (the reference's lax.scan; no kernel), so the
+# host's time grows with the sequence: training is cut from train_4k's 4096
+# tokens a sequence, widths and depth unchanged.  The parity phases hold one
+# unit (3 mLSTM + 1 sLSTM).
+XLSTM_SEQ = 1024
+XLSTM_TRAIN_SEQ = 256
+XLSTM_TRAIN_STEPS = 3
+XLSTM_PARITY_LAYERS = 4
+# whisper-tiny: the decoder's context (the encoder takes N_FRAMES = 1500)
+WHISPER_SEQ = 448
 
 
 def compare(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
@@ -385,13 +427,20 @@ def flash_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype: tor
     plain = flash_ref_by_head if by_head else ref.flash_attention_ref
     q, k, v = rand(hq, sq, q_scale), rand(hkv, skv), rand(hkv, skv)
     what = f"flash_attention q{tuple(q.shape)} kv{tuple(k.shape)} {dtype}"
-    lse_err = None
+    lse_err = res_reading = None
     if with_lse:
-        got, lse = _fa.flash_attention_cuda(q, k, v, causal, with_lse=True)
+        got, lse, got_res = _fa.flash_attention_cuda(q, k, v, causal, with_lse=True)
         torch.cuda.synchronize()
         want, want_lse = ref.flash_attention_lse_ref(q, k, v, causal)
         lse_err = compare(lse, want_lse, f"{what} lse")
-        del lse, want_lse
+        if got_res is not None:
+            # a reading: out and out + out_res (what the backward's D takes)
+            # against the plain version's unrounded out
+            want32, _ = ref.flash_attention_lse_ref(q.float(), k.float(), v.float(), causal)
+            res_reading = {"out": (got.float() - want32).abs().max().item(),
+                           "out_plus_res": (got.float() + got_res.float() - want32).abs().max().item()}
+            del want32
+        del lse, want_lse, got_res
     else:
         got = ops.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -408,7 +457,7 @@ def flash_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype: tor
         "layout": "(b,s,h,hd) strided" if model_layout else "(b,h,s,hd) contiguous",
         "route": plan.route, "block_q": plan.bm, "block_kv": plan.bn, "stages": plan.stages,
         "vector_loads": plan.vector_loads, "smem_bytes": plan.smem_bytes, "with_lse": with_lse,
-        "lse_max_abs_err": lse_err,
+        "lse_max_abs_err": lse_err, "max_abs_err_vs_unrounded_plain": res_reading,
         "rows_16_byte_aligned": q.data_ptr() % 16 == 0, "causal": causal, "q_scale": q_scale,
         "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err, "tol": TOL[dtype],
         "max_abs_plain": want.abs().max().item(),
@@ -427,7 +476,9 @@ def flash_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype: tor
     # work this call needs: causal row i of q sees keys 0 .. i + (skv - sq)
     visible = sum(min(skv, i + skv - sq + 1) for i in range(sq)) if causal else sq * skv
     flops = 4 * b * hq * visible * hd
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * dtype.itemsize
+    # q, k, v read, out written (and, for bf16 with lse, out_res; lse is small)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()
+              + (q.numel() if with_lse and dtype != torch.float32 else 0)) * dtype.itemsize
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / PEAK_FLOPS[dtype] * 1e3
     case["bound_ms"] = max(by_bytes, by_ops)
@@ -499,11 +550,11 @@ def flash_bwd_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype:
         return t.transpose(1, 2) if model_layout else t
 
     q, k, v, dout = rand(hq, sq), rand(hkv, skv), rand(hkv, skv), rand(hq, sq)
-    out, lse = _fa.flash_attention_cuda(q, k, v, causal, with_lse=True)
-    got = _fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal)
-    again = _fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal)
+    out, lse, out_res = _fa.flash_attention_cuda(q, k, v, causal, with_lse=True)
+    got = _fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal, out_res)
+    again = _fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal, out_res)
     torch.cuda.synchronize()
-    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal, out_res)
     what = f"flash_attention_bwd q{tuple(q.shape)} kv{tuple(k.shape)} {dtype}"
     errs = {name: compare(g, w, f"{what} {name}") for name, g, w in zip(("dq", "dk", "dv"), got, want)}
     # no atomics and a fixed order for every sum: two calls agree bit for bit
@@ -532,8 +583,9 @@ def flash_bwd_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype:
     args = [(q, k, v, out, lse, dout)]
     timings(
         case,
-        kernel=(lambda *a: _fa.flash_attention_bwd_cuda(*a, causal), args, iters),
-        plain=(lambda *a: ref.flash_attention_bwd_ref(*a, causal), args, max(1, iters // 4)),
+        kernel=(lambda *a: _fa.flash_attention_bwd_cuda(*a, causal, out_res), args, iters),
+        plain=(lambda *a: ref.flash_attention_bwd_ref(*a, causal, out_res), args,
+               max(1, iters // 4)),
         library=None,
     )
     # its backward faults on inputs shifted off 16 bytes, so it gets aligned
@@ -543,8 +595,8 @@ def flash_bwd_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype:
     visible = sum(min(skv, i + skv - sq + 1) for i in range(sq)) if causal else sq * skv
     # five products of 2 hd flops per visible pair: S (recomputed), dP, dV, dQ, dK
     flops = 10 * b * hq * visible * hd
-    nbytes = (2 * (q.numel() + k.numel() + v.numel()) + out.numel() + dout.numel()) * dtype.itemsize \
-        + lse.numel() * 4
+    nbytes = (2 * (q.numel() + k.numel() + v.numel()) + out.numel() + dout.numel()
+              + (0 if out_res is None else out_res.numel())) * dtype.itemsize + lse.numel() * 4
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / PEAK_FLOPS[dtype] * 1e3
     case["bound_ms"] = max(by_bytes, by_ops)
@@ -554,19 +606,21 @@ def flash_bwd_case(b: int, hq: int, hkv: int, sq: int, skv: int, hd: int, dtype:
 
 
 def flash_lse_case(b: int, hq: int, hkv: int, s: int, hd: int, dtype: torch.dtype,
-                   gen: torch.Generator) -> dict:
+                   gen: torch.Generator, skv: int | None = None, causal: bool = True) -> dict:
     """The forward's out is bit-identical with and without lse, and lse
-    agrees with the plain version's (fp32 rule); model layout, causal."""
-    q, k, v = (torch.randn((b, s, h, hd), device=gen.device, generator=gen).to(dtype).transpose(1, 2)
-               for h in (hq, hkv, hkv))
-    alone = _fa.flash_attention_cuda(q, k, v, True)
-    out, lse = _fa.flash_attention_cuda(q, k, v, True, with_lse=True)
+    agrees with the plain version's (fp32 rule); model layout; ``skv`` keys
+    (default ``s``)."""
+    q, k, v = (torch.randn((b, n, h, hd), device=gen.device, generator=gen).to(dtype).transpose(1, 2)
+               for h, n in ((hq, s), (hkv, skv or s), (hkv, skv or s)))
+    alone = _fa.flash_attention_cuda(q, k, v, causal)
+    out, lse, _ = _fa.flash_attention_cuda(q, k, v, causal, with_lse=True)
     torch.cuda.synchronize()
     if not torch.equal(alone, out):
         raise AssertionError(f"flash forward q{tuple(q.shape)} {dtype}: storing lse changed out")
-    _, want = ref.flash_attention_lse_ref(q, k, v, True)
+    _, want = ref.flash_attention_lse_ref(q, k, v, causal)
     return {"kernel": "flash_attention", "case": "lse", "q": list(q.shape), "kv": list(k.shape),
-            "dtype": str(dtype).removeprefix("torch."), "route": _fa.flash_plan(q, k, v, out).route,
+            "causal": causal, "dtype": str(dtype).removeprefix("torch."),
+            "route": _fa.flash_plan(q, k, v, out).route,
             "out_bit_identical_with_lse": True, "lse_max_abs_err": compare(lse, want, "lse"),
             "tol": TOL[torch.float32]}
 
@@ -877,12 +931,14 @@ def ssd_bwd_case(b: int, H: int, s: int, P: int, N: int, chunk: int, dtype: torc
     return case
 
 
-def kernels_phase(cfg, zcfg, mcfg, qcfg, vcfg, dev: torch.device) -> dict[str, dict]:
+def kernels_phase(cfg, zcfg, mcfg, qcfg, vcfg, xcfg, wcfg, dev: torch.device) -> dict[str, dict]:
     """Every kernel case; returns the case of each kernel at its main paths'
     heaviest shape (zamba2-2.7b's 32k prefill for the three forwards,
     minicpm-2b's training step for the RMSNorm and flash backwards, zamba2's
     for the SSD backward).  ``qcfg``/``vcfg``: qwen3-moe-235b-a22b's and
-    phi-3-vision-4.2b's shapes (flash at hd 96 on both routes)."""
+    phi-3-vision-4.2b's shapes (flash at hd 96 on both routes); ``xcfg``/
+    ``wcfg``: xlstm-350m's and whisper-tiny's (flash without a causal mask,
+    and over more keys than queries, on both routes)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     hd = cfg.resolved_head_dim
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -1013,8 +1069,30 @@ def kernels_phase(cfg, zcfg, mcfg, qcfg, vcfg, dev: torch.device) -> dict[str, d
         rmsnorm_case((b, TRAIN_SEQ, qd), bf16, gen, 50),
         rmsnorm_bwd_case((b, TRAIN_SEQ, qd), bf16, gen, 50),
     ]
+    # xlstm-350m's blocks (d 1024: its training step's 4 x 256 tokens, decode's
+    # 8 lanes) and whisper-tiny's (d 384, 6 heads of 64): the encoder's
+    # self-attention over 1500 frames (non-causal; 1500 = 11 x 128 + 92, the
+    # last key tile ragged), the decoder's cross-attention (448 queries over
+    # the 1500 frames, non-causal) and its causal self-attention over 448
+    # tokens; forward with lse and backward, bf16 on wgmma and fp32 (the
+    # launcher's dtype) on the CUDA cores
+    wh, whd, wd = wcfg.n_heads, wcfg.resolved_head_dim, wcfg.d_model
+    ssm_audio_cases = [
+        *(case for shape in ((b, XLSTM_TRAIN_SEQ, xcfg.d_model), (b, N_FRAMES, wd),
+                             (b, WHISPER_SEQ, wd))
+          for case in (rmsnorm_case(shape, bf16, gen, 50), rmsnorm_bwd_case(shape, bf16, gen, 50))),
+        rmsnorm_case((8, 1, xcfg.d_model), bf16, gen, 200),
+        rmsnorm_case((8, 1, wd), bf16, gen, 200),
+        *(case for sq, skv, causal in ((N_FRAMES, N_FRAMES, False), (WHISPER_SEQ, N_FRAMES, False),
+                                       (WHISPER_SEQ, WHISPER_SEQ, True))
+          for dt, iters in ((bf16, 10), (fp32, 3))
+          for case in (flash_case(b, wh, wh, sq, skv, whd, dt, gen, iters, True, causal=causal,
+                                  q_scale=4.0, with_lse=True),
+                       flash_bwd_case(b, wh, wh, sq, skv, whd, dt, gen, iters, True, causal=causal),
+                       flash_lse_case(b, wh, wh, sq, whd, dt, gen, skv=skv, causal=causal))),
+    ]
     emit({"phase": "kernels", "cases": cases + zamba_cases + train_cases + zamba_train_cases
-          + moe_vlm_cases})
+          + moe_vlm_cases + ssm_audio_cases})
     return {"rmsnorm": rmsnorm_main, "flash_attention": flash_main, "ssd_chunk_scan": ssd_main,
             "rmsnorm_bwd": rmsnorm_bwd_main, "flash_attention_bwd": flash_bwd_main,
             "ssd_chunk_scan_bwd": ssd_bwd_main}
@@ -1784,9 +1862,19 @@ def _zamba_parity_seed(cfg, dev: torch.device, seq: int, seed: int, decode: bool
 
 def zamba_phase(cfg, dev: torch.device):
     """zamba2-2.7b at full width and depth, bf16, random weights: one forward
-    over ZAMBA_SEQ tokens, then decode_step at batch 8 from a fresh cache (64
-    teacher-forced prompt tokens, 64 greedy).  Returns the launch counts, the
-    model and its parameters."""
+    over ZAMBA_SEQ tokens (``prefill_32k``'s sequence, its batch cut from 32
+    to 1), then decode_step at batch 8.  Returns the launch counts, the model
+    and its parameters."""
+    return recurrent_serve_phase(cfg, dev, "zamba", ZAMBA_SEQ, zamba_launches,
+                                 "prefill_32k's sequence, its batch cut from 32 to 1")
+
+
+def recurrent_serve_phase(cfg, dev: torch.device, phase: str, seq: int, launches, note: str):
+    """``cfg`` (zamba2-2.7b, xlstm-350m) at full width and depth, bf16, random
+    weights: one forward over ``seq`` tokens at batch 1, then decode_step at
+    batch 8 from a fresh cache (64 teacher-forced prompt tokens, 64 greedy);
+    ``launches(cfg, forwards, decode_steps)``: the exact launches.  Returns the
+    launch counts, the model and its parameters."""
     lanes, prompt_len, n_greedy = 8, 64, 64
     model = build_model(cfg, ModelOptions("bfloat16", "bfloat16"), dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1794,7 +1882,7 @@ def zamba_phase(cfg, dev: torch.device):
     params = model.init(gen)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    tokens = torch.randint(0, cfg.vocab, (1, ZAMBA_SEQ), device=dev, generator=gen)
+    tokens = torch.randint(0, cfg.vocab, (1, seq), device=dev, generator=gen)
     prompt = torch.randint(0, cfg.vocab, (lanes, prompt_len), device=dev, generator=gen)
     with torch.no_grad():
         # warm-up outside the clocks and counts: a short forward and one step
@@ -1809,13 +1897,14 @@ def zamba_phase(cfg, dev: torch.device):
         torch.cuda.synchronize()
         forward_s = time.perf_counter() - t0
         fwd_counts = ops.launch_counts()
-        fwd_ok = logits.shape == (1, ZAMBA_SEQ, cfg.padded_vocab) and \
+        fwd_ok = logits.shape == (1, seq, cfg.padded_vocab) and \
             bool(torch.isfinite(logits[..., :cfg.vocab]).all())
         forward_peak_gb = torch.cuda.max_memory_allocated() / 1e9
         del logits
 
-        cache = model.init_cache(lanes, ZAMBA_SEQ)
-        kv_len = cache["kv"]["k"].shape[2]
+        cache = model.init_cache(lanes, seq)
+        # zamba2's ring of shared-attention KV; the xLSTM's state is O(1)
+        kv_len = {"kv_len": cache["kv"]["k"].shape[2]} if "kv" in cache else {}
         ops.reset_launch_counts()
         finite = torch.ones((), dtype=torch.bool, device=dev)
         generated = []
@@ -1833,21 +1922,21 @@ def zamba_phase(cfg, dev: torch.device):
     out = torch.cat(generated[:n_greedy], dim=1).cpu()
     if not fwd_ok or not bool(finite) or cache["index"] != steps or out.shape != (lanes, n_greedy) \
             or not bool(((out >= 0) & (out < cfg.vocab)).all()):
-        raise AssertionError(f"zamba: forward ok {fwd_ok}, decode logits finite {bool(finite)}, "
-                             f"index {cache['index']}/{steps}, tokens {tuple(out.shape)}")
-    if fwd_counts != zamba_launches(cfg, 1, 0) or dec_counts != zamba_launches(cfg, 0, steps):
-        raise AssertionError(f"zamba launch counts: forward {fwd_counts}, expected "
-                             f"{zamba_launches(cfg, 1, 0)}; decode {dec_counts}, expected "
-                             f"{zamba_launches(cfg, 0, steps)}")
+        raise AssertionError(f"{phase}: forward ok {fwd_ok}, decode logits finite "
+                             f"{bool(finite)}, index {cache['index']}/{steps}, tokens "
+                             f"{tuple(out.shape)}")
+    if fwd_counts != launches(cfg, 1, 0) or dec_counts != launches(cfg, 0, steps):
+        raise AssertionError(f"{phase} launch counts: forward {fwd_counts}, expected "
+                             f"{launches(cfg, 1, 0)}; decode {dec_counts}, expected "
+                             f"{launches(cfg, 0, steps)}")
     emit({
-        "phase": "zamba", "model": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "phase": phase, "model": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "params": cfg.param_count(), "dtype": "bfloat16", "init_s": init_s,
-        "forward": {"tokens": ZAMBA_SEQ, "batch": 1,
-                    "note": "prefill_32k's sequence, its batch cut from 32 to 1",
-                    "wall_s": forward_s, "tokens_per_s": ZAMBA_SEQ / forward_s,
+        "forward": {"tokens": seq, "batch": 1, "note": note,
+                    "wall_s": forward_s, "tokens_per_s": seq / forward_s,
                     "peak_device_memory_gb": forward_peak_gb, "launches": fwd_counts},
         "decode": {"lanes": lanes, "teacher_forced": prompt_len, "greedy": n_greedy,
-                   "kv_len": kv_len, "ms_per_step": decode_s * 1e3 / steps,
+                   **kv_len, "ms_per_step": decode_s * 1e3 / steps,
                    "tokens_per_s": lanes * steps / decode_s, "launches": dec_counts},
         "peak_device_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     })
@@ -1885,13 +1974,23 @@ def zamba_train_launches(cfg, remat: bool) -> dict[str, int]:
             "ssd_chunk_scan_bwd": layers}
 
 
+def train_shape(cfg) -> tuple[int, int]:
+    """(sequences, tokens a sequence) of a train step: TRAIN_BATCH x
+    TRAIN_SEQ; the xLSTM's XLSTM_TRAIN_SEQ tokens, Whisper's decoder context."""
+    return TRAIN_BATCH, {"ssm": XLSTM_TRAIN_SEQ, "audio": WHISPER_SEQ}.get(cfg.family, TRAIN_SEQ)
+
+
 def train_data(cfg, seed: int = 0) -> SyntheticDataset:
-    """TRAIN_BATCH x TRAIN_SEQ tokens a batch, and for a VLM its patch
-    embeddings from the same seed, as the launcher makes them."""
+    """``train_shape(cfg)`` tokens a batch, and for a VLM its patch
+    embeddings, for Whisper its N_FRAMES frame embeddings, from the same seed,
+    as the launcher makes them."""
+    b, s = train_shape(cfg)
     extra = {}
     if cfg.family == "vlm":
-        extra["patches"] = ((TRAIN_BATCH, cfg.n_patches, cfg.d_model), "float32")
-    return SyntheticDataset(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=seed, extra_specs=extra)
+        extra["patches"] = ((b, cfg.n_patches, cfg.d_model), "float32")
+    if cfg.family == "audio":
+        extra["frames"] = ((b, N_FRAMES, cfg.d_model), "float32")
+    return SyntheticDataset(cfg.vocab, s, b, seed=seed, extra_specs=extra)
 
 
 def train_parity_phase(cfg, dev: torch.device, n_layers: int = 4, phase: str = "train_parity",
@@ -1915,7 +2014,7 @@ def train_parity_phase(cfg, dev: torch.device, n_layers: int = 4, phase: str = "
     cfg = dataclasses.replace(cfg, n_layers=n_layers)
     batch = batch_to_device(train_data(cfg).batch(0), dev)
     report = {"phase": phase, "model": cfg.name, "n_layers": n_layers,
-              "tokens": TRAIN_BATCH * TRAIN_SEQ, "rule": {"float32": 1e-4, "bfloat16": 5e-2}}
+              "tokens": math.prod(train_shape(cfg)), "rule": {"float32": 1e-4, "bfloat16": 5e-2}}
     master = None
     for name, rel, loss_rel in (("float32", 1e-4, 1e-5), ("bfloat16", 5e-2, 1e-2)):
         model = build_model(cfg, ModelOptions("float32", name, remat=False), dev)
@@ -1964,13 +2063,18 @@ def train_parity_phase(cfg, dev: torch.device, n_layers: int = 4, phase: str = "
 
 def run_train_steps(model, dev: torch.device, steps: int, expected: dict) -> dict:
     """``steps`` steps of ``make_train_step`` for ``model`` (fp32 masters and
-    AdamW state): ``SyntheticDataset(seed 0)`` batches of TRAIN_BATCH x
-    TRAIN_SEQ tokens under the config's schedule (peak TRAIN_LR, 2 warm-up
+    AdamW state): ``SyntheticDataset(seed 0)`` batches of ``train_shape``
+    tokens under the config's schedule (peak TRAIN_LR, 2 warm-up
     steps).  Checks finite, falling loss, the first step's cross-entropy
     within 0.5 of ln(vocab) (a MoE's loss adds 0.01 aux to it), a finite aux
     loss at every step, every gradient present and finite, and ``expected``,
-    the exact launches of every step."""
+    the exact launches of every step.  The xLSTM's loss must fall on each
+    step's own batch (evaluated again after its update, outside the step's
+    clock and launches) rather than from the first step's batch to the
+    last's: from one batch to the next it moves more in a few steps than
+    training does (PERF.md, PR 24)."""
     cfg = model.cfg
+    own_batch = cfg.family == "ssm"
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     opt_state = init_opt_state(params)
@@ -1997,6 +2101,10 @@ def run_train_steps(model, dev: torch.device, steps: int, expected: dict) -> dic
                 raise AssertionError(f"{cfg.name} train step {step + 1}: launches {counts}, "
                                      f"expected {expected}")
             totals = {k: totals[k] + counts[k] for k in totals}
+            if own_batch:
+                with torch.no_grad():
+                    after, _ = model.loss(params, batch_to_device(batch, dev))
+                history[-1]["loss_after_update"] = after.item()
     finally:
         prefetch.close()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2007,7 +2115,8 @@ def run_train_steps(model, dev: torch.device, steps: int, expected: dict) -> dic
     first_ok = abs(history[0]["ce"] - math.log(cfg.vocab)) < 0.5
     if not (grads_ok and first_ok and all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
                                           and math.isfinite(h["aux"]) for h in history)
-            and losses[-1] < losses[0]):
+            and (all(h["loss_after_update"] < h["loss"] for h in history) if own_batch
+                 else losses[-1] < losses[0])):
         raise AssertionError(f"{cfg.name} train: grads present and finite {grads_ok}, first ce "
                              f"{history[0]['ce']} against ln(vocab) {math.log(cfg.vocab)}, "
                              f"history {history}")
@@ -2184,6 +2293,257 @@ def launcher_restart(tmp: str, arch: str, steps: int = 12, fail_at: int = 8) -> 
             "restart_bit_identical": same, "leaves_compared": len(a)}
 
 
+# ----------------------------------------------------------- xlstm, whisper
+def _no_launches() -> dict[str, int]:
+    return dict.fromkeys(ops.launch_counts(), 0)
+
+
+def xlstm_launches(cfg, forwards: int, decode_steps: int) -> dict[str, int]:
+    """Launches of ``forwards`` forwards and ``decode_steps`` decode steps of
+    the xLSTM: RMSNorm once a block and once at the end, in both paths; no
+    other kernel (the recurrences are plain tensor code, the reference's
+    ``lax.scan``)."""
+    return {**_no_launches(), "rmsnorm": (cfg.n_layers + 1) * (forwards + decode_steps)}
+
+
+def xlstm_train_launches(cfg, remat: bool) -> dict[str, int]:
+    """Launches of one xLSTM train step: RMSNorm once a block and once at the
+    end; remat runs each unit's blocks again in the backward (the final norm
+    is outside the checkpoints; the recurrences' segment checkpoints hold no
+    norm); the backward once per norm."""
+    layers = cfg.n_layers
+    return {**_no_launches(), "rmsnorm": layers + 1 + (layers if remat else 0),
+            "rmsnorm_bwd": layers + 1}
+
+
+def whisper_launches(cfg, forwards: int, prefills: int, decode_steps: int) -> dict[str, int]:
+    """Launches of Whisper's forwards, ``prefill_cross`` calls and decode
+    steps: the encoder (in both of the first two) RMSNorm twice a layer and
+    once at the end, flash attention once a layer; the decoder's forward
+    RMSNorm three times a layer and once at the end, flash attention twice a
+    layer (causal self-attention, cross-attention); a decode step the
+    decoder's norms, its attention plain tensor code."""
+    enc, dec = cfg.n_encoder_layers, cfg.n_layers
+    enc_norms, dec_norms = 2 * enc + 1, 3 * dec + 1
+    return {**_no_launches(),
+            "rmsnorm": (enc_norms + dec_norms) * forwards + enc_norms * prefills
+            + dec_norms * decode_steps,
+            "flash_attention": (enc + 2 * dec) * forwards + enc * prefills}
+
+
+def whisper_train_launches(cfg, remat: bool) -> dict[str, int]:
+    """Launches of one Whisper train step: the forward's (``whisper_launches``);
+    remat runs each layer's again in the backward (the two final norms are
+    outside the checkpoints); each backward once per forward call it
+    differentiates."""
+    enc, dec = cfg.n_encoder_layers, cfg.n_layers
+    norms, flash = 2 * enc + 3 * dec + 2, enc + 2 * dec
+    return {**_no_launches(), "rmsnorm": norms + (norms - 2 if remat else 0),
+            "flash_attention": flash * (2 if remat else 1), "rmsnorm_bwd": norms,
+            "flash_attention_bwd": flash}
+
+
+def teacher_forced(model, params, batch: dict, steps: int) -> torch.Tensor:
+    """The logits (b, steps, vocab) fp32 of ``steps`` decode steps fed
+    ``batch["tokens"]``'s first positions, from a fresh cache (Whisper's
+    cross K/V filled by ``prefill_cross`` from ``batch["frames"]`` first)."""
+    b, s = batch["tokens"].shape
+    cache = model.init_cache(b, s)
+    if "frames" in batch:
+        cache = model.prefill_cross(params, cache, batch["frames"])
+    out = []
+    for t in range(steps):
+        logits, cache = model.decode_step(params, cache, batch["tokens"][:, t: t + 1])
+        out.append(logits[:, 0, :model.cfg.vocab].float())
+    return torch.stack(out, dim=1)
+
+
+def model_parity(cfg, dev: torch.device, batch: dict, expected: dict, decode_steps: int,
+                 seed: int) -> dict:
+    """``cfg``'s forward on ``batch`` (weights from ``seed``) through the
+    kernels (``expected``: the exact launches) against the plain versions, in
+    fp32 and in bf16; in fp32 also ``decode_steps`` teacher-forced decode
+    steps, which take the forward's own path only through RMSNorm (and
+    Whisper's encoder), against the forward's first positions.  Rules as
+    ``zamba_parity``'s: |logit diff| <= 1e-3 in fp32 and 2e-2 of the largest
+    logit in bf16; the decode within 1e-3 of the largest logit."""
+    master = build_model(cfg, ModelOptions("float32", "float32"), dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    report = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        model = build_model(cfg, ModelOptions(name, name), dev)
+        params = cast(master, dtype)
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            through_kernels, _ = model.forward(params, batch)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            with plain_kernels():
+                through_plain, _ = model.forward(params, batch)
+            torch.cuda.synchronize()
+        if counts != expected or ops.launch_counts() != counts:
+            raise AssertionError(f"{cfg.name} parity: the kernel run launched {counts}, expected "
+                                 f"{expected}; the plain run must launch none "
+                                 f"({ops.launch_counts()})")
+        got, want = through_kernels[..., :cfg.vocab].float(), through_plain[..., :cfg.vocab].float()
+        diff = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        tol = 1e-3 if dtype == torch.float32 else 2e-2 * scale
+        finite = bool(torch.isfinite(got).all())
+        report[name] = {"max_abs_logit_diff": diff, "tol": tol, "max_abs_logit": scale,
+                        "launches": counts}
+        if not finite or not diff <= tol or through_kernels.shape != (
+                *batch["tokens"].shape, cfg.padded_vocab):
+            raise AssertionError(f"{cfg.name} parity {name}: max abs logit diff {diff} > {tol} "
+                                 f"(finite={finite})")
+        if dtype == torch.float32 and decode_steps:
+            with torch.no_grad():
+                decoded = teacher_forced(model, params, batch, decode_steps)
+            dec_diff = (decoded - got[:, :decode_steps]).abs().max().item()
+            dec_tol = 1e-3 * scale
+            if not dec_diff <= dec_tol:
+                raise AssertionError(f"{cfg.name}: teacher-forced decode differs from the "
+                                     f"forward by {dec_diff} > {dec_tol}")
+            report["decode_vs_forward"] = {"steps": decode_steps, "max_abs_logit_diff": dec_diff,
+                                           "tol": dec_tol}
+        del params, through_kernels, through_plain
+    return report
+
+
+def xlstm_parity_phase(cfg, dev: torch.device, n_layers: int = XLSTM_PARITY_LAYERS,
+                       seq: int = 256, decode_steps: int = 16) -> None:
+    """xlstm-350m at full width and ``n_layers`` layers (one unit): a
+    ``seq``-token forward at batch 2 (two 128-step segments), kernels against
+    plain in fp32 and bf16, and the teacher-forced decode (``model_parity``)."""
+    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, seq), device=dev, generator=gen)}
+    emit({"phase": "xlstm_parity", "n_layers": n_layers, "batch": 2, "seq": seq,
+          **model_parity(cfg, dev, batch, xlstm_launches(cfg, 1, 0), decode_steps, seed=8)})
+
+
+def xlstm_phase(cfg, dev: torch.device):
+    """xlstm-350m served at full width and depth: ``recurrent_serve_phase``
+    over XLSTM_SEQ tokens."""
+    return recurrent_serve_phase(cfg, dev, "xlstm", XLSTM_SEQ, xlstm_launches,
+                                 "eight 128-step segments at batch 1")
+
+
+def whisper_parity_phase(cfg, dev: torch.device, decode_steps: int = 16) -> None:
+    """whisper-tiny at full width and depth: a forward over N_FRAMES frames and
+    WHISPER_SEQ tokens at batch 2, kernels against plain in fp32 and bf16,
+    then ``prefill_cross`` and the teacher-forced decode (``model_parity``);
+    the same with 24 frames (the launcher's count), which ``prefill_cross``
+    puts in place of ``init_cache``'s 1500-frame cross K/V."""
+    report = {"phase": "whisper_parity", "layers": [cfg.n_encoder_layers, cfg.n_layers],
+              "batch": 2, "seq": WHISPER_SEQ}
+    for frames in (N_FRAMES, 24):
+        gen = torch.Generator(device=dev).manual_seed(frames)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (2, WHISPER_SEQ), device=dev, generator=gen),
+                 "frames": torch.randn((2, frames, cfg.d_model), device=dev, generator=gen)}
+        report[f"frames_{frames}"] = model_parity(cfg, dev, batch, whisper_launches(cfg, 1, 0, 0),
+                                                  decode_steps, seed=9)
+    emit(report)
+
+
+def whisper_phase(cfg, dev: torch.device):
+    """whisper-tiny served at full width and depth (bf16, random weights from a
+    seed): ``prefill_cross`` of 8 lanes of N_FRAMES frames, then 64
+    teacher-forced and 64 greedy decode steps against a WHISPER_SEQ cache;
+    checks the outputs and the exact launches.  Returns the launches, the
+    model and its parameters."""
+    lanes, prompt_len, n_greedy = 8, 64, 64
+    model = build_model(cfg, ModelOptions("bfloat16", "bfloat16"), dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    frames = torch.randn((lanes, N_FRAMES, cfg.d_model), device=dev, generator=gen)
+    prompt = torch.randint(0, cfg.vocab, (lanes, prompt_len), device=dev, generator=gen)
+    with torch.no_grad():
+        # warm-up outside the clocks and counts: one prefill and one step
+        model.decode_step(params, model.prefill_cross(params, model.init_cache(lanes, 16), frames),
+                          prompt[:, :1])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        cache = model.prefill_cross(params, model.init_cache(lanes, WHISPER_SEQ), frames)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        pre_counts = ops.launch_counts()
+        cross_ok = cache["cross_k"].shape == (cfg.n_layers, lanes, N_FRAMES, cfg.n_kv_heads,
+                                              cfg.resolved_head_dim) and \
+            bool(torch.isfinite(cache["cross_k"]).all() & torch.isfinite(cache["cross_v"]).all())
+        ops.reset_launch_counts()
+        finite = torch.ones((), dtype=torch.bool, device=dev)
+        generated = []
+        t0 = time.perf_counter()
+        for t in range(prompt_len + n_greedy):
+            tok = prompt[:, t: t + 1] if t < prompt_len else generated[-1]
+            logits, cache = model.decode_step(params, cache, tok)
+            finite &= torch.isfinite(logits[..., :cfg.vocab]).all()
+            if t >= prompt_len - 1:
+                generated.append(logits[:, -1, :cfg.vocab].argmax(dim=-1, keepdim=True))
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        dec_counts = ops.launch_counts()
+    steps = prompt_len + n_greedy
+    out = torch.cat(generated[:n_greedy], dim=1).cpu()
+    if not cross_ok or not bool(finite) or cache["index"] != steps or \
+            out.shape != (lanes, n_greedy) or not bool(((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"whisper: cross K/V ok {cross_ok}, decode logits finite "
+                             f"{bool(finite)}, index {cache['index']}/{steps}, tokens "
+                             f"{tuple(out.shape)}")
+    if pre_counts != whisper_launches(cfg, 0, 1, 0) or \
+            dec_counts != whisper_launches(cfg, 0, 0, steps):
+        raise AssertionError(f"whisper launch counts: prefill_cross {pre_counts}, expected "
+                             f"{whisper_launches(cfg, 0, 1, 0)}; decode {dec_counts}, expected "
+                             f"{whisper_launches(cfg, 0, 0, steps)}")
+    emit({
+        "phase": "whisper", "model": cfg.name, "layers": [cfg.n_encoder_layers, cfg.n_layers],
+        "d_model": cfg.d_model, "params": sum(t.numel() for t in tree_leaves(params)),
+        "dtype": "bfloat16", "init_s": init_s,
+        "prefill_cross": {"lanes": lanes, "frames": N_FRAMES, "ms": prefill_ms,
+                          "frames_per_s": lanes * N_FRAMES / prefill_ms * 1e3,
+                          "launches": pre_counts},
+        "decode": {"lanes": lanes, "max_len": WHISPER_SEQ, "teacher_forced": prompt_len,
+                   "greedy": n_greedy, "ms_per_step": decode_s * 1e3 / steps,
+                   "tokens_per_s": lanes * steps / decode_s, "launches": dec_counts},
+        "peak_device_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    })
+    return {k: pre_counts[k] + dec_counts[k] for k in pre_counts}, model, params
+
+
+def family_train_phase(cfg, dev: torch.device, steps: int, phase: str, launches):
+    """``cfg`` (xlstm-350m, whisper-tiny) at full width and depth: bf16
+    compute, fp32 masters and AdamW state, remat (each xLSTM unit, each
+    Whisper layer); ``run_train_steps`` under its schedule, ``launches``: the
+    exact launches of a step (the xLSTM's loss judged on each step's own
+    batch).  Reports step time, tokens/s (the decoder's tokens;
+    Whisper's frames beside them), peak memory and the loss history.  Returns
+    the launches of all steps, the model, parameters, optimizer state, step
+    function and dataset."""
+    model = build_model(cfg, ModelOptions("float32", "bfloat16", remat=True), dev)
+    expected = launches(cfg, remat=True)
+    run = run_train_steps(model, dev, steps, expected)
+    b, s = train_shape(cfg)
+    emit({
+        "phase": phase, "model": cfg.name, "n_layers": cfg.n_layers,
+        **({"n_encoder_layers": cfg.n_encoder_layers, "frames": N_FRAMES}
+           if cfg.family == "audio" else {}),
+        "d_model": cfg.d_model, "params": run["n_params"], "param_dtype": "float32",
+        "compute_dtype": "bfloat16", "remat": True,
+        "schedule": {"name": cfg.lr_schedule, "peak_lr": TRAIN_LR, "warmup_steps": 2},
+        "batch": [b, s], "steps": steps, "init_s": run["init_s"], "history": run["history"],
+        "median_step_ms_after_first": run["step_ms"], "tokens_per_s": b * s / run["step_ms"] * 1e3,
+        "peak_device_memory_gb": run["peak_gb"], "launches_per_step": expected,
+        "grads_present_and_finite": run["grads_ok"],
+    })
+    return run["totals"], *run["state"]
+
+
 # ------------------------------------------------------------------ profile
 # The MoE's pieces (models/layers.py), each traced as a profiler range of its
 # name by ``_profiled(..., moe=True)``: routing, slot assignment, dispatch,
@@ -2318,7 +2678,8 @@ def profile_train_phase(model, params, opt_state, step_fn, data,
         return metrics["loss"].item()
 
     emit({"phase": phase, "model": model.cfg.name, "n_layers": model.cfg.n_layers,
-          "tokens": TRAIN_BATCH * TRAIN_SEQ, "train_step": _profiled(step, 1, model.cfg.is_moe)})
+          "tokens": math.prod(train_shape(model.cfg)),
+          "train_step": _profiled(step, 1, model.cfg.is_moe)})
 
 
 def profile_fp32_step_phase(cfg, dev: torch.device, n_layers: int = 4) -> None:
@@ -2361,6 +2722,43 @@ def profile_zamba_phase(model, params, dev: torch.device) -> None:
           f"forward_{ZAMBA_SEQ}": _profiled(forward, 1)})
 
 
+@torch.no_grad()
+def profile_recurrent_phase(model, params, dev: torch.device, phase: str) -> None:
+    """Where xlstm-350m's decode step (8 lanes) and its XLSTM_SEQ-token forward,
+    or whisper-tiny's ``prefill_cross`` (8 lanes of N_FRAMES frames) and decode
+    step (8 lanes, a WHISPER_SEQ-slot cache) spend their time, as ``profile_phase``
+    does for glm4."""
+    lanes = 8
+    cfg = model.cfg
+    tok = torch.ones((lanes, 1), dtype=torch.int32, device=dev)
+    report = {"phase": phase, "model": cfg.name, "n_layers": cfg.n_layers}
+    if cfg.family == "audio":
+        frames = torch.randn((lanes, N_FRAMES, cfg.d_model), device=dev)
+        cache = model.init_cache(lanes, WHISPER_SEQ)
+
+        def prefill():
+            return float(model.prefill_cross(params, cache, frames)["cross_k"][0, 0, 0, 0, 0])
+
+        report[f"prefill_cross_8_lanes_{N_FRAMES}_frames"] = _profiled(prefill, 3)
+        cache = model.prefill_cross(params, cache, frames)
+    else:
+        tokens = torch.ones((1, XLSTM_SEQ), dtype=torch.int32, device=dev)
+        cache = model.init_cache(lanes, XLSTM_SEQ)
+
+        def forward():
+            logits, _ = model.forward(params, {"tokens": tokens})
+            return int(logits[0, -1].argmax())
+
+        report[f"forward_{XLSTM_SEQ}"] = _profiled(forward, 1)
+
+    def decode():
+        logits, _ = model.decode_step(params, cache, tok)
+        return logits[:, -1].argmax(dim=-1).cpu()
+
+    report["decode_step_8_lanes"] = _profiled(decode, 5)
+    emit(report)
+
+
 # --------------------------------------------------------------------- main
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2397,7 +2795,8 @@ def main() -> None:
 
     cfg, zcfg, mcfg = get_config("glm4-9b"), get_config("zamba2-2.7b"), get_config("minicpm-2b")
     qcfg, vcfg = get_config("qwen3-moe-235b-a22b"), get_config("phi-3-vision-4.2b")
-    cases = kernels_phase(cfg, zcfg, mcfg, qcfg, vcfg, dev)
+    xcfg, wcfg = get_config("xlstm-350m"), get_config("whisper-tiny")
+    cases = kernels_phase(cfg, zcfg, mcfg, qcfg, vcfg, xcfg, wcfg, dev)
     torch.cuda.empty_cache()   # the 32k plain attention's graph pool
     parity_phase(cfg, dev)
     placed = placement_phase(card, cpu)
@@ -2458,23 +2857,64 @@ def main() -> None:
         profile_train_phase(*train_state, phase="profile_vlm_train")
     del train_state
     torch.cuda.empty_cache()
+    xlstm_parity_phase(xcfg, dev)
+    xlstm_counts, model, params = xlstm_phase(xcfg, dev)
+    if args.profile:
+        profile_recurrent_phase(model, params, dev, "profile_xlstm")
+    del model, params
+    torch.cuda.empty_cache()
+    print(f"NOTE: {xcfg.name}'s training sequence cut from train_4k's 4096 to "
+          f"{XLSTM_TRAIN_SEQ} tokens (its recurrences run a step at a time on the host); "
+          "widths and depth unchanged", flush=True)
+    train_parity_phase(xcfg, dev, XLSTM_PARITY_LAYERS, "xlstm_train_parity", xlstm_train_launches)
+    torch.cuda.empty_cache()
+    xlstm_train_counts, *train_state = family_train_phase(
+        xcfg, dev, XLSTM_TRAIN_STEPS, "xlstm_train", xlstm_train_launches)
+    if args.profile:
+        profile_train_phase(*train_state, phase="profile_xlstm_train")
+    del train_state
+    torch.cuda.empty_cache()
+    whisper_parity_phase(wcfg, dev)
+    whisper_counts, model, params = whisper_phase(wcfg, dev)
+    if args.profile:
+        profile_recurrent_phase(model, params, dev, "profile_whisper")
+    del model, params
+    torch.cuda.empty_cache()
+    train_parity_phase(wcfg, dev, wcfg.n_layers, "whisper_train_parity", whisper_train_launches)
+    torch.cuda.empty_cache()
+    whisper_train_counts, *train_state = family_train_phase(
+        wcfg, dev, TRAIN_STEPS, "whisper_train", whisper_train_launches)
+    if args.profile:
+        profile_train_phase(*train_state, phase="profile_whisper_train")
+    del train_state
+    torch.cuda.empty_cache()
     # every kernel ran on a main path: the three forwards on zamba2's, rmsnorm
     # and flash attention on glm4's and qwen3-moe's serving and on every
     # training, their backwards on every training, the SSD scan's forward and
-    # backward on zamba2's training
+    # backward on zamba2's training; rmsnorm and its backward on the xLSTM's
+    # paths, both with flash attention and its backward on Whisper's (its
+    # serving's flash in prefill_cross)
     trained = (train_counts, moe_train_counts, vlm_train_counts)
     if min(zamba_counts[k] for k in ("rmsnorm", "flash_attention", "ssd_chunk_scan")) <= 0 or \
             min(c[k] for c in (serve_counts, moe_serve_counts)
                 for k in ("rmsnorm", "flash_attention")) <= 0 or \
             min(c[k] for c in trained for k in ("rmsnorm", "flash_attention", "rmsnorm_bwd",
                                                 "flash_attention_bwd")) <= 0 or \
-            min(zamba_train_counts.values()) <= 0:
+            min(zamba_train_counts.values()) <= 0 or \
+            min(xlstm_counts["rmsnorm"], xlstm_train_counts["rmsnorm"],
+                xlstm_train_counts["rmsnorm_bwd"]) <= 0 or \
+            min(whisper_counts[k] for k in ("rmsnorm", "flash_attention")) <= 0 or \
+            min(whisper_train_counts[k] for k in ("rmsnorm", "flash_attention", "rmsnorm_bwd",
+                                                  "flash_attention_bwd")) <= 0:
         raise AssertionError(f"a main path never launched a kernel: serve {serve_counts}, "
                              f"zamba {zamba_counts}, train {train_counts}, "
                              f"zamba_train {zamba_train_counts}, moe_serve {moe_serve_counts}, "
-                             f"moe_train {moe_train_counts}, vlm_train {vlm_train_counts}")
+                             f"moe_train {moe_train_counts}, vlm_train {vlm_train_counts}, "
+                             f"xlstm {xlstm_counts}, xlstm_train {xlstm_train_counts}, "
+                             f"whisper {whisper_counts}, whisper_train {whisper_train_counts}")
     paths = (serve_counts, zamba_counts, train_counts, zamba_train_counts, moe_serve_counts,
-             moe_train_counts, vlm_train_counts)
+             moe_train_counts, vlm_train_counts, xlstm_counts, xlstm_train_counts,
+             whisper_counts, whisper_train_counts)
 
     def summary(name: str, source: str, replaces: str) -> dict:
         case = cases[name]

@@ -17,7 +17,9 @@ at glm4-9b's and minicpm-2b's shapes and in zamba2's model layout ``(b, s, h,
 hd)`` at its 4096- and 32768-token shapes (``FLASH_LONG_ITERS`` calls); the causal
 flash backward in model layout (q, k, v and dout as transposed views of ``(b,
 s, h, hd)`` tensors, out and lse from the forward kernel) at minicpm-2b's
-training step and glm4-9b's GQA 16:1 shape (``FLASH_BWD_ITERS`` calls); the
+training step, glm4-9b's GQA 16:1 shape and zamba2-2.7b's step, and the
+forward with lse that feeds it, as the training forward calls it
+(``FLASH_BWD_ITERS`` calls); the
 CUDA-core route of both (``FLASH_CORE``: fp32, the forward with lse as the
 training forward calls it, and bf16 rows shifted one element off 16 bytes, as
 ``chip_smoke.py`` runs them); the SSD
@@ -48,7 +50,8 @@ FLASH = [  # (b, hq, hkv, s, hd): glm4-9b's smallest and largest prefill, zamba2
     (4, 36, 36, 1024, 64),   # minicpm-2b's training step
 ]
 FLASH_ZAMBA = [(1, 32, 4096, 80), (1, 32, 32768, 80)]   # (b, h, s, hd) in model layout
-FLASH_BWD = [(4, 36, 36, 1024, 64), (1, 32, 2, 1024, 128)]   # (b, hq, hkv, s, hd), model layout
+# (b, hq, hkv, s, hd), model layout: minicpm-2b's step, glm4-9b's GQA 16:1, zamba2-2.7b's step
+FLASH_BWD = [(4, 36, 36, 1024, 64), (1, 32, 2, 1024, 128), (4, 32, 32, 1024, 80)]
 FLASH_BWD_ITERS = 50
 FLASH_CORE = [  # (b, hq, hkv, s, hd, dtype, element offset, model layout, backward too)
     (4, 36, 36, 1024, 64, "float32", 0, True, True),     # minicpm-2b's step in the launcher's fp32
@@ -109,9 +112,12 @@ def child(root: str) -> dict:
     for b, hq, hkv, s, hd in FLASH_BWD:
         q, dout = (rand(b, s, hq, hd).transpose(1, 2) for _ in range(2))
         k, v = (rand(b, s, hkv, hd).transpose(1, 2) for _ in range(2))
-        o, lse = fa.flash_attention_cuda(q, k, v, True, with_lse=True)
+        # a bf16 forward with lse also returns its out's residual where the checkout has one
+        o, lse, *res = fa.flash_attention_cuda(q, k, v, True, with_lse=True)
         out["ms"][f"flash_bwd (b,s,h,hd) q{(b, s, hq, hd)} kv{(b, s, hkv, hd)}"] = device_ms(
-            fa.flash_attention_bwd_cuda, q, k, v, o, lse, dout, True, iters=FLASH_BWD_ITERS)
+            fa.flash_attention_bwd_cuda, q, k, v, o, lse, dout, True, *res, iters=FLASH_BWD_ITERS)
+        out["ms"][f"flash_lse (b,s,h,hd) q{(b, s, hq, hd)} kv{(b, s, hkv, hd)}"] = device_ms(
+            fa.flash_attention_cuda, q, k, v, True, True, iters=FLASH_BWD_ITERS)
     for b, hq, hkv, s, hd, dtype, offset, model, bwd in FLASH_CORE:
         def shifted(h):
             shape = (b, s, h, hd) if model else (b, h, s, hd)
@@ -125,9 +131,10 @@ def child(root: str) -> dict:
         out["ms"][f"flash_core lse {name}"] = device_ms(
             fa.flash_attention_cuda, q, k, v, True, True, iters=FLASH_CORE_ITERS)
         if bwd:
-            o, lse = fa.flash_attention_cuda(q, k, v, True, with_lse=True)
+            o, lse, *res = fa.flash_attention_cuda(q, k, v, True, with_lse=True)
             out["ms"][f"flash_core_bwd {name}"] = device_ms(
-                fa.flash_attention_bwd_cuda, q, k, v, o, lse, dout, True, iters=FLASH_CORE_ITERS)
+                fa.flash_attention_bwd_cuda, q, k, v, o, lse, dout, True, *res,
+                iters=FLASH_CORE_ITERS)
     for b, H, s, P, N in SSD:
         x = rand(b, s, H, P).transpose(1, 2)
         B, C = ((rand(b, s, N) * 0.5)[:, None].expand(b, H, s, N) for _ in range(2))

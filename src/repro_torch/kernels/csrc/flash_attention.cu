@@ -59,6 +59,14 @@
 //    broadcast 16-byte shared-memory reads, K/V tiles in a two-stage cp.async
 //    ring, P in fp32 like the TPU kernel (described at its section below).
 //
+// The training forward (lse written) of bf16 also writes `o_res`, what
+// rounding out to bf16 dropped (bf16(o - bf16(o)), out's strides): the
+// backward's D = rowsum(dO * O) reads out + o_res, the fp32 O.  D from the
+// rounded out alone errs by 2^-9 of |dO| |O|, and where the keys or values of
+// a row share a large common part (near-uniform attention over many keys: a
+// randomly initialised encoder-decoder's cross-attention) dS = P (dP - D)
+// is a small difference of nearly equal terms and takes that error whole.
+//
 // Layout: logical (b, h, s, hd) with the strides of b, h and s passed in
 // (elements) and hd contiguous.  Head dims 16, 32, 64, 80 (zamba2's shared
 // attention) and 128 are built.
@@ -359,7 +367,8 @@ struct CoreFwd {
 template <typename T, int HD>
 __global__ void __launch_bounds__(CORE_NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, Strides qs, Strides ks, Strides vs,
+                 T* __restrict__ o, T* __restrict__ o_res, float* __restrict__ lse, Strides qs,
+                 Strides ks, Strides vs,
                  Strides os, int group, int sq, int skv, int n_q_tiles, float sm_scale,
                  int causal, int vec) {
     using L = CoreFwd<HD>;
@@ -479,7 +488,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int i = 0; i < CORE_RI; ++i) {
         const int row = q0 + ty + CORE_TY * i;
         if (row < sq) {
-            core_store<T, HD>(ob + row * os.s, acc[i], 1.f / fmaxf(l[i], 1e-30f), tx, vec);
+            const float inv = 1.f / fmaxf(l[i], 1e-30f);
+            core_store<T, HD>(ob + row * os.s, acc[i], inv, tx, vec);
+            if (o_res != nullptr) {   // bf16 training: what rounding out dropped
+                T* lrow = o_res + b * os.b + h * os.h + row * os.s;
+#pragma unroll
+                for (int c = 0; c < NC; ++c) {
+                    const float x = acc[i][c] * inv;
+                    lrow[CoreCols<HD>::col(tx, c)] = from_f32<T>(x - to_f32(from_f32<T>(x)));
+                }
+            }
             // m is the running max of the scaled scores, l the sum of exp(s - m)
             if (lse != nullptr && tx == 0)
                 lse[(static_cast<long long>(b) * gridDim.y + h) * sq + row] = m[i] + logf(l[i]);
@@ -746,7 +764,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <int HD, bool kLse>
 __global__ void __launch_bounds__(WgLayout<HD>::threads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ TmaMaps maps, __nv_bfloat16* __restrict__ o,
-                       float* __restrict__ lse, Strides os, int group, int sq, int skv,
+                       __nv_bfloat16* __restrict__ o_res, float* __restrict__ lse, Strides os,
+                       int group, int sq, int skv,
                        int n_q_tiles, float scale2, float sm_scale, int causal) {
     using L = WgLayout<HD>;
     constexpr int BM = L::BM, W0 = L::W0, W1 = L::W1;
@@ -1033,15 +1052,24 @@ flash_fwd_wgmma_kernel(const __grid_constant__ TmaMaps maps, __nv_bfloat16* __re
             }
             if (row < sq) {
                 __nv_bfloat16* orow = out + row * os.s + col;
+                // kLse: also what rounding dropped, into o_res at out's offset
+                __nv_bfloat16* lrow = kLse ? o_res + (orow - o) : nullptr;
+                auto put = [&](int at, float x0, float x1) {
+                    const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+                    *reinterpret_cast<__nv_bfloat162*>(orow + at) = hi;
+                    if constexpr (kLse) {
+                        const float2 h2 = __bfloat1622float2(hi);
+                        *reinterpret_cast<__nv_bfloat162*>(lrow + at) =
+                            __floats2bfloat162_rn(x0 - h2.x, x1 - h2.y);
+                    }
+                };
 #pragma unroll
                 for (int c = 0; c < W0 / 8; ++c)
-                    *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
-                        __floats2bfloat162_rn(o_lo[4 * c + 2 * r] * inv, o_lo[4 * c + 2 * r + 1] * inv);
+                    put(8 * c, o_lo[4 * c + 2 * r] * inv, o_lo[4 * c + 2 * r + 1] * inv);
                 if constexpr (W1 > 0) {
 #pragma unroll
                     for (int c = 0; c < W1 / 8; ++c)
-                        *reinterpret_cast<__nv_bfloat162*>(orow + W0 + 8 * c) = __floats2bfloat162_rn(
-                            o_hi[4 * c + 2 * r] * inv, o_hi[4 * c + 2 * r + 1] * inv);
+                        put(W0 + 8 * c, o_hi[4 * c + 2 * r] * inv, o_hi[4 * c + 2 * r + 1] * inv);
                 }
             }
         }
@@ -1130,9 +1158,9 @@ bool wgmma_plan_ok(const long long* plan, int b, int hq, int hkv, int sq, int sk
 }
 
 template <int HD>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, Strides os,
-                 const long long* plan, int b, int hq, int hkv, int sq, int skv, float sm_scale,
-                 int causal, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* o_res, float* lse,
+                 Strides os, const long long* plan, int b, int hq, int hkv, int sq, int skv,
+                 float sm_scale, int causal, cudaStream_t stream) {
     using L = WgLayout<HD>;
     if (!wgmma_plan_ok<HD>(plan, b, hq, hkv, sq, skv)) return cudaErrorInvalidValue;
     const EncodeTiledFn encode = encode_tiled();
@@ -1155,7 +1183,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
     if (err != cudaSuccess) return err;
     const int n_q_tiles = static_cast<int>(plan[5]);
     kernel<<<dim3(n_q_tiles, hq, b), L::threads, L::smem, stream>>>(
-        maps, static_cast<__nv_bfloat16*>(o), lse, os, hq / hkv, sq, skv, n_q_tiles,
+        maps, static_cast<__nv_bfloat16*>(o), static_cast<__nv_bfloat16*>(o_res), lse, os,
+        hq / hkv, sq, skv, n_q_tiles,
         sm_scale * LOG2E, sm_scale, causal);
     return cudaGetLastError();
 }
@@ -1192,9 +1221,9 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 // The CUDA-core plan: [1] 64 query rows, [2] keys a K/V tile, [3] stages,
 // [4] 128 threads, [5..7] grid, [8] shared bytes, [9] vector_loads.
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, Strides qs,
-           Strides ks, Strides vs, Strides os, const long long* plan, int b, int hq, int hkv,
-           int sq, int skv, float sm_scale, int causal, int vec, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* o_res, float* lse,
+           Strides qs, Strides ks, Strides vs, Strides os, const long long* plan, int b, int hq,
+           int hkv, int sq, int skv, float sm_scale, int causal, int vec, cudaStream_t stream) {
     using L = CoreFwd<HD>;
     auto kernel = flash_fwd_kernel<T, HD>;
     const int n_q_tiles = (sq + CORE_ROWS - 1) / CORE_ROWS;
@@ -1206,23 +1235,23 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, Str
     if (err != cudaSuccess) return err;
     kernel<<<dim3(n_q_tiles, hq, b), CORE_NT, L::bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), lse, qs, ks, vs, os, hq / hkv, sq, skv, n_q_tiles, sm_scale, causal,
-        vec);
+        static_cast<T*>(o), static_cast<T*>(o_res), lse, qs, ks, vs, os, hq / hkv, sq, skv,
+        n_q_tiles, sm_scale, causal, vec);
     return cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, float* lse,
-                Strides qs, Strides ks, Strides vs, Strides os, const long long* plan, int b,
-                int hq, int hkv, int sq, int skv, float sm_scale, int causal, int vec,
-                cudaStream_t stream) {
+int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, void* o_res,
+                float* lse, Strides qs, Strides ks, Strides vs, Strides os,
+                const long long* plan, int b, int hq, int hkv, int sq, int skv, float sm_scale,
+                int causal, int vec, cudaStream_t stream) {
     switch (hd) {
-        case 16: return launch<T, 16>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
-        case 32: return launch<T, 32>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
-        case 64: return launch<T, 64>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
-        case 80: return launch<T, 80>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
-        case 96: return launch<T, 96>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
-        case 128: return launch<T, 128>(q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
+        case 16: return launch<T, 16>(q, k, v, o, o_res, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
+        case 32: return launch<T, 32>(q, k, v, o, o_res, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
+        case 64: return launch<T, 64>(q, k, v, o, o_res, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
+        case 80: return launch<T, 80>(q, k, v, o, o_res, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
+        case 96: return launch<T, 96>(q, k, v, o, o_res, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
+        case 128: return launch<T, 128>(q, k, v, o, o_res, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -1291,7 +1320,7 @@ struct CoreBwd {
 template <typename T, int HD>
 __global__ void __launch_bounds__(CORE_NT)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ o, const T* __restrict__ dout,
+                    const T* __restrict__ o, const T* __restrict__ o_res, const T* __restrict__ dout,
                     const float* __restrict__ lse, float* __restrict__ stats, T* __restrict__ dq,
                     Strides qs, Strides ks, Strides vs, Strides os, Strides dos, Strides dqs,
                     int group, int sq, int skv, int sq_pad, long long rows_pad, int n_q_tiles,
@@ -1349,9 +1378,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     core_wait<L::STAGES - 2>();
     __syncthreads();   // Q, dO and the first K/V tile have landed
 
-    // D = rowsum(dO * O) of the owned rows, over the 8 lanes that share a row
+    // D = rowsum(dO * O) of the owned rows, over the 8 lanes that share a row;
+    // O = out + o_res where the forward kept what rounding out dropped
     const long long row0 = (static_cast<long long>(b) * hq + h) * sq_pad + q0;
     const T* ob = o + b * os.b + h * os.h;
+    const T* rb = o_res == nullptr ? nullptr : o_res + b * os.b + h * os.h;
     float lse_r[CORE_RI], d_r[CORE_RI], acc[CORE_RI][NC];
 #pragma unroll
     for (int i = 0; i < CORE_RI; ++i) {
@@ -1359,8 +1390,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         float sum = 0.f;
         if (row < sq) {
 #pragma unroll
-            for (int c = 0; c < NC; ++c)
-                sum = fmaf(dOs[r * RS + CC::col(tx, c)], to_f32(ob[row * os.s + CC::col(tx, c)]), sum);
+            for (int c = 0; c < NC; ++c) {
+                const long long at = row * os.s + CC::col(tx, c);
+                const float ov = to_f32(ob[at]) + (rb == nullptr ? 0.f : to_f32(rb[at]));
+                sum = fmaf(dOs[r * RS + CC::col(tx, c)], ov, sum);
+            }
         }
 #pragma unroll
         for (int w = 1; w < CORE_TX; w <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
@@ -1724,7 +1758,8 @@ __device__ __forceinline__ float fast_exp2(float x) {
 template <int HD, bool kDKV>
 __global__ void __launch_bounds__(BW_THREADS, 1)
 flash_bwd_wgmma_kernel(const __grid_constant__ BwdMaps maps, float* __restrict__ stats,
-                       const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                       const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ o_res,
+                       const __nv_bfloat16* __restrict__ dout,
                        const float* __restrict__ lse, Strides os, Strides dos,
                        __nv_bfloat16* __restrict__ out0, __nv_bfloat16* __restrict__ out1,
                        float* __restrict__ partial, Strides s0, Strides s1, int group, int splits,
@@ -1890,11 +1925,18 @@ flash_bwd_wgmma_kernel(const __grid_constant__ BwdMaps maps, float* __restrict__
                     const int row = rw0 + row0 + 8 * e;
                     float sum = 0.f;
                     if (row < sq) {
-                        const __nv_bfloat16* orow = o + b * os.b + h0 * os.h + row * os.s + quarter;
+                        const long long at = b * os.b + h0 * os.h + row * os.s + quarter;
+                        const __nv_bfloat16* orow = o + at;
                         const __nv_bfloat16* drow = dout + b * dos.b + h0 * dos.h + row * dos.s + quarter;
 #pragma unroll
                         for (int p = 0; p < HD / 8; ++p) {
-                            const float2 x = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(orow)[p]);
+                            float2 x = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(orow)[p]);
+                            if (o_res != nullptr) {   // O = out + what rounding dropped
+                                const float2 lo = __bfloat1622float2(
+                                    reinterpret_cast<const __nv_bfloat162*>(o_res + at)[p]);
+                                x.x += lo.x;
+                                x.y += lo.y;
+                            }
                             const float2 d = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(drow)[p]);
                             sum = fmaf(d.y, x.y, fmaf(d.x, x.x, sum));
                         }
@@ -2219,7 +2261,7 @@ constexpr int BWD_MAPS = 18;
 constexpr int BWD_PLAN_LEN = BWD_MAPS + 8 * 16;
 
 struct BwdArgs {
-    const void *q, *k, *v, *o, *dout;
+    const void *q, *k, *v, *o, *o_res, *dout;
     const float* lse;
     float* delta;
     float* workspace;
@@ -2279,7 +2321,8 @@ int launch_bwd(const BwdArgs& a, const long long* plan, int vec, cudaStream_t st
     const long long rows_pad = static_cast<long long>(a.b) * a.hq * sq_pad;
     // dQ first: it also writes lse and D, which the dK/dV kernel reads
     dq<<<dim3(plan[6], a.hq, a.b), CORE_NT, L::bytes_dq, stream>>>(
-        q, k, v, static_cast<const T*>(a.o), dout, a.lse, a.delta, static_cast<T*>(a.dq), a.qs,
+        q, k, v, static_cast<const T*>(a.o), static_cast<const T*>(a.o_res), dout, a.lse, a.delta,
+        static_cast<T*>(a.dq), a.qs,
         a.ks, a.vs, a.os, a.dos, a.dqs, group, a.sq, a.skv, static_cast<int>(sq_pad), rows_pad,
         static_cast<int>(plan[6]), a.sm_scale, a.causal, vec);
     err = cudaGetLastError();
@@ -2376,14 +2419,15 @@ int launch_bwd_wgmma(const BwdArgs& a, const long long* plan, cudaStream_t strea
     if (dq_items > 2147483647LL || dkv_items > 2147483647LL) return cudaErrorInvalidValue;
     // dQ first: it also writes lse2 and D, which the dK/dV kernel reads
     dq<<<static_cast<unsigned>(std::min<long long>(dq_items, sms)), BW_THREADS, Q::smem, stream>>>(
-        maps[1], a.delta, static_cast<const B*>(a.o), static_cast<const B*>(a.dout), a.lse, a.os,
+        maps[1], a.delta, static_cast<const B*>(a.o), static_cast<const B*>(a.o_res),
+        static_cast<const B*>(a.dout), a.lse, a.os,
         a.dos, static_cast<B*>(a.dq), nullptr, nullptr, a.dqs, a.dqs, group, 1, a.hq, a.sq, a.skv,
         sq_pad, rows_pad, scale2, a.sm_scale, a.causal, static_cast<int>(plan[6]),
         static_cast<int>(plan[7]), static_cast<int>(plan[8]));
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     dkv<<<static_cast<unsigned>(std::min<long long>(dkv_items, sms)), BW_THREADS, KV::smem, stream>>>(
-        maps[0], a.delta, nullptr, nullptr, nullptr, a.os, a.dos, static_cast<B*>(a.dk),
+        maps[0], a.delta, nullptr, nullptr, nullptr, nullptr, a.os, a.dos, static_cast<B*>(a.dk),
         static_cast<B*>(a.dv), a.workspace, a.dks, a.dvs, group, splits, a.hq, a.sq, a.skv, sq_pad,
         rows_pad, scale2, a.sm_scale, a.causal, static_cast<int>(plan[9]),
         static_cast<int>(plan[10]), static_cast<int>(plan[11]));
@@ -2429,17 +2473,25 @@ int dispatch_bwd_wgmma(const BwdArgs& a, const long long* plan, cudaStream_t str
 // is 1.  `lse`: null, or a contiguous (b, hq, sq) fp32 buffer that receives each
 // row's natural-log sum of exp(sm_scale q k^T) over its visible keys (the
 // backward's input; the serving calls pass null and nothing is written).
+// `o_res`: with `lse` and bf16, a buffer with o's strides that receives what
+// rounding o to bf16 dropped (the backward's D reads o + o_res); else null.
 // `plan`: see PLAN_OPERANDS above (on the CUDA cores [9] is vector_loads:
 // fp32 rows in 16-byte pieces).  Returns 0 when launched, else a
 // cudaError_t, or ENCODE_FAILED + the CUresult of a failed tensor-map encode.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   float* lse, int dtype, int b, int hq, int hkv, int sq, int skv,
-                                   int hd, const long long* strides, float sm_scale, int causal,
-                                   const long long* plan, void* stream) {
+                                   float* lse, void* o_res, int dtype, int b, int hq, int hkv,
+                                   int sq, int skv, int hd, const long long* strides,
+                                   float sm_scale, int causal, const long long* plan,
+                                   void* stream) {
     if (b <= 0 || hq <= 0 || hkv <= 0 || sq <= 0 || skv <= 0 || hq % hkv != 0 ||
         hq > 65535 || b > 65535) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
+    // the residual comes with lse for bf16 and never for fp32
+    if ((o_res != nullptr) != (dtype == 1 && lse != nullptr) ||
+        (o_res != nullptr &&
+         reinterpret_cast<uintptr_t>(o_res) % 16 != reinterpret_cast<uintptr_t>(o) % 16))
+        return static_cast<int>(cudaErrorInvalidValue);
     const Strides qs{strides[0], strides[1], strides[2]};
     const Strides ks{strides[3], strides[4], strides[5]};
     const Strides vs{strides[6], strides[7], strides[8]};
@@ -2449,12 +2501,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     if (plan[0] == 1) {
         if (dtype != 1 || !rows_16_byte_aligned(ptrs, strides)) return cudaErrorInvalidValue;
         switch (hd) {
-            case 16: return launch_wgmma<16>(q, k, v, o, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
-            case 32: return launch_wgmma<32>(q, k, v, o, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
-            case 64: return launch_wgmma<64>(q, k, v, o, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
-            case 80: return launch_wgmma<80>(q, k, v, o, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
-            case 96: return launch_wgmma<96>(q, k, v, o, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
-            case 128: return launch_wgmma<128>(q, k, v, o, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 16: return launch_wgmma<16>(q, k, v, o, o_res, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 32: return launch_wgmma<32>(q, k, v, o, o_res, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 64: return launch_wgmma<64>(q, k, v, o, o_res, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 80: return launch_wgmma<80>(q, k, v, o, o_res, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 96: return launch_wgmma<96>(q, k, v, o, o_res, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
+            case 128: return launch_wgmma<128>(q, k, v, o, o_res, lse, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, s);
             default: return cudaErrorInvalidValue;
         }
     }
@@ -2462,9 +2514,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     const int vec = plan[9] != 0;
     if (vec && !core_vector_loads(dtype, ptrs, 4, strides)) return cudaErrorInvalidValue;
     if (dtype == 0)
-        return dispatch_hd<float>(hd, q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, s);
+        return dispatch_hd<float>(hd, q, k, v, o, o_res, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, s);
     if (dtype == 1)
-        return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, s);
+        return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, o_res, lse, qs, ks, vs, os, plan, b, hq, hkv, sq, skv, sm_scale, causal, vec, s);
     return cudaErrorInvalidValue;
 }
 
@@ -2472,7 +2524,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, o, dout and the gradients
 // share it).  `strides` holds (batch, head, seq) element strides of q, k, v,
 // o, dout, dq, dk, dv in that order (24 values); the head_dim stride is 1.
-// `lse`: the forward's (b, hq, sq) fp32 log-sum-exp.  `delta`: an fp32
+// `o_res`: null, or the bf16 forward's residual of o (o's strides), added to o
+// for D.  `lse`: the forward's (b, hq, sq) fp32 log-sum-exp.  `delta`: an fp32
 // workspace of 2 x (b, hq, sq_pad): lse (on the wgmma route lse * log2(e)),
 // then D.  `workspace`: null, or the fp32
 // partial dK/dV of a split GQA group (the plan's bytes).  `plan`: see
@@ -2480,16 +2533,19 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 // aligned).  Returns 0 when every kernel was launched, else a cudaError_t, or
 // ENCODE_FAILED + the CUresult of a failed tensor-map encode.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                                   const void* dout, const float* lse, float* delta,
+                                   const void* o_res, const void* dout, const float* lse,
+                                   float* delta,
                                    float* workspace, void* dq, void* dk, void* dv, int dtype, int b,
                                    int hq, int hkv, int sq, int skv, int hd,
                                    const long long* strides, float sm_scale, int causal,
                                    const long long* plan, void* stream) {
     if (b <= 0 || hq <= 0 || hkv <= 0 || sq <= 0 || skv <= 0 || hq % hkv != 0 || hq > 65535 ||
-        b > 65535 || (causal && sq > skv))
+        b > 65535 || (causal && sq > skv) ||
+        (o_res != nullptr &&
+         (dtype != 1 || reinterpret_cast<uintptr_t>(o_res) % 16 != reinterpret_cast<uintptr_t>(o) % 16)))
         return static_cast<int>(cudaErrorInvalidValue);
     auto st = [&](int i) { return Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]}; };
-    const BwdArgs a{q, k, v, o, dout, lse, delta, workspace, dq, dk, dv,
+    const BwdArgs a{q, k, v, o, o_res, dout, lse, delta, workspace, dq, dk, dv,
                     st(0), st(1), st(2), st(3), st(4), st(5), st(6), st(7),
                     b, hq, hkv, sq, skv, hd, sm_scale, causal};
     cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -20,7 +20,11 @@ tensor maps.  ``launches`` counts kernel launches.
 
 The backward (``flash_attention_bwd_cuda``: dq, dk, dv from q, k, v, the
 forward's out and lse, and dout) is a dK/dV and a dQ kernel, each
-recomputing P from lse, and D = rowsum(dO * O).  bf16 whose rows are 16-byte
+recomputing P from lse, and D = rowsum(dO * O).  The training forward of bf16
+also writes ``out_res``, what rounding out to bf16 dropped, and the backward's
+D reads ``out + out_res``: D from the rounded out alone errs by 2^-9 of |dO| |O|,
+which dS = P (dP - D) takes whole where a row's keys or values share a large
+common part (near-uniform attention over many keys).  bf16 whose rows are 16-byte
 aligned takes the ``"wgmma"`` route (TMA, warp specialisation; the dQ kernel
 runs first and also computes D; a GQA group's query heads split over
 ``splits`` dK/dV blocks when the kv heads alone would leave SMs idle, with a
@@ -309,6 +313,7 @@ def _fn():
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k v o
         ctypes.c_void_p,                                                     # lse or null
+        ctypes.c_void_p,                                                     # o's residual or null
         ctypes.c_int,                                                        # dtype
         ctypes.c_int, ctypes.c_int, ctypes.c_int,                            # b hq hkv
         ctypes.c_int, ctypes.c_int, ctypes.c_int,                            # sq skv hd
@@ -374,8 +379,10 @@ def _describe(err: int) -> str:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, with_lse: bool = False):
     """out (b, hq, sq, hd) in q's dtype and memory layout; with ``with_lse``,
-    ``(out, lse)`` with lse the (b, hq, sq) fp32 log-sum-exp the backward
-    takes.  Storing lse leaves out's rounding as it is."""
+    ``(out, lse, out_res)`` with lse the (b, hq, sq) fp32 log-sum-exp the
+    backward takes and, for bf16, ``out_res`` (out's dtype and strides) what
+    rounding out dropped, also for the backward (None for fp32, whose out is
+    not rounded).  Storing lse and out_res leaves out's rounding as it is."""
     global launches
     _check_cuda("flash_attention_cuda", (q, k, v), causal)
     b, hq, sq, hd = q.shape
@@ -383,6 +390,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = _dense_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse else None
+    out_res = torch.empty_like(out) if with_lse and q.dtype != torch.float32 else None
     plan = flash_plan(q, k, v, out)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3])
@@ -391,6 +399,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = _fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
+            None if out_res is None else out_res.data_ptr(),
             DTYPE_CODES[q.dtype], b, hq, hkv, sq, skv, hd, strides,
             1.0 / math.sqrt(hd), int(causal), plan.as_array(),
             torch.cuda.current_stream().cuda_stream,
@@ -399,14 +408,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash attention kernel ({plan.route}) launch failed "
                            f"({_describe(err)}) for q {tuple(q.shape)}, k {tuple(k.shape)} {q.dtype}")
     launches += 1
-    return (out, lse) if with_lse else out
+    return (out, lse, out_res) if with_lse else out
 
 
 @functools.cache
 def _bwd_fn():
     fn = _build.load("flash_attention").flash_attention_bwd
     fn.argtypes = [
-        *[ctypes.c_void_p] * 5,                   # q k v o dout
+        *[ctypes.c_void_p] * 6,                   # q k v o, o's residual or null, dout
         ctypes.c_void_p, ctypes.c_void_p,         # lse, the D workspace
         ctypes.c_void_p,                          # the partial dK/dV workspace or null
         *[ctypes.c_void_p] * 3,                   # dq dk dv
@@ -423,14 +432,16 @@ def _bwd_fn():
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
-                             causal: bool = True
+                             causal: bool = True, out_res: torch.Tensor | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv), each in its input's shape, dtype and memory layout, from
-    the forward's out and lse (``flash_attention_cuda(..., with_lse=True)``)
-    and the gradient ``dout`` of out.  Any tensor whose head dim is
-    contiguous is read through its strides (dout may be a transposed view)."""
+    the forward's out, lse and (bf16) out_res (``flash_attention_cuda(...,
+    with_lse=True)``) and the gradient ``dout`` of out.  Any tensor whose head
+    dim is contiguous is read through its strides (dout may be a transposed
+    view)."""
     global bwd_launches
-    _check_cuda("flash_attention_bwd_cuda", (q, k, v, out, dout), causal)
+    _check_cuda("flash_attention_bwd_cuda", (q, k, v, out, dout) + (
+        () if out_res is None else (out_res,)), causal)
     b, hq, sq, hd = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if out.shape != q.shape or dout.shape != q.shape:
@@ -439,8 +450,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"lse must be (b, hq, sq) = {(b, hq, sq)} float32 on {q.device}, got "
                          f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
-    q, k, v, out, dout = (t if t.stride(-1) == 1 else t.contiguous()
-                          for t in (q, k, v, out, dout))
+    if out_res is not None and (out_res.shape != out.shape or out_res.stride() != out.stride()):
+        raise ValueError(f"out_res {tuple(out_res.shape)} {out_res.stride()} must have out's "
+                         f"shape and strides {tuple(out.shape)} {out.stride()}")
+    q, k, v, dout = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, dout))
+    if out.stride(-1) != 1:
+        out, out_res = (None if t is None else t.contiguous() for t in (out, out_res))
     lse = lse.contiguous()
     dq, dk, dv = _dense_like(q), _dense_like(k), _dense_like(v)
     plan = flash_bwd_plan(q, k, v, out, dout, dq, dk, dv)
@@ -452,7 +467,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     )
     with torch.cuda.device(q.device):
         err = _bwd_fn()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if out_res is None else out_res.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), None if workspace is None else workspace.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             DTYPE_CODES[q.dtype], b, hq, hkv, sq, skv, hd, strides,

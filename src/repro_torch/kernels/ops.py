@@ -11,7 +11,8 @@ Where autograd will need a gradient, all three run as
 ``torch.autograd.Function``s whose backward is the hand-written backward
 kernel on a CUDA tensor and the plain analytic backward (``ref.*_bwd_ref``) on
 a CPU tensor; the flash forward then also returns the log-sum-exp the backward
-takes.  Otherwise they call the forward alone, as serving does.
+takes and, below fp32, what rounding its output dropped (the backward's D reads
+the unrounded output).  Otherwise they call the forward alone, as serving does.
 """
 
 from __future__ import annotations
@@ -62,21 +63,24 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal):
         if q.is_cuda:
-            out, lse = _fa.flash_attention_cuda(q, k, v, causal, with_lse=True)
+            out, lse, out_res = _fa.flash_attention_cuda(q, k, v, causal, with_lse=True)
         else:
             _fa.check_shapes(q, k, v, causal)
-            out, lse = ref.flash_attention_lse_ref(q, k, v, causal)
+            out32, lse = ref.flash_attention_lse_ref(q.float(), k.float(), v.float(), causal)
+            out = out32.to(q.dtype)
+            # as the kernel: below fp32, what rounding out dropped, for D
+            out_res = None if q.dtype == torch.float32 else (out32 - out.float()).to(q.dtype)
         ctx.causal = causal
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, out, lse, out_res)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, out_res = ctx.saved_tensors
         if dout.is_cuda:
-            grads = _fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, ctx.causal)
+            grads = _fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, ctx.causal, out_res)
         else:
-            grads = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, ctx.causal)
+            grads = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, ctx.causal, out_res)
         return (*grads, None)
 
 

@@ -50,15 +50,16 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
-                            causal: bool = True
+                            causal: bool = True, out_res: torch.Tensor | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Port-only: the analytic gradient of :func:`flash_attention_ref` with
-    respect to q, k and v, given the forward's ``out`` and ``lse`` and the
-    gradient ``dout`` of its output.  In fp32: ``P = exp(s qk^T - lse)``
-    (0 where masked), ``dV = P^T dO``, ``dP = dO V^T``, ``D = rowsum(dO * O)``,
-    ``dS = P (dP - D)``, ``dQ = s dS K``, ``dK = s dS^T Q`` with s = 1/sqrt(hd);
-    dK and dV of a kv head are summed over its group of query heads.  Each
-    gradient in its input's dtype."""
+    respect to q, k and v, given the forward's ``out`` and ``lse`` (and, for
+    bf16, ``out_res``, what rounding out dropped) and the gradient ``dout`` of
+    its output.  In fp32: ``P = exp(s qk^T - lse)`` (0 where masked),
+    ``dV = P^T dO``, ``dP = dO V^T``, ``D = rowsum(dO * O)`` with ``O = out +
+    out_res``, ``dS = P (dP - D)``, ``dQ = s dS K``, ``dK = s dS^T Q`` with s =
+    1/sqrt(hd); dK and dV of a kv head are summed over its group of query
+    heads.  Each gradient in its input's dtype."""
     b, hq, sq, hd = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -68,7 +69,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(_scores(q, k, causal) - lse[..., None])   # exp(-inf) = 0 where masked
     dv = torch.matmul(p.transpose(-1, -2), do32)
     dp = torch.matmul(do32, _by_q_head(v, hq).transpose(-1, -2))
-    delta = (do32 * out.float()).sum(dim=-1, keepdim=True)
+    o32 = out.float() if out_res is None else out.float() + out_res.float()
+    delta = (do32 * o32).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)
     dq = torch.matmul(ds, kq) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q32) * scale

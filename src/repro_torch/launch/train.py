@@ -64,6 +64,8 @@ def main(argv=None) -> int:
     extra = {}
     if cfg.family == "vlm":
         extra["patches"] = ((args.global_batch, cfg.n_patches, cfg.d_model), "float32")
+    if cfg.family == "audio":
+        extra["frames"] = ((args.global_batch, 24, cfg.d_model), "float32")
     ds = SyntheticDataset(cfg.vocab, args.seq_len, args.global_batch, seed=args.seed,
                           extra_specs=extra)
     schedule = get_schedule(cfg.lr_schedule, args.lr, warmup_steps=max(1, args.steps // 20),

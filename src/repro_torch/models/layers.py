@@ -176,16 +176,18 @@ def init_kv_cache(batch: int, max_len: int, n_kv_heads: int, head_dim: int,
 
 def attention_decode(params: dict, x: torch.Tensor, cache: dict, index: int, *,
                      n_heads: int, n_kv_heads: int, head_dim: int,
-                     rope_theta: float = 1e4) -> tuple[torch.Tensor, dict]:
+                     rope_theta: float = 1e4, use_rope: bool = True) -> tuple[torch.Tensor, dict]:
     """Single-token decode against a dense ``(b, L, K, hd)`` cache, every lane
     at the same write position ``index``.  The cache is updated in place.
-    This is the sequential oracle the paged engine is tested against."""
+    This is the sequential oracle the paged engine is tested against.
+    ``use_rope=False`` for absolute-position models (Whisper's decoder)."""
     b = x.shape[0]
     cd = x.dtype
     q, k_new, v_new = _project_qkv(params, x, n_heads, n_kv_heads, head_dim)
-    pos = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
-    q = apply_rope(q, pos, rope_theta)
-    k_new = apply_rope(k_new, pos, rope_theta)
+    if use_rope:
+        pos = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, pos, rope_theta)
+        k_new = apply_rope(k_new, pos, rope_theta)
     cache["k"][:, index] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][:, index] = v_new[:, 0].to(cache["v"].dtype)
     k, v = cache["k"], cache["v"]

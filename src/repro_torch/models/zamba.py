@@ -33,18 +33,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import ModelOptions, resolve_device
+from repro_torch.models.xlstm import _mask_padded_vocab
 
 CONV_K = 4  # depthwise conv window (mamba2 default)
 CHUNK = 128  # SSD chunk length of the forward
-
-
-def _mask_padded_vocab(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Padding entries of the vocabulary get -1e30, so argmax / softmax
-    ignore them (the reference's ``models/xlstm._mask_padded_vocab``)."""
-    if cfg.padded_vocab == cfg.vocab:
-        return logits
-    valid = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
-    return torch.where(valid, logits, L.MASK_VALUE)
 
 
 # -------------------------------------------------------------- mamba2 block

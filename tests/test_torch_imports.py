@@ -30,7 +30,7 @@ def test_port_files_found():
     assert {"ops.py", "layers.py", "transformer.py", "engine.py", "chip_smoke.py", "adamw.py",
             "trainer.py", "checkpointer.py", "pipeline.py", "mip.py", "hierarchical.py",
             "scheduler.py", "fabric.py", "placement.py", "mesh.py", "netmodel.py", "queue.py",
-            "simulator.py", "repair.py", "driver.py"} <= names
+            "simulator.py", "repair.py", "driver.py", "xlstm.py", "whisper.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -473,6 +473,14 @@ PLAN_FLASH = [
     (1, 4, 4, 150, 150, 96, "float32", False, 0),        # hd 96, ragged
     (1, 4, 4, 150, 150, 96, "bfloat16", False, 1),       # and unaligned bf16
     (1, 64, 4, 1024, 1024, 128, "bfloat16", True, 0),    # qwen3-moe's prefill, GQA 16:1
+    (4, 6, 6, 1500, 1500, 64, "bfloat16", True, 0),      # whisper-tiny's encoder, 1500 frames
+    (4, 6, 6, 1500, 1500, 64, "float32", True, 0),       # and in the launcher's fp32
+    (4, 6, 6, 448, 1500, 64, "bfloat16", True, 0),       # its cross-attention, 448 over 1500
+    (4, 6, 6, 448, 1500, 64, "float32", True, 0),
+    (4, 6, 6, 448, 448, 64, "bfloat16", True, 0),        # its decoder's self-attention
+    (4, 6, 6, 448, 448, 64, "float32", True, 0),
+    (8, 6, 6, 1500, 1500, 64, "bfloat16", True, 0),      # its serving's prefill_cross, 8 lanes
+    (2, 6, 6, 448, 24, 64, "bfloat16", True, 0),         # cross-attention over 24 frames
 ]
 # Every RMSNorm case of chip_smoke.py: (shape, dtype)
 PLAN_RMS = [
@@ -491,6 +499,11 @@ PLAN_RMS = [
     ((4, 1024, 2304), "bfloat16"),  # minicpm-2b's training step
     ((4, 1024, 2304), "float32"),
     ((8, 64, 64), "bfloat16"),
+    ((4, 256, 1024), "bfloat16"),   # xlstm-350m's training step
+    ((8, 1, 1024), "bfloat16"),     # and its decode
+    ((4, 1500, 384), "bfloat16"),   # whisper-tiny's encoder
+    ((4, 448, 384), "bfloat16"),    # and its decoder
+    ((8, 1, 384), "bfloat16"),      # and its decode
 ]
 
 
@@ -830,6 +843,34 @@ class TestFlashAttentionBwdRef:
                                         causal)
         torch.testing.assert_close(out, plain, rtol=0, atol=0)
 
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_bf16_d_reads_the_unrounded_out(self, causal):
+        """bf16 with keys and values that share a large common part
+        (near-uniform attention over many keys, Whisper's case at random
+        init): D from the rounded out errs by 2^-9 |dO| |O|, which dS = P (dP
+        - D) takes whole.  ``ops.flash_attention``'s backward reads out +
+        out_res (what rounding dropped) and lands within 2 % of the fp32
+        gradient where D from out alone misses dq by more than its size."""
+        g = torch.Generator().manual_seed(7)
+        common = 4.0 * torch.randn(64, generator=g)
+        q = (0.3 * torch.randn(1, 2, 300, 64, generator=g)).bfloat16()
+        k, v = ((common + 0.3 * torch.randn(1, 2, 300, 64, generator=g)).bfloat16()
+                for _ in range(2))
+        do = torch.randn(1, 2, 300, 64, generator=g).bfloat16()
+        want = grads_via_autograd(lambda *a: ref.flash_attention_ref(*a, causal),
+                                  tuple(t.float() for t in (q, k, v)), do.float())
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ops.flash_attention(*leaves, causal=causal).backward(do)
+        out, lse = ref.flash_attention_lse_ref(q, k, v, causal)
+        rounded = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
+
+        def rel(a, w):
+            return ((a.float() - w).norm() / w.norm()).item()
+
+        assert rel(leaves[0].grad, want[0]) < 0.02 < 1.0 < rel(rounded[0], want[0])
+        for got, w in zip((t.grad for t in leaves[1:]), want[1:]):
+            assert rel(got, w) < 0.02
+
     def test_strided_dout_gives_the_same_gradients(self):
         """Autograd hands dout back as a transposed view of the model's
         (b, s, h, hd) layout."""
@@ -887,6 +928,12 @@ PLAN_FLASH_BWD = [
     (4, 32, 32, 1600, 1600, 96, "float32", True, 0),     # and in the launcher's fp32
     (1, 4, 4, 150, 150, 96, "bfloat16", False, 1),       # hd 96 unaligned, ragged
     (1, 64, 4, 1024, 1024, 128, "bfloat16", True, 0),    # qwen3-moe's training step, GQA 16:1
+    (4, 6, 6, 1500, 1500, 64, "bfloat16", True, 0),      # whisper-tiny's encoder, non-causal
+    (4, 6, 6, 1500, 1500, 64, "float32", True, 0),       # and in the launcher's fp32
+    (4, 6, 6, 448, 1500, 64, "bfloat16", True, 0),       # its cross-attention, 448 over 1500
+    (4, 6, 6, 448, 1500, 64, "float32", True, 0),
+    (4, 6, 6, 448, 448, 64, "bfloat16", True, 0),        # its decoder's self-attention
+    (4, 6, 6, 448, 448, 64, "float32", True, 0),
 ]
 
 
@@ -906,6 +953,9 @@ PLAN_RMS_BWD = [
     ((1, 4096, 2560), "bfloat16"),  # zamba2-2.7b's width: 10 vectors a lane
     ((256, 6144), "bfloat16"),      # 24 vectors a lane: the partials in shared memory
     ((2, 16, 64), "float32"),       # the launcher's reduced config
+    ((4, 256, 1024), "bfloat16"),   # xlstm-350m's training step
+    ((4, 1500, 384), "bfloat16"),   # whisper-tiny's encoder
+    ((4, 448, 384), "bfloat16"),    # and its decoder
 ]
 
 

@@ -14,7 +14,7 @@ from repro.models import ModelOptions as JaxOptions
 from repro.models import build_model as jax_build_model
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.convert import from_jax_params
-from repro_torch.models import DecoderLM, ModelOptions, build_model
+from repro_torch.models import DecoderLM, ModelOptions, WhisperLM, XLSTMLM, build_model
 
 ATOL = 1e-4
 FP32 = ModelOptions(param_dtype="float32", compute_dtype="float32")
@@ -212,8 +212,11 @@ class TestLogitsParity:
 class TestBuildModel:
     @pytest.mark.parametrize("name", ["xlstm-350m", "whisper-tiny"])
     def test_families_not_ported_raise_naming_the_roadmap(self, name):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(get_config(name).reduced(), device="cpu")
+        """The two families that raised here until they were ported (the
+        name is kept) now build as their own models, on the device asked for."""
+        model = build_model(get_config(name).reduced(), device="cpu")
+        assert type(model) is {"xlstm-350m": XLSTMLM, "whisper-tiny": WhisperLM}[name]
+        assert model.device == torch.device("cpu")
 
     def test_decoder_lm_refuses_other_families(self):
         with pytest.raises(ValueError, match="does not serve family"):
