@@ -130,6 +130,37 @@ raises and the script exits non-zero:
 28. ``whisper_train`` -- whisper-tiny trained: 8 steps of 4 x (1500 frames +
    448 tokens), remat of each layer.
 
+The parallelism layer (``repro_torch.parallel``, the meshed steps of
+``train/train_step.py``) runs in three phases.  One card holds one rank (NCCL
+refuses two ranks on one device), so on the card it runs as a world of one
+-- NCCL, the DTensor path and the kernels on local shards at full width --
+and its multi-rank logic on the host:
+
+- ``mesh_host`` (after ``simulate``) -- the CPU tests' 4-rank gloo world
+  (``tests/torch_parallel_world.py``, the reduced models' weights made by the
+  port from a seed) on this machine's torch: the meshed train step on a (2, 2)
+  mesh for a dense, a MoE and a hybrid model against the unmeshed step, the
+  seq-sharded decode, the pipeline, the compressed mean.
+- ``mesh_serve`` (after ``serve``) -- glm4-9b at full width and the serve
+  phase's depth: 16 greedy dense decode steps at 8 lanes through
+  ``make_serve_step`` with ``cache_shardings`` on a world of one against the
+  unmeshed ``decode_step``: the same tokens, the logits within ``parity``'s
+  bf16 rule, the same launches.
+- ``mesh_train`` (after ``trainer``) -- minicpm-2b at full width and depth,
+  ``train``'s recipe: 3 steps of the meshed ``make_train_step`` on a world of
+  one, then 3 unmeshed from the same init; the losses within 1e-4, every leaf
+  a whole local shard on the card, the exact launches of ``train``; one more
+  step of each under torch.profiler (the DTensor overhead on a world of one);
+  then the reduced config through the launcher, ``--devices 1 --mesh-shape
+  1x1`` (rc 0: a falling loss).
+
+With ``--cards 4`` (four cards of one host) only ``env``, ``build`` and
+``mesh_cards`` run: ``mesh_host``'s world on NCCL, rank r on ``cuda:r``, the
+kernels on the local shards, held to ``mesh_host``'s rules and with the
+meshed train step's launches equal to the unmeshed step's; then the launcher
+with ``--devices 4 --mesh-shape 2x2 --arnold --scheduler mip`` (rc 0); no
+``kernels`` line.
+
 With ``--profile`` further phases, after ``serve``, ``zamba``,
 ``train_parity``, ``train``, ``zamba_train``, ``moe_serve``, ``moe_train``,
 ``vlm_train``, ``xlstm``, ``xlstm_train``, ``whisper`` and ``whisper_train``,
@@ -144,7 +175,7 @@ dispatch, expert GEMMs and combine apart).
 Then the ``kernels`` summary line (the three forwards and the three
 backwards: launches over every main path -- serve, zamba, train,
 zamba_train, moe_serve, moe_train, vlm_train, xlstm, xlstm_train, whisper,
-whisper_train -- error, times and roofline
+whisper_train, mesh_train, mesh_serve -- error, times and roofline
 bound per kernel), the host's CPU model, the card as ``nvidia-smi`` names it,
 and the verdict as the last line.  There is no CPU path: without a CUDA device the
 script exits non-zero before printing anything.
@@ -155,6 +186,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import json
 import math
@@ -193,7 +225,8 @@ from repro_torch.kernels import flash_attention as _fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as _rms  # noqa: E402
 from repro_torch.kernels import ssd_chunk as _ssd  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
-from repro_torch.launch.mesh import arnold_rank_grid, grid_group_spread  # noqa: E402
+from repro_torch.convert import to_jax_layout  # noqa: E402
+from repro_torch.launch.mesh import arnold_rank_grid, grid_group_spread, process_group  # noqa: E402
 from repro_torch.models import ModelOptions, build_model  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.whisper import N_FRAMES  # noqa: E402
@@ -217,7 +250,9 @@ from repro_torch.train import (  # noqa: E402
     loss_and_grads,
     make_train_step,
 )
-from repro_torch.train.train_step import batch_to_device  # noqa: E402
+from repro_torch.parallel import sharding as shd  # noqa: E402
+from repro_torch.parallel.pipeline import pp_boundary_bytes  # noqa: E402
+from repro_torch.train.train_step import batch_to_device, make_serve_step  # noqa: E402
 
 # Published peaks of one H100 SXM (dense, no sparsity); bounds are stated
 # against these whatever the card's power limit, which is printed beside them.
@@ -2170,6 +2205,272 @@ def train_phase(cfg, dev: torch.device, steps: int = TRAIN_STEPS, phase: str = "
     return run["totals"], *run["state"]
 
 
+# ------------------------------------------------------------- parallelism
+# The meshed steps on the card: a world of one (NCCL) over a (1, 1)
+# ("data", "model") DeviceMesh -- one H100 holds one rank, and NCCL refuses two
+# ranks on one device; the multi-rank logic runs on the host in mesh_host.
+MESH_TRAIN_STEPS = 3
+MESH_SERVE_STEPS, MESH_SERVE_LANES, MESH_SERVE_CACHE = 16, 8, 64
+
+
+def world_of_one_mesh():
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64), mesh_dim_names=("data", "model"))
+
+
+def profiled_step(step_fn, state: list, batch) -> dict:
+    """One train step from ``state`` ([params, opt_state], updated in place)
+    under torch.profiler, after one warm-up step: ``_profiled``'s report."""
+    def step():
+        state[0], state[1], metrics = step_fn(state[0], state[1], batch)
+        return metrics["loss"].item()
+
+    report = _profiled(step, 1)
+    state.clear()
+    return report
+
+
+def mesh_train_phase(cfg, dev: torch.device, steps: int = MESH_TRAIN_STEPS) -> dict:
+    """minicpm-2b at full width and depth, ``train``'s recipe (fp32 masters,
+    bf16 compute, remat, 4 x 1024 tokens): ``steps`` steps of the meshed
+    ``make_train_step`` on a world of one (NCCL, a (1, 1) DeviceMesh), then
+    ``steps`` of the unmeshed one from the same init, the first run's state
+    freed before the second starts; then one more step of each under
+    torch.profiler (device-busy against wall).  Rules: the losses within 1e-4
+    (the reference's own rule for its sharded step against one device), every
+    leaf of the meshed state a DTensor whose local shard is the whole leaf,
+    and the meshed step's launches those of ``train_launches(cfg, remat=True)``
+    at every step: RMSNorm and flash attention, forward and backward, on the
+    local shards."""
+    model = build_model(cfg, ModelOptions("float32", "bfloat16", remat=True), dev)
+    data = train_data(cfg)
+    batches = [data.batch(i) for i in range(steps + 1)]
+    expected = train_launches(cfg, remat=True)
+    opt = AdamWConfig(lr=get_schedule(cfg.lr_schedule, TRAIN_LR, 2, steps))
+    report = {"phase": "mesh_train", "model": cfg.name, "n_layers": cfg.n_layers,
+              "batch": [TRAIN_BATCH, TRAIN_SEQ], "steps": steps, "world": 1, "backend": "nccl",
+              "mesh": {"data": 1, "model": 1}, "launches_per_step": expected, "rule": 1e-4}
+    totals = dict.fromkeys(expected, 0)
+    with process_group("cuda"):
+        import torch.distributed as dist
+
+        report["backend"] = dist.get_backend()
+        for name, mesh in (("meshed", world_of_one_mesh()), ("unmeshed", None)):
+            params = model.init(torch.Generator(device=dev).manual_seed(0))
+            opt_state = init_opt_state(params)
+            step_fn = make_train_step(model, opt, mesh=mesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms = [], []
+            for i in range(steps):
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                params, opt_state, metrics = step_fn(params, opt_state, batches[i])
+                losses.append(metrics["loss"].item())
+                ms.append((time.perf_counter() - t0) * 1e3)
+                counts = ops.launch_counts()
+                if counts != expected:
+                    raise AssertionError(f"mesh_train {name} step {i + 1}: launches {counts}, "
+                                         f"expected {expected}")
+                if mesh is not None:
+                    totals = {k: totals[k] + counts[k] for k in totals}
+            if mesh is not None:
+                local = [shd.is_dtensor(t) and t.to_local().device.type == dev.type
+                         and t.to_local().shape == t.shape
+                         for t in tree_leaves(params) + tree_leaves(opt_state["m"])]
+                if not all(local):
+                    raise AssertionError(f"mesh_train: {local.count(False)} of {len(local)} leaves "
+                                         "are not whole local shards of cuda DTensors")
+            report[name] = {"losses": losses, "step_ms": ms,
+                            "median_step_ms_after_first": sorted(ms[1:])[(steps - 1) // 2],
+                            "peak_device_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                            "profiled_step": profiled_step(step_fn, [params, opt_state],
+                                                           batches[steps])}
+            del params, opt_state, step_fn, metrics
+            gc.collect()
+            torch.cuda.empty_cache()
+            report[name]["device_gb_after_free"] = torch.cuda.memory_allocated() / 1e9
+    diffs = [abs(a - b) for a, b in zip(report["meshed"]["losses"], report["unmeshed"]["losses"])]
+    report["max_abs_loss_diff"] = max(diffs)
+    if not (all(math.isfinite(x) for x in report["meshed"]["losses"]) and max(diffs) <= 1e-4):
+        raise AssertionError(f"mesh_train: meshed losses {report['meshed']['losses']} against "
+                             f"unmeshed {report['unmeshed']['losses']} (rule 1e-4)")
+    with tempfile.TemporaryDirectory() as tmp:   # the launcher's world of one on the card
+        t0 = time.perf_counter()
+        report["launcher_rc"] = launch_train.main(
+            ["--device", "cuda", "--devices", "1", "--mesh-shape", "1x1", "--steps", "16",
+             "--log-every", "8", "--ckpt-every", "8", "--ckpt-dir", tmp])
+        report["launcher_s"] = time.perf_counter() - t0
+    if report["launcher_rc"] != 0:
+        raise AssertionError(f"mesh_train: the meshed launcher returned {report['launcher_rc']}")
+    m, u = report["meshed"], report["unmeshed"]
+    report["dtensor_overhead"] = {
+        "wall_ms": m["profiled_step"]["wall_ms"] - u["profiled_step"]["wall_ms"],
+        "device_busy_ms": m["profiled_step"]["device_busy_ms"] - u["profiled_step"]["device_busy_ms"],
+        "device_ops": m["profiled_step"]["device_ops"] - u["profiled_step"]["device_ops"]}
+    emit(report)
+    return totals
+
+
+@torch.no_grad()
+def mesh_serve_phase(cfg, dev: torch.device, n_layers: int) -> dict:
+    """glm4-9b at full width and ``n_layers`` layers, bf16: MESH_SERVE_STEPS
+    greedy dense decode steps at MESH_SERVE_LANES lanes through the unmeshed
+    ``decode_step``, then through ``make_serve_step`` on a world of one with
+    the cache laid out by ``cache_shardings`` (the same weights, wrapped).
+    Rules: the same tokens at every step, the logits within the ``parity``
+    phase's bf16 rule (2e-2 of the largest |logit|), the same launches."""
+    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build_model(cfg, ModelOptions(), dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(5))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    first = torch.randint(0, cfg.vocab, (MESH_SERVE_LANES, 1), device=dev, generator=gen,
+                          dtype=torch.int32)
+
+    def run(step_fn, p, cache):
+        tokens, outs, chosen = first, [], []
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MESH_SERVE_STEPS):
+            logits, cache = step_fn(p, cache, tokens)
+            logits = shd.full_tensor(logits)[:, -1].float()
+            tokens = logits.argmax(-1, keepdim=True).to(torch.int32)
+            outs.append(logits)
+            chosen.append(tokens)
+        torch.cuda.synchronize()
+        return (torch.cat(chosen, 1), torch.stack(outs), ops.launch_counts(),
+                (time.perf_counter() - t0) * 1e3 / MESH_SERVE_STEPS)
+
+    tok_u, log_u, counts_u, ms_u = run(model.decode_step, params,
+                                       model.init_cache(MESH_SERVE_LANES, MESH_SERVE_CACHE))
+    with process_group("cuda"):
+        mesh = world_of_one_mesh()
+        step = make_serve_step(model, mesh)
+        p, cache = step.lay_out(params, model.init_cache(MESH_SERVE_LANES, MESH_SERVE_CACHE))
+        specs = {k: shd.from_placements(t.placements, mesh, t.ndim) for k, t in cache["kv"].items()}
+        tok_m, log_m, counts_m, ms_m = run(step, p, cache)
+        del p, cache
+    diff = (log_m - log_u).abs().max().item()
+    scale = log_u.abs().max().item()
+    same = torch.equal(tok_m, tok_u)
+    report = {"phase": "mesh_serve", "model": cfg.name, "n_layers": n_layers,
+              "lanes": MESH_SERVE_LANES, "decode_steps": MESH_SERVE_STEPS,
+              "cache_len": MESH_SERVE_CACHE, "world": 1, "cache_specs": specs,
+              "tokens_identical": same, "max_abs_logit_diff": diff, "tol": 2e-2 * scale,
+              "launches": counts_m, "ms_per_step_meshed": ms_m, "ms_per_step_unmeshed": ms_u}
+    if not (same and diff <= 2e-2 * scale and counts_m == counts_u and counts_m["rmsnorm"] > 0
+            and torch.isfinite(log_m).all().item()):
+        raise AssertionError(f"mesh_serve: {report} (unmeshed launches {counts_u})")
+    emit(report)
+    return counts_m
+
+
+def host_world_inputs() -> dict:
+    """``tests/torch_parallel_world.py``'s inputs made by the port: each
+    reduced model's parameters from seed 0 in the reference's layout
+    (``to_jax_layout``), the pipeline's and the compressed mean's inputs."""
+    import torch_parallel_world as world
+
+    def flat(prefix, tree, out, path=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                flat(prefix, v, out, f"{path}{k}/")
+            else:
+                out[f"{prefix}|{path}{k}"] = v
+
+    out = {}
+    configs = [(a, get_config(a).reduced()) for a in world.TRAIN_ARCHS]
+    for prefix, cfg in configs + [("decode", world.decode_config())]:
+        model = build_model(cfg, ModelOptions("float32", "float32", remat=False), "cpu")
+        flat(prefix, to_jax_layout(model.init(torch.Generator().manual_seed(0)), cfg), out)
+    rng = np.random.default_rng(0)
+    out["pp_W"] = (rng.standard_normal((4, 16, 16)) * 0.3).astype(np.float32)
+    out["pp_x"] = rng.standard_normal((8, 2, 16)).astype(np.float32)
+    out["cc_x"] = rng.standard_normal((4, 64)).astype(np.float32)
+    return out
+
+
+def mesh_host_phase(device_type: str = "cpu") -> None:
+    """The CPU tests' 4-rank gloo world (``tests/torch_parallel_world.py``) on
+    the card machine's host and its torch (with ``"cuda"``: the same world on
+    NCCL, rank r on ``cuda:r``, the phase ``mesh_cards``, where the meshed
+    train step must also launch each kernel as often as the unmeshed one, at
+    least once): the meshed train step on a (2, 2)
+    ("data", "model") mesh for reduced minicpm-2b, qwen3-moe-235b-a22b and
+    zamba2-2.7b (3 fp32 steps against the unmeshed step, 1e-4; every leaf a
+    local shard of its spec's shape), the seq-sharded decode (1e-4 against
+    the unsharded decode, the seq-sharded branch taken; with 2 KV heads the
+    head-sharded decode), the GPipe pipeline
+    (S = 4, m = 8: forward 1e-5 and gradient 1e-4 against the stages applied
+    in turn, Eq. 13's bytes across a boundary), ``compressed_psum_mean``
+    (fp16 1e-2, int8 5e-2 of the exact mean) and ``make_dp_grad_fn``.  The
+    ranks are processes of their own; their process groups end with them."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import pickle
+
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = host_world_inputs()
+        np.savez(os.path.join(tmp, "inputs.npz"), **inputs)
+        t0 = time.perf_counter()
+        env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+        subprocess.run([sys.executable, os.path.join(ROOT, "tests", "torch_parallel_world.py"),
+                        os.path.join(tmp, "inputs.npz"), os.path.join(tmp, "world.pkl"),
+                        device_type], check=True, env=env, cwd=ROOT, timeout=600)
+        world_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "world.pkl"), "rb") as f:
+            got = pickle.load(f)
+    on_cards = device_type == "cuda"
+    report = {"phase": "mesh_cards" if on_cards else "mesh_host", "world": 4,
+              "backend": "nccl" if on_cards else "gloo", "world_s": world_s,
+              "torch": torch.__version__}
+    failures = []
+    for key, case in got.items():
+        if key.startswith("train|"):
+            diff = max(abs(a - b) for a, b in zip(case["mesh"], case["plain"]))
+            report[key] = {"max_abs_loss_diff": diff, "losses": case["mesh"],
+                           "sharded_leaves": case["sharded_leaves"]}
+            if not diff <= 1e-4 or case["wrong_layouts"] or case["sharded_leaves"] <= 20:
+                failures.append((key, diff, case["wrong_layouts"][:3]))
+            if on_cards:
+                used = [k for k, c in case["plain_launches"].items() if c > 0]
+                report[key]["launches"] = case["mesh_launches"]
+                if case["mesh_launches"] != case["plain_launches"] or \
+                        not {"rmsnorm", "rmsnorm_bwd"} <= set(used):
+                    failures.append((key, case["mesh_launches"], case["plain_launches"]))
+    for key, seq in (("decode", True), ("decode_heads", False)):
+        dec = got[key]
+        report[key] = {"max_abs_logit_diff": float(np.abs(dec["mesh"] - dec["plain"]).max()),
+                       "seq_sharded": dec["seq_sharded"], "cache_spec": dec["cache_spec"]}
+        if not (dec["seq_sharded"] == seq and report[key]["max_abs_logit_diff"] <= 1e-4):
+            failures.append((key, report[key]))
+    pp = got["pipeline"]
+    W = torch.from_numpy(inputs["pp_W"]).requires_grad_(True)
+    y = torch.from_numpy(inputs["pp_x"])
+    for i in range(4):
+        y = torch.tanh(y @ W[i])
+    (y ** 2).sum().backward()
+    crossed = pp["sent"][0].get(1, 0) + pp["sent"][1].get(0, 0)
+    report["pipeline"] = {"fwd_err": float(np.abs(pp["y"] - y.detach().numpy()).max()),
+                          "grad_err": float(np.abs(pp["grad"] - W.grad.numpy()).max()),
+                          "boundary_bytes": crossed,
+                          "eq13_bytes": pp_boundary_bytes(2, 1, 16, 8, bytes_per_el=4)}
+    if not (report["pipeline"]["fwd_err"] <= 1e-5 and report["pipeline"]["grad_err"] <= 1e-4
+            and crossed == report["pipeline"]["eq13_bytes"]):
+        failures.append(("pipeline", report["pipeline"]))
+    cc = got["collectives"]
+    report["collectives"] = {s: float(np.abs(cc[s] - cc["exact"]).max()) for s in ("fp16", "int8")}
+    report["collectives"]["dp_grad"] = cc["dp"]
+    if not (report["collectives"]["fp16"] < 1e-2 and report["collectives"]["int8"] < 5e-2
+            and abs(cc["dp"][0] - cc["dp"][1]) < 1e-6 and cc["dp"][2] < 1e-3):
+        failures.append(("collectives", report["collectives"]))
+    if failures:
+        raise AssertionError(f"{report['phase']}: {failures}")
+    emit(report)
+
+
 def zamba_train_phase(cfg, dev: torch.device, steps: int = TRAIN_STEPS):
     """zamba2-2.7b at full width and depth (54 Mamba2 layers, the shared block
     applied 9 times): bf16 compute, fp32 masters and AdamW state, remat of each
@@ -2769,6 +3070,9 @@ def main() -> None:
                              "a train step with torch.profiler")
     parser.add_argument("--ptxas-info", action="store_true",
                         help="print each kernel's registers and shared memory from the build")
+    parser.add_argument("--cards", type=int, default=1, choices=(1, 4),
+                        help="4: instead of every phase, only mesh_host's world on NCCL over "
+                             "4 cards (the phase mesh_cards)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -2792,6 +3096,23 @@ def main() -> None:
     ignored = [stem for stem, text in _build.compiler_output.items() if "C7508" in text]
     if ignored:   # setmaxnreg ignored: the consumers would run on the producer's registers
         raise AssertionError(f"ptxas ignored setmaxnreg (C7508) in {ignored}")
+    if args.cards == 4:
+        if torch.cuda.device_count() < 4:
+            raise SystemExit(f"--cards 4 needs 4 CUDA devices, found {torch.cuda.device_count()}")
+        mesh_host_phase("cuda")
+        with tempfile.TemporaryDirectory() as tmp:   # the launcher's 4 NCCL ranks
+            t0 = time.perf_counter()
+            rc = launch_train.main(
+                ["--device", "cuda", "--devices", "4", "--mesh-shape", "2x2", "--arnold",
+                 "--scheduler", "mip", "--steps", "16", "--log-every", "8", "--ckpt-every", "8",
+                 "--ckpt-dir", tmp])
+            emit({"phase": "mesh_cards_launcher", "rc": rc, "seconds": time.perf_counter() - t0})
+        if rc != 0:
+            raise AssertionError(f"the launcher on 4 cards returned {rc}")
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
 
     cfg, zcfg, mcfg = get_config("glm4-9b"), get_config("zamba2-2.7b"), get_config("minicpm-2b")
     qcfg, vcfg = get_config("qwen3-moe-235b-a22b"), get_config("phi-3-vision-4.2b")
@@ -2802,10 +3123,13 @@ def main() -> None:
     placed = placement_phase(card, cpu)
     simulate_phase(card, cpu, placed)
     del placed
+    mesh_host_phase()
     serve_counts, model, params = serve_phase(cfg, dev, args.layers or cfg.n_layers)
     if args.profile:
         profile_phase(model, params, dev)
     del model, params
+    torch.cuda.empty_cache()
+    mesh_serve_counts = mesh_serve_phase(cfg, dev, args.layers or cfg.n_layers)
     torch.cuda.empty_cache()
     zamba_parity_phase(zcfg, dev)
     zamba_counts, model, params = zamba_phase(zcfg, dev)
@@ -2824,6 +3148,8 @@ def main() -> None:
     del train_state
     torch.cuda.empty_cache()
     trainer_phase(mcfg, dev)
+    torch.cuda.empty_cache()
+    mesh_train_counts = mesh_train_phase(mcfg, dev)
     torch.cuda.empty_cache()
     train_parity_phase(zcfg, dev, 12, "zamba_train_parity", zamba_train_launches)
     torch.cuda.empty_cache()
@@ -2894,10 +3220,10 @@ def main() -> None:
     # backward on zamba2's training; rmsnorm and its backward on the xLSTM's
     # paths, both with flash attention and its backward on Whisper's (its
     # serving's flash in prefill_cross)
-    trained = (train_counts, moe_train_counts, vlm_train_counts)
+    trained = (train_counts, moe_train_counts, vlm_train_counts, mesh_train_counts)
     if min(zamba_counts[k] for k in ("rmsnorm", "flash_attention", "ssd_chunk_scan")) <= 0 or \
             min(c[k] for c in (serve_counts, moe_serve_counts)
-                for k in ("rmsnorm", "flash_attention")) <= 0 or \
+                for k in ("rmsnorm", "flash_attention")) <= 0 or mesh_serve_counts["rmsnorm"] <= 0 or \
             min(c[k] for c in trained for k in ("rmsnorm", "flash_attention", "rmsnorm_bwd",
                                                 "flash_attention_bwd")) <= 0 or \
             min(zamba_train_counts.values()) <= 0 or \
@@ -2911,10 +3237,11 @@ def main() -> None:
                              f"zamba_train {zamba_train_counts}, moe_serve {moe_serve_counts}, "
                              f"moe_train {moe_train_counts}, vlm_train {vlm_train_counts}, "
                              f"xlstm {xlstm_counts}, xlstm_train {xlstm_train_counts}, "
-                             f"whisper {whisper_counts}, whisper_train {whisper_train_counts}")
+                             f"whisper {whisper_counts}, whisper_train {whisper_train_counts}, "
+                             f"mesh_train {mesh_train_counts}, mesh_serve {mesh_serve_counts}")
     paths = (serve_counts, zamba_counts, train_counts, zamba_train_counts, moe_serve_counts,
              moe_train_counts, vlm_train_counts, xlstm_counts, xlstm_train_counts,
-             whisper_counts, whisper_train_counts)
+             whisper_counts, whisper_train_counts, mesh_train_counts, mesh_serve_counts)
 
     def summary(name: str, source: str, replaces: str) -> dict:
         case = cases[name]

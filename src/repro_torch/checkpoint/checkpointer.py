@@ -9,6 +9,11 @@ puts every leaf back on the template leaf's device in its dtype.  A Python int
 (the optimizer's step counter) is a leaf too.  The trainer's fault
 tolerance rests on this: saves are atomic, and ``latest_step`` plus the
 deterministic data stream make a restart exact.
+
+A DTensor leaf (a meshed trainer) is gathered whole on every rank -- each rank
+of the process group calls ``save`` and ``restore`` -- and rank 0 alone
+writes, once; the others wait for the write at a barrier.  ``restore`` with
+``shardings`` lays each leaf out again as the meshed step holds it.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import threading
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.sharding import distribute, full_tensor
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
@@ -42,10 +49,27 @@ def _unflatten(template, leaves: dict, prefix: str = ""):
     return leaves[prefix.rstrip("/")]
 
 
+def _world() -> tuple[int, bool]:
+    """(this process's rank, whether a process group is up)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), True
+    return 0, False
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if _world()[1]:
+        dist.barrier()
+
+
 def _to_host(leaf) -> tuple[np.ndarray, str]:
     """(array, dtype name); the name of a Python int is "int"."""
     if isinstance(leaf, int):
         return np.asarray(leaf), "int"
+    leaf = full_tensor(leaf)
     t = leaf.detach().to("cpu", copy=True)   # a snapshot: training updates in place
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -76,12 +100,17 @@ class Checkpointer:
         """Atomic save; with use_async=True returns once the tree is copied
         to host memory, and a thread writes it."""
         host = [(k, *_to_host(v)) for k, v in _flatten(tree)]
+        rank, grouped = _world()
         if self.use_async:
             self.wait()
-            self._pending = threading.Thread(target=self._write, args=(step, host), daemon=True)
-            self._pending.start()
+            if rank == 0:
+                self._pending = threading.Thread(target=self._write, args=(step, host),
+                                                 daemon=True)
+                self._pending.start()
         else:
-            self._write(step, host)
+            if rank == 0:
+                self._write(step, host)
+            _barrier()
         return self.dir / f"step_{step}"
 
     def _write(self, step: int, host_items):
@@ -105,6 +134,8 @@ class Checkpointer:
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self.use_async:
+            _barrier()
 
     def _gc(self):
         steps = sorted(self.steps())
@@ -124,11 +155,13 @@ class Checkpointer:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def restore(self, template, step: int | None = None):
+    def restore(self, template, step: int | None = None, shardings=None):
         """Restore into the structure of ``template`` (a tree of tensors and
         ints) as new tensors; each goes to its template leaf's device and
         dtype.  Only a leaf's shape, dtype and device are read, so fake
-        tensors with no storage make a template."""
+        tensors with no storage make a template.  ``shardings``: a tree of
+        ``parallel.sharding.NamedSharding`` (None for a leaf kept whole)
+        matching ``template``; each leaf is then distributed by it."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -145,4 +178,8 @@ class Checkpointer:
             if tuple(arr.shape) != shape:
                 raise ValueError(f"{key}: ckpt shape {arr.shape} != template {shape}")
             leaves[key] = _from_host(arr, entry["dtype"], tmpl)
+        if shardings is not None:
+            for key, sharding in _flatten(shardings):
+                if sharding is not None:
+                    leaves[key] = distribute(leaves[key], sharding)
         return _unflatten(template, leaves)

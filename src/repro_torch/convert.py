@@ -109,14 +109,22 @@ def _zamba_params(tree: dict, cfg: ArchConfig, dtype: torch.dtype, device) -> di
 
 
 def from_jax_params(tree: dict, cfg: ArchConfig, dtype: torch.dtype = torch.float32,
-                    device: torch.device | str = "cuda") -> dict:
+                    device: torch.device | str = "cuda", mesh=None) -> dict:
     """``tree``: the reference ``DecoderLM.init`` (dense, MoE or VLM family),
     ``XLSTMLM.init`` (ssm), ``WhisperLM.init`` (audio) or ``ZambaLM.init``
     (hybrid) pytree with numpy leaves, told apart by their keys (the xLSTM's
     and the hybrid's both hold ``units``).  Weights are cast to ``dtype``; norm
     scales, the MoE router and the Mamba2 ``A_log``/``D``/``dt_bias`` stay
     fp32.  The tensors go to ``device``, the card unless the caller asks for
-    the CPU; once the tree is checked, a missing card raises."""
+    the CPU; once the tree is checked, a missing card raises.  With a ``mesh``
+    (a DeviceMesh; every rank converts the same tree) the leaves come back as
+    DTensors laid out by ``parallel.sharding.param_shardings``, as the meshed
+    train and serve steps hold them."""
+    if mesh is not None:
+        from repro_torch.parallel import sharding as shd
+
+        params = from_jax_params(tree, cfg, dtype, device)
+        return shd.lay_out_tree(params, shd.param_shardings(params, mesh))
     if "enc_layers" in tree:
         return _whisper_params(tree, cfg, dtype, device)
     if "units" in tree and "mlstm" in tree["units"]:

@@ -13,18 +13,90 @@ physical GPU r (contiguous rank blocks = nodes, then minipods), the
 counterpart of the reference's device-id order.
 
 Every entry point takes ``device_type="cuda"`` unless the caller asks for
-``"cpu"``; the default process group must already be initialized.
+``"cpu"``; the mesh constructors need the default process group, which
+:func:`process_group` starts (NCCL on ``cuda``, gloo on ``cpu``) and
+:func:`spawn` starts in each of N rank processes.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+import os
+import pickle
+import socket
+import tempfile
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.rank_assign import device_permutation
 from repro_torch.core.spread import Placement
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def process_group(device_type: str = "cuda", rank: int = 0, world_size: int = 1,
+                  port: Optional[int] = None):
+    """Start the default process group for ``device_type`` -- NCCL on
+    ``cuda`` (rank r on ``cuda:r``), gloo on ``cpu`` -- at
+    ``tcp://localhost:<port>`` (a free port for a world of one), and destroy
+    it on exit.  Joins an already started group instead, leaving it up."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        yield
+        return
+    if device_type == "cuda":
+        if torch.cuda.device_count() <= rank:
+            raise RuntimeError(f"rank {rank} needs cuda:{rank}, this machine has "
+                               f"{torch.cuda.device_count()} visible GPUs")
+        torch.cuda.set_device(rank)
+    backend = {"cuda": "nccl", "cpu": "gloo"}[device_type]
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port or free_port()}",
+                            rank=rank, world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_main(rank: int, fn: Callable, world_size: int, port: int, device_type: str,
+               args: tuple, out_dir: str) -> None:
+    if device_type == "cpu":
+        torch.set_num_threads(1)   # N ranks share the host's cores
+    with process_group(device_type, rank, world_size, port):
+        result = fn(rank, *args)
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+def spawn(fn: Callable, world_size: int, device_type: str = "cuda", args: tuple = ()) -> list:
+    """Run ``fn(rank, *args)`` in ``world_size`` new processes, each with the
+    default process group of the world started (:func:`process_group`) and
+    destroyed before it returns; ``fn`` must be importable by name.  Returns
+    the ranks' return values in rank order; raises if any rank failed.  On
+    ``cuda`` it needs ``world_size`` visible GPUs and says so before it starts
+    anything."""
+    import torch.multiprocessing as mp
+
+    if device_type == "cuda" and torch.cuda.device_count() < world_size:
+        raise RuntimeError(f"{world_size} ranks on cuda need {world_size} visible GPUs, this "
+                           f"machine has {torch.cuda.device_count()}")
+    with tempfile.TemporaryDirectory() as out_dir:
+        mp.spawn(_rank_main, args=(fn, world_size, free_port(), device_type, args, out_dir),
+                 nprocs=world_size)
+        results = []
+        for r in range(world_size):
+            with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+    return results
 
 
 def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):

@@ -31,6 +31,8 @@ import math
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import active_mesh, lshard
 
 MASK_VALUE = -1e30
 
@@ -100,6 +102,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # ----------------------------------------------------------------- attention
 def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
     b, s, _ = x.shape
+    if shd.is_dtensor(x):
+        # a projection sharded in blocks that cut through heads is gathered first
+        from torch.distributed.tensor import Replicate, Shard
+
+        split = [i for i, p in enumerate(x.placements) if p == Shard(2)]
+        if n_heads % math.prod(x.device_mesh.size(i) for i in split):
+            x = x.redistribute(x.device_mesh, [Replicate() if i in split else p
+                                               for i, p in enumerate(x.placements)])
     return x.reshape(b, s, n_heads, head_dim)
 
 
@@ -115,7 +125,12 @@ def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: to
     """q: (b, sq, H, hd); k/v: (b, sk, Hk, hd) with Hk dividing H (q-head h
     reads kv-head h // (H / Hk); Hk == H is the reference's signature); mask
     broadcastable to (b, H, sq, sk), True = attend.  Scores and softmax in
-    fp32, probabilities cast to ``compute_dtype`` before the PV product."""
+    fp32, probabilities cast to ``compute_dtype`` before the PV product.
+    DTensors (a meshed decode) run on their local shards: batch and heads may
+    stay sharded (``ops.heads_on_shards``); ``mask`` is a plain tensor."""
+    if shd.is_dtensor(q):
+        return ops.heads_on_shards(
+            lambda a, b, c: attention_scores(a, b, c, mask, compute_dtype), q, k, v, 2)
     b, sq, n_heads, hd = q.shape
     sk, n_kv = k.shape[1], k.shape[2]
     group = n_heads // n_kv
@@ -159,10 +174,14 @@ def attention_fwd(params: dict, x: torch.Tensor, positions: torch.Tensor, *, n_h
     else:
         q = _split_heads(x @ params["wq"].to(cd), n_heads, head_dim)
         k, v = (t.to(cd) for t in kv_override)
+    q = lshard(q, "batch", "seq", "heads", "head_dim")
+    k = lshard(k, "batch", None, "kv_heads", "head_dim")
+    v = lshard(v, "batch", None, "kv_heads", "head_dim")
     out = ops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal
     )   # (b, H, s, hd), in q's memory layout
-    out = out.transpose(1, 2).reshape(b, s, n_heads * head_dim)
+    out = lshard(out.transpose(1, 2), "batch", "seq", "heads", "head_dim")
+    out = out.reshape(b, s, n_heads * head_dim)
     return out @ params["wo"].to(cd)
 
 
@@ -174,13 +193,50 @@ def init_kv_cache(batch: int, max_len: int, n_kv_heads: int, head_dim: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def write_position(buf: torch.Tensor, index: int, value: torch.Tensor) -> None:
+    """``buf[:, index] = value`` in place; buf (b, L, ...), value (b, ...).
+    On a DTensor cache each rank writes its local shard, and only the rank
+    whose block of the sequence holds ``index`` when L is sharded."""
+    if not shd.is_dtensor(buf):
+        buf[:, index] = value.to(buf.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    start, size = shd.local_offset(buf, 1), buf.to_local().shape[1]
+    pl = [p if p == Shard(0) else Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1
+          else Replicate() for p in buf.placements]
+
+    def write(b, v):   # every rank lays the value out, the holder of ``index`` writes it
+        if start <= index < start + size:
+            write_position(b, index - start, v)
+
+    ops.on_shards(write, buf.device_mesh, [buf, value], [buf.placements, pl], [])
+
+
+def seq_sharded_decode(n_kv_heads: int, cache_len: int) -> bool:
+    """Whether decode takes the flash-decoding branch under the active mesh:
+    its ``model`` size does not divide the KV heads and divides the cache
+    length, so the cache is sharded on the sequence."""
+    mesh = active_mesh()
+    if mesh is None:
+        return False
+    m = shd.mesh_shape(mesh).get("model")
+    return m is not None and n_kv_heads % m != 0 and cache_len % m == 0
+
+
 def attention_decode(params: dict, x: torch.Tensor, cache: dict, index: int, *,
                      n_heads: int, n_kv_heads: int, head_dim: int,
                      rope_theta: float = 1e4, use_rope: bool = True) -> tuple[torch.Tensor, dict]:
     """Single-token decode against a dense ``(b, L, K, hd)`` cache, every lane
     at the same write position ``index``.  The cache is updated in place.
     This is the sequential oracle the paged engine is tested against.
-    ``use_rope=False`` for absolute-position models (Whisper's decoder)."""
+    ``use_rope=False`` for absolute-position models (Whisper's decoder).
+
+    Under an active mesh whose ``model`` size does not divide the KV heads
+    (:func:`seq_sharded_decode`), the cache is sharded on the sequence and
+    the scores stay so (partial attention per shard): attending a
+    heads-sharded query would gather the whole cache every token, while the
+    softmax's and the output's reductions move only (b, H) and (b, H, hd)."""
     b = x.shape[0]
     cd = x.dtype
     q, k_new, v_new = _project_qkv(params, x, n_heads, n_kv_heads, head_dim)
@@ -188,13 +244,29 @@ def attention_decode(params: dict, x: torch.Tensor, cache: dict, index: int, *,
         pos = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
         q = apply_rope(q, pos, rope_theta)
         k_new = apply_rope(k_new, pos, rope_theta)
-    cache["k"][:, index] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, index] = v_new[:, 0].to(cache["v"].dtype)
+    write_position(cache["k"], index, k_new[:, 0])
+    write_position(cache["v"], index, v_new[:, 0])
     k, v = cache["k"], cache["v"]
-    valid = torch.arange(k.shape[1], device=x.device) <= index
-    k = _repeat_kv(k.to(cd), n_heads // n_kv_heads)
-    v = _repeat_kv(v.to(cd), n_heads // n_kv_heads)
-    out = attention_scores(q, k, v, valid[None, None, None, :], compute_dtype=cd)
+    L = k.shape[1]
+    valid = torch.arange(L, device=x.device) <= index
+    if seq_sharded_decode(n_kv_heads, L):
+        da = shd.data_axis_names()
+        k = _repeat_kv(shd.pshard(k, da, "model", None, None).to(cd), n_heads // n_kv_heads)
+        v = _repeat_kv(shd.pshard(v, da, "model", None, None).to(cd), n_heads // n_kv_heads)
+        q_r = shd.pshard(q, da, None, None, None)             # replicate the query heads
+        scores = torch.matmul(q_r.permute(0, 2, 1, 3).float(),
+                              k.permute(0, 2, 3, 1).float()) / math.sqrt(head_dim)
+        scores = torch.where(valid, scores, MASK_VALUE)
+        scores = shd.pshard(scores, da, None, None, "model")  # (b, H, 1, L) seq-sharded
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.matmul(probs.to(cd), v.permute(0, 2, 1, 3)).to(cd)
+        out = shd.pshard(out.permute(0, 2, 1, 3), da, None, None, None)
+    else:
+        k = lshard(k, "batch", None, "kv_heads", "head_dim")
+        v = lshard(v, "batch", None, "kv_heads", "head_dim")
+        k = _repeat_kv(k.to(cd), n_heads // n_kv_heads)
+        v = _repeat_kv(v.to(cd), n_heads // n_kv_heads)
+        out = attention_scores(q, k, v, valid[None, None, None, :], compute_dtype=cd)
     out = out.reshape(b, 1, n_heads * head_dim)
     return out @ params["wo"].to(cd), cache
 
@@ -309,6 +381,7 @@ def mlp_fwd(params: dict, x: torch.Tensor) -> torch.Tensor:
     cd = x.dtype
     g = x @ params["w_gate"].to(cd)
     h = x @ params["w_in"].to(cd)
+    g = lshard(g, "batch", "seq", "ffn")
     act = torch.nn.functional.silu(g.float()).to(cd) * h
     return act @ params["w_out"].to(cd)
 
@@ -445,11 +518,16 @@ def moe_fwd(params: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float
     einsums (the same kept pairs, the same sums): kept pair (t, k) of group g
     takes slot ``(e, g, pos)`` of an (E, G, C, d) buffer, the experts are one
     batched product per weight over (E, G C, d), and each token gathers its k
-    outputs back and sums them weighted by its gates in one small product."""
+    outputs back and sums them weighted by its gates in one small product.
+
+    On DTensors (a meshed step) the routing, dispatch and combine of each
+    group run on the rank that holds the group (:func:`_moe_fwd_meshed`)."""
     b, s, d = x.shape
     E = params["router"].shape[-1]
     n = b * s
     gs, capacity = moe_groups(n, E, top_k, capacity_factor, group_size)
+    if active_mesh() is not None and shd.is_dtensor(x):
+        return _moe_fwd_meshed(params, x, top_k, gs, capacity, return_aux)
     xt = x.reshape(n, d)
     logits = _fp32_matmul(xt.float(), params["router"]).reshape(n // gs, gs, E)
     probs, gates, expert_idx, pos, keep = moe_route(logits, top_k, capacity)
@@ -462,6 +540,56 @@ def moe_fwd(params: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float
         counts = torch.nn.functional.one_hot(expert_idx.reshape(n, top_k), E).sum((0, 1))
         return out, E * torch.sum(me * (counts.float() / n))
     return out
+
+
+def _moe_fwd_meshed(params: dict, x, top_k: int, gs: int, capacity: int, return_aux: bool):
+    """``moe_fwd`` on DTensors, the reference's layout: the token groups
+    (G, gs, d) over the data dimensions where G divides them (else every data
+    rank routes all groups, as the reference's), each rank routing,
+    dispatching and combining its own groups with ``moe_fwd``'s functions --
+    the same routes as one device, group by group; the expert buffer (E, G, C,
+    d) with the experts over ``model`` (expert parallelism: each rank runs
+    its experts' SwiGLU on the slots of its groups), gathered back over
+    ``model`` for the combine."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    b, s, d = x.shape
+    E = params["router"].shape[-1]
+    n = b * s
+    G = n // gs
+    mesh = x.device_mesh
+    xt = lshard(x.reshape(G, gs, d), "batch", None, "embed")
+    tok = list(xt.placements)                     # Shard(0) over the data dims, or Replicate
+    grp = [Shard(1) if p == Shard(0) else Replicate() for p in tok]
+    partial = [Partial() if p == Shard(0) else Replicate() for p in tok]
+    routes = {}                                   # this rank's groups' routes, dispatch to combine
+
+    def dispatch(xt_l, router):
+        logits = _fp32_matmul(xt_l.reshape(-1, d).float(), router).reshape(-1, gs, E)
+        probs, gates, expert_idx, pos, keep = moe_route(logits, top_k, capacity)
+        slot, src_pair, src_token = moe_slots(expert_idx, pos, keep, capacity, E)
+        routes.update(probs=probs, expert_idx=expert_idx, slot=slot, src_pair=src_pair,
+                      weights=(gates * keep).to(x.dtype))
+        return moe_dispatch(xt_l.reshape(-1, d), src_token, slot).reshape(E, -1, capacity, d)
+
+    def combine(ye_l):   # every expert's slots of this rank's groups
+        out = moe_combine(ye_l.reshape(-1, d), routes["slot"], routes["src_pair"],
+                          routes["weights"]).reshape(-1, gs, d)
+        if not return_aux:
+            return out
+        counts = torch.nn.functional.one_hot(routes["expert_idx"].reshape(-1, top_k), E).sum((0, 1))
+        return out, routes["probs"].reshape(-1, E).sum(0), counts.float()
+
+    xe = ops.on_shards(dispatch, mesh, [xt, params["router"]], [tok, [Replicate()] * mesh.ndim],
+                       [grp])
+    xe = lshard(xe, "experts", "batch", None, "embed")
+    ye = moe_experts(params, xe.reshape(E, G * capacity, d)).reshape(E, G, capacity, d)
+    ye = lshard(ye, "experts", "batch", None, "embed")
+    if not return_aux:
+        return ops.on_shards(combine, mesh, [ye], [grp], [tok]).reshape(b, s, d)
+    out, me, counts = ops.on_shards(combine, mesh, [ye], [grp], [tok, partial, partial])
+    me = me / n
+    return out.reshape(b, s, d), E * torch.sum(me * (counts / n))
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -22,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel.sharding import lshard
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -108,7 +109,8 @@ class DecoderLM:
     # --------------------------------------------------------------- pieces
     def embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         # F.embedding: its CUDA backward sums a row's gradients in a fixed order
-        return F.embedding(tokens.long(), params["embed"]["tokens"].to(self.opts.cdt))
+        x = F.embedding(tokens.long(), params["embed"]["tokens"].to(self.opts.cdt))
+        return lshard(x, "batch", "seq", "embed")
 
     def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         cfg, cdt = self.cfg, self.opts.cdt
@@ -118,7 +120,7 @@ class DecoderLM:
             # mask padding entries so argmax / softmax ignore them
             valid = torch.arange(cfg.padded_vocab, device=out.device) < cfg.vocab
             out = torch.where(valid, out, L.MASK_VALUE)
-        return out
+        return lshard(out, "batch", "seq", "vocab")
 
     # -------------------------------------------------------------- forward
     def _layer(self, lp: dict, x: torch.Tensor, attn, return_aux: bool = False):
@@ -127,14 +129,15 @@ class DecoderLM:
         else None)."""
         cfg = self.cfg
         x = x + attn(lp["attn"], L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps))
+        x = lshard(x, "batch", "seq_sp", "embed")
         normed = L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps)
         if not cfg.is_moe:
-            return x + L.mlp_fwd(lp["mlp"], normed), None
+            return lshard(x + L.mlp_fwd(lp["mlp"], normed), "batch", "seq_sp", "embed"), None
         out = L.moe_fwd(lp["moe"], normed, top_k=cfg.top_k,
                         capacity_factor=self.opts.moe_capacity_factor or cfg.capacity_factor,
                         return_aux=return_aux)
         h, aux = out if return_aux else (out, None)
-        return x + h, aux
+        return lshard(x + h, "batch", "seq_sp", "embed"), aux
 
     def forward(self, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """batch: {"tokens": (b, s) int [, "patches": (b, P, d)]} -> (logits
@@ -147,7 +150,7 @@ class DecoderLM:
         if cfg.family == "vlm":
             cdt = self.opts.cdt
             prefix = batch["patches"].to(cdt) @ params["patch_proj"].to(cdt)
-            x = torch.cat([prefix, x], dim=1)
+            x = lshard(torch.cat([prefix, x], dim=1), "batch", "seq", "embed")
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         attn = lambda ap, normed: L.attention_fwd(ap, normed, positions, causal=True,
                                                   **self._attn_kwargs())
@@ -201,6 +204,12 @@ class DecoderLM:
             "kv": {n: t.new_zeros((cfg.n_layers, *t.shape)) for n, t in kv.items()},
             "index": 0,
         }
+
+    def cache_axes(self) -> dict:
+        """Logical axis names of every leaf of ``init_cache``'s tree (they
+        drive ``train_step.cache_shardings``)."""
+        kv = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+        return {"kv": {"k": kv, "v": kv}, "index": ()}
 
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor
                     ) -> tuple[torch.Tensor, dict]:

@@ -190,6 +190,12 @@ class WhisperLM:
         return {"kv": {n: t.new_zeros((nl, *t.shape)) for n, t in kv.items()},
                 "cross_k": cross, "cross_v": cross.clone(), "index": 0}
 
+    def cache_axes(self) -> dict:
+        """Logical axis names of every leaf of ``init_cache``'s tree."""
+        kv = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+        cross = ("layers", "batch", None, "kv_heads", "head_dim")
+        return {"kv": {"k": kv, "v": kv}, "cross_k": cross, "cross_v": cross, "index": ()}
+
     def prefill_cross(self, params: dict, cache: dict, frames: torch.Tensor) -> dict:
         """Run the encoder once and put each decoder layer's cross-attention
         K/V in the cache.  The cross tensors are replaced, not copied into:

@@ -326,6 +326,16 @@ class XLSTMLM:
             "index": 0,
         }
 
+    def cache_axes(self) -> dict:
+        """Logical axis names of every leaf of ``init_cache``'s tree."""
+        m = {
+            "C": ("units", "per_unit", "batch", "heads", None, None),
+            "n": ("units", "per_unit", "batch", "heads", None),
+            "m": ("units", "per_unit", "batch", "heads"),
+        }
+        s = {k: ("units", "batch", "heads", None) for k in ("c", "n", "m", "h")}
+        return {"states": {"mlstm": m, "slstm": s}, "index": ()}
+
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor
                     ) -> tuple[torch.Tensor, dict]:
         """One-token decode: tokens (b, 1) -> (logits (b, 1, padded_vocab),

@@ -34,6 +34,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import ModelOptions, resolve_device
 from repro_torch.models.xlstm import _mask_padded_vocab
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import lshard
 
 CONV_K = 4  # depthwise conv window (mamba2 default)
 CHUNK = 128  # SSD chunk length of the forward
@@ -66,6 +68,13 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, tail: torch.Tensor | None = N
     The K shifted multiply-adds of the reference, in its order (a library
     convolution would run fp32 in TF32 on the card)."""
     K = w.shape[0]
+    if shd.is_dtensor(x) and tail is None:
+        # each rank convolves its own rows and channels; the sequence stays whole
+        from torch.distributed.tensor import Replicate, Shard
+
+        px = [p if p in (Shard(0), Shard(2)) else Replicate() for p in x.placements]
+        pw = [Shard(1) if p == Shard(2) else Replicate() for p in px]
+        return ops.on_shards(_causal_conv, x.device_mesh, [x, w], [px, pw], [px, px])
     if tail is None:
         full = F.pad(x, (0, 0, K - 1, 0))
     else:
@@ -75,10 +84,22 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, tail: torch.Tensor | None = N
     return out, full[:, -(K - 1):, :]
 
 
+def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """``t`` (b, s, ...) with ``pad`` zero positions after its sequence; a
+    DTensor is padded on each rank's shard, the sequence whole."""
+    if shd.is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+
+        pl = [p if isinstance(p, Shard) and p.dim != 1 else Replicate() for p in t.placements]
+        return ops.on_shards(lambda a: _pad_seq(a, pad), t.device_mesh, [t], [pl], [pl])
+    return F.pad(t, (0,) * (2 * t.dim() - 3) + (pad,))
+
+
 def _ssd_split(p: dict, x: torch.Tensor, n_heads: int, d_in: int, d_state: int,
                conv_tail: torch.Tensor | None = None):
     cd = x.dtype
-    proj = x @ p["w_in"].to(cd)
+    # the projection's blocks over ``model`` cut through its five parts: gathered
+    proj = lshard(x @ p["w_in"].to(cd), "batch", "seq", None)
     z = proj[..., :d_in]
     xbc = proj[..., d_in: d_in + d_in + 2 * d_state]
     dt_raw = proj[..., -n_heads:]
@@ -115,13 +136,12 @@ def mamba2_fwd(params: dict, x: torch.Tensor, eps: float, chunk: int = CHUNK) ->
     xn = L.rmsnorm(params["norm"], x, eps)
     z, xc, B, C, dt, _ = _ssd_split(p, xn, H, d_in, d_state)
     A = -torch.exp(p["A_log"].float())                       # (H,) negative
-    xh = xc.reshape(b, s, H, P)
+    xh = lshard(xc.reshape(b, s, H, P), "batch", "seq", "ssm_heads", None)
     loga = dt * A                                            # (b, s, H) log decay
 
     pad = -(-s // chunk) * chunk - s
     if pad:
-        xh, B, C, dt, loga = (F.pad(t, (0,) * (2 * t.dim() - 3) + (pad,))
-                              for t in (xh, B, C, dt, loga))
+        xh, B, C, dt, loga = (_pad_seq(t, pad) for t in (xh, B, C, dt, loga))
     y, _ = ops.ssd_chunk_scan(
         xh.transpose(1, 2), B, C, dt.transpose(1, 2), loga.transpose(1, 2),
         chunk=chunk, out_dtype=torch.float32,
@@ -199,11 +219,13 @@ class ZambaLM:
 
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         # F.embedding: its CUDA backward sums a row's gradients in a fixed order
-        return F.embedding(tokens.long(), params["embed"]["tokens"].to(self.opts.cdt))
+        x = F.embedding(tokens.long(), params["embed"]["tokens"].to(self.opts.cdt))
+        return lshard(x, "batch", "seq", "embed")
 
     def _logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
-        return _mask_padded_vocab(x @ params["lm_head"].to(self.opts.cdt), self.cfg)
+        logits = _mask_padded_vocab(x @ params["lm_head"].to(self.opts.cdt), self.cfg)
+        return lshard(logits, "batch", "seq", "vocab")
 
     def _units(self, params: dict):
         """(unit index, that unit's Mamba2 layers with their global indices)."""
@@ -239,7 +261,8 @@ class ZambaLM:
                                    preserve_rng_state=False)
                 else:
                     x = self._mamba_layer(lp, x)
-            x = self._shared_attn_fwd(params["shared"], x, positions)
+            x = lshard(self._shared_attn_fwd(params["shared"], x, positions),
+                       "batch", "seq", "embed")
         return self._logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
     def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
@@ -272,6 +295,19 @@ class ZambaLM:
             "kv": {n: t.new_zeros((self.n_units, *t.shape)) for n, t in kv.items()},
             "kv_pos": torch.full((self.n_units, batch, kvl), -1, dtype=torch.int32, device=dev),
             "index": 0,
+        }
+
+    def cache_axes(self) -> dict:
+        """Logical axis names of every leaf of ``init_cache``'s tree: the
+        Mamba2 states and conv tails on one layer axis (the reference stacks
+        them on ``units, per_unit``)."""
+        kv = ("units", "batch", "kv_seq", "kv_heads", "head_dim")
+        return {
+            "S": ("layers", "batch", "ssm_heads", None, None),
+            "conv": ("layers", "batch", None, None),
+            "kv": {"k": kv, "v": kv},
+            "kv_pos": ("units", "batch", None),
+            "index": (),
         }
 
     def _shared_attn_step(self, sp: dict, x: torch.Tensor, kvc: dict, kv_pos: torch.Tensor,

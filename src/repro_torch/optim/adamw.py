@@ -8,6 +8,12 @@ is reused; the step is the same arithmetic in the same order, moments in fp32)
 and scales the gradients in place when clipping.  The step counter is a Python
 int and the learning rate a Python float (the schedules compute in numpy
 float32), so the update issues no host-device synchronisation.
+
+DTensor trees (a meshed step) take the same update: the global norm is one
+all-reduce of each rank's sums of squares over the shards it owns, the same
+value on every rank, and each leaf's arithmetic runs on the local shards in
+the moments' layout (ZeRO-1), the parameter gathered back where its own
+layout differs.
 """
 
 from __future__ import annotations
@@ -17,6 +23,9 @@ from typing import Callable, Union
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ops import is_dtensor
 
 
 def tree_leaves(tree) -> list:
@@ -53,13 +62,41 @@ class AdamWConfig:
 
 
 def init_opt_state(params) -> dict:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros(p):
+        if is_dtensor(p):
+            return torch.zeros_like(p, dtype=torch.float32)
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params), "step": 0}
 
 
+def _owned_sq(g) -> torch.Tensor:
+    """A DTensor leaf's fp32 sum of squares over its local shard where this
+    rank is the first of the ranks that hold that shard, else 0."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    if any(isinstance(p, Partial) for p in g.placements):
+        raise ValueError(f"a gradient with placements {g.placements} has no norm by shards")
+    coord = g.device_mesh.get_coordinate()
+    owner = all(c == 0 for c, p in zip(coord, g.placements) if isinstance(p, Replicate))
+    sq = g.to_local().float().square().sum()
+    return sq if owner else torch.zeros_like(sq)
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's fp32 sum of squares (0-d fp32)."""
-    return torch.stack([g.float().square().sum() for g in tree_leaves(tree)]).sum().sqrt()
+    """sqrt of the sum over leaves of each leaf's fp32 sum of squares (0-d fp32).
+    Over DTensors: the sum over every shard of the whole tree, one all-reduce,
+    a plain tensor with the same value on every rank."""
+    leaves = tree_leaves(tree)
+    dist_leaves = [g for g in leaves if is_dtensor(g)]
+    if not dist_leaves:
+        return torch.stack([g.float().square().sum() for g in leaves]).sum().sqrt()
+    from torch.distributed.tensor import DTensor, Partial
+
+    mesh = dist_leaves[0].device_mesh
+    local = torch.stack([_owned_sq(g) for g in dist_leaves]).sum()
+    total = DTensor.from_local(local, mesh, [Partial()] * mesh.ndim, run_check=False)
+    return total.full_tensor().sqrt()
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -74,6 +111,16 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
 
+def _update(p, g, m, v, lr, b1, b2, bc1, bc2, cfg: AdamWConfig) -> torch.Tensor:
+    """One leaf's AdamW step: the moments in place, the new parameter
+    returned in its dtype."""
+    g32 = g.float()
+    m.mul_(b1).add_(g32 * (1 - b1))                  # b1 m + (1 - b1) g
+    v.mul_(b2).add_(g32.square() * (1 - b2))         # b2 v + (1 - b2) g^2
+    delta = (m / bc1) / ((v / bc2).sqrt() + cfg.eps) + cfg.weight_decay * p.float()
+    return (p.float() - lr * delta).to(p.dtype)
+
+
 @torch.no_grad()
 def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
     """One AdamW step, in place: ``params`` and ``state``'s moments are
@@ -86,6 +133,7 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
     if cfg.grad_clip:
         scale = _clip_scale(gnorm, cfg.grad_clip)
         for g in flat_g:
+            g = g.to_local() if is_dtensor(g) else g
             g.copy_(g.float() * scale)
     b1, b2 = cfg.b1, cfg.b2
     # the bias corrections as the reference's float32 scalars
@@ -93,10 +141,14 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
     bc2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(step))
     for p, g, m, v in zip(tree_leaves(params), flat_g, tree_leaves(state["m"]),
                           tree_leaves(state["v"]), strict=True):
-        g32 = g.float()
-        m.mul_(b1).add_(g32 * (1 - b1))                  # b1 m + (1 - b1) g
-        v.mul_(b2).add_(g32.square() * (1 - b2))         # b2 v + (1 - b2) g^2
-        delta = (m / bc1) / ((v / bc2).sqrt() + cfg.eps) + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
+        if not is_dtensor(m):
+            p.copy_(_update(p, g, m, v, lr, b1, b2, bc1, bc2, cfg))
+            continue
+        # on this rank's shards in the moments' layout (ZeRO-1), the new
+        # shards gathered back into the parameter's layout where it differs
+        pl = m.placements
+        new = ops.on_shards(lambda *a: _update(*a, lr, b1, b2, bc1, bc2, cfg), m.device_mesh,
+                            [p, g, m, v], [pl] * 4, [pl])
+        p.to_local().copy_(new.redistribute(m.device_mesh, p.placements).to_local())
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

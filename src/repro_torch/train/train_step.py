@@ -1,13 +1,24 @@
-"""The train step: loss, gradients with microbatch accumulation, and the
-AdamW update -- the reference's ``train/train_step.py`` for one device.
+"""The train and serve steps: loss, gradients with microbatch accumulation,
+and the AdamW update -- the reference's ``train/train_step.py``.
 
 The parameters are leaf tensors with ``requires_grad``.  The gradients of
 fp32 leaves land in their ``.grad`` (autograd casts the compute-dtype
 cotangent back at each ``.to``); those of other leaves (bf16 weights) are
 summed into fp32 buffers, as the reference sums into fp32 zeros.
-``adamw_update`` changes parameters and moments in place.  The reference's
-meshed step (pjit shardings, ZeRO-1) waits for the parallelism layer,
-ROADMAP queue A item 6.
+``adamw_update`` changes parameters and moments in place.
+
+With a ``mesh`` (a :class:`~torch.distributed.device_mesh.DeviceMesh` over
+``data``/``model``, optionally ``pod``) the steps run on DTensors: the
+parameters are laid out by ``parallel.sharding.param_shardings`` (TP/EP over
+``model``, ZeRO-3 over the data dimensions), the moments by
+``opt_shardings`` (ZeRO-1), the step counter is a Python int on every rank,
+and each microbatch is sharded over the data dimensions where its first
+dimension divides them.  For each microbatch the ZeRO-3 weights are gathered
+over the data dimensions (a differentiable ``redistribute``), so the backward
+reduce-scatters every gradient into its parameter's layout.  Plain tensors
+(every rank holding the whole tree, as ``model.init`` on a common seed gives
+them) are accepted on the first call, as ``jit``'s ``in_shardings`` accept
+host arrays, and laid out; the step returns DTensors.
 """
 
 from __future__ import annotations
@@ -16,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, tree_leaves, tree_map
+from repro_torch.parallel import sharding as shd
 
 
 def batch_to_device(batch: dict, device: torch.device) -> dict:
@@ -33,7 +45,7 @@ def _leaves_without_grad(grads, path: str = "params") -> list[str]:
     return [path] if grads is None else []
 
 
-def loss_and_grads(model, params, batch: dict, microbatches: int = 1):
+def loss_and_grads(model, params, batch: dict, microbatches: int = 1, layout=None):
     """(loss, metrics, grads) with gradient accumulation over microbatches,
     as the reference's: each microbatch's gradients are summed in fp32 in
     order, then the sum and the loss are scaled by 1/microbatches; metrics are
@@ -42,7 +54,11 @@ def loss_and_grads(model, params, batch: dict, microbatches: int = 1):
     holds the sum of its microbatch gradients (its ``.grad`` is left None).
     Raises, naming the leaves, if the loss reaches a leaf with no gradient:
     every leaf of a model takes part in its loss, so a missing gradient means
-    an op returned a tensor that autograd did not record."""
+    an op returned a tensor that autograd did not record.  ``layout(params,
+    microbatch) -> (params, microbatch)``: what the loss sees of each
+    microbatch (the meshed step's gather of the ZeRO-3 weights and sharding
+    of the microbatch); None is the identity."""
+    layout = layout or (lambda p, b: (p, b))
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -56,7 +72,7 @@ def loss_and_grads(model, params, batch: dict, microbatches: int = 1):
                 p.grad = None
 
     if microbatches <= 1:
-        loss, metrics = model.loss(params, batch)
+        loss, metrics = model.loss(*layout(params, batch))
         loss.backward()
         accumulate()
         loss = loss.detach()
@@ -67,7 +83,8 @@ def loss_and_grads(model, params, batch: dict, microbatches: int = 1):
         mb = b // microbatches
         loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
         for i in range(microbatches):
-            part, metrics = model.loss(params, {k: v[i * mb: (i + 1) * mb] for k, v in batch.items()})
+            part, metrics = model.loss(*layout(params, {k: v[i * mb: (i + 1) * mb]
+                                                        for k, v in batch.items()}))
             part.backward()   # .grad += this microbatch's gradient
             accumulate()
             loss = loss + part.detach()
@@ -90,15 +107,171 @@ def loss_and_grads(model, params, batch: dict, microbatches: int = 1):
 def make_train_step(model, opt_cfg: AdamWConfig, mesh=None, microbatches: int = 1):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` on the model's device; the batch may be numpy.  Parameters and
-    moments are updated in place (the reference donates their buffers)."""
-    if mesh is not None:
-        raise NotImplementedError("a meshed train step needs the parallelism layer "
-                                  "(ROADMAP.md, queue A item 6)")
+    moments are updated in place (the reference donates their buffers).  With
+    a ``mesh``: see the module's docstring; the metrics come back as plain
+    tensors, the same on every rank, and ``train_step.state_shardings(params)``
+    gives the layouts of ``{"params", "opt"}``."""
+    if mesh is None:
+        def train_step(params, opt_state, batch):
+            batch = batch_to_device(batch, model.device)
+            loss, metrics, grads = loss_and_grads(model, params, batch, microbatches)
+            params, opt_state, opt_metrics = adamw_update(params, grads, opt_state, opt_cfg)
+            return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
+
+        return train_step
+
+    layouts: dict = {}
+
+    def state_shardings(params) -> dict:
+        key = _shapes(params)
+        if key not in layouts:
+            opt = shd.opt_shardings(params, mesh)
+            layouts[key] = {"params": shd.param_shardings(params, mesh),
+                            "opt": {"m": opt, "v": opt, "step": None}}
+        return layouts[key]
+
+    def layout(params, mbatch):
+        return gather_fsdp(params, mesh), shard_batch(mbatch, mesh)
 
     def train_step(params, opt_state, batch):
         batch = batch_to_device(batch, model.device)
-        loss, metrics, grads = loss_and_grads(model, params, batch, microbatches)
-        params, opt_state, opt_metrics = adamw_update(params, grads, opt_state, opt_cfg)
-        return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
+        batch = {k: shd.full_tensor(v) for k, v in batch.items()}
+        lay = state_shardings(params)
+        params = shd.lay_out_tree(params, lay["params"])
+        opt_state = {"m": shd.lay_out_tree(opt_state["m"], lay["opt"]["m"]),
+                     "v": shd.lay_out_tree(opt_state["v"], lay["opt"]["v"]),
+                     "step": int(opt_state["step"])}
+        with shd.activate(mesh):
+            loss, metrics, grads = loss_and_grads(model, params, batch, microbatches, layout)
+            params, opt_state, opt_metrics = adamw_update(params, grads, opt_state, opt_cfg)
+        metrics = {"loss": loss, **metrics, **opt_metrics}
+        return params, opt_state, {k: shd.full_tensor(v) for k, v in metrics.items()}
 
+    train_step.state_shardings = state_shardings
     return train_step
+
+
+def _shapes(tree) -> tuple:
+    """The shapes of a tree's tensor leaves, in order: what its layouts
+    depend on."""
+    return tuple(tuple(t.shape) for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
+
+
+def gather_fsdp(params, mesh):
+    """The parameters as the model computes with them: each DTensor leaf
+    redistributed to be replicated over the data dimensions (ZeRO-3's
+    all-gather at use; its backward reduce-scatters the gradient)."""
+    from torch.distributed.tensor import Replicate
+
+    data = [i for i, n in enumerate(mesh.mesh_dim_names) if n in ("pod", "data")]
+
+    def one(p):
+        if not shd.is_dtensor(p):
+            return p
+        pl = [Replicate() if i in data else q for i, q in enumerate(p.placements)]
+        return p.redistribute(mesh, pl) if pl != list(p.placements) else p
+
+    return tree_map(one, params)
+
+
+def batch_sharding(leaf, mesh) -> "shd.NamedSharding":
+    """A batch leaf's layout: its first dimension over the data dimensions
+    where it divides them (the rules' ``batch``), else replicated."""
+    names = ("batch",) + (None,) * (len(leaf.shape) - 1)
+    rules = shd.default_rules(mesh.mesh_dim_names)
+    return shd.NamedSharding(mesh, shd.resolve_spec(names, leaf.shape, mesh, rules))
+
+
+def shard_batch(batch: dict, mesh) -> dict:
+    return {k: shd.lay_out(v, batch_sharding(v, mesh)) for k, v in batch.items()}
+
+
+def make_serve_step(model, mesh=None):
+    """``serve_step(params, cache, tokens) -> (logits, cache)``: one-token
+    decode (the cache is updated in place, as the reference donates it).
+    With a ``mesh`` the parameters are laid out by ``param_shardings`` and the
+    cache by :func:`cache_shardings` (on the first call; ``serve_step.lay_out
+    (params, cache)`` does it ahead), the tokens replicated, the ZeRO-3
+    weights gathered for the decode; the logits come back as a DTensor."""
+    if mesh is None:
+        def serve_step(params, cache, tokens):
+            return model.decode_step(params, cache, tokens)
+
+        return serve_step
+
+    layouts: dict = {}
+
+    def lay_out(params, cache):
+        key = (_shapes(params), _shapes(cache))
+        if key not in layouts:
+            layouts[key] = (shd.param_shardings(params, mesh),
+                            cache_shardings(cache, mesh, model=model))
+        p_lay, c_lay = layouts[key]
+        return shd.lay_out_tree(params, p_lay), shd.lay_out_tree(cache, c_lay)
+
+    def serve_step(params, cache, tokens):
+        params, cache = lay_out(params, cache)
+        tokens = shd.lay_out(shd.full_tensor(tokens), shd.NamedSharding(mesh, (None,) * tokens.ndim))
+        with shd.activate(mesh):
+            return model.decode_step(gather_fsdp(params, mesh), cache, tokens)
+
+    serve_step.lay_out = lay_out
+    return serve_step
+
+
+def cache_shardings(cache, mesh, rules=None, model=None):
+    """KV caches and recurrent states: batch over the data dimensions; KV
+    heads over ``model`` when the GQA head count divides it, else the
+    sequence dimension (flash-decoding-style partial attention); SSM/mLSTM
+    heads over ``model``.  Logical names come from the model's
+    ``cache_axes()`` (its exact layout); a foreign cache tree falls back to
+    the reference's rank-based rule.  Leaves that are not tensors (the
+    index) get None."""
+    sizes = shd.mesh_shape(mesh)
+    rules = rules or shd.default_rules(tuple(sizes))
+    model_size = sizes.get("model", 1)
+
+    def resolve_names(names, shape):
+        local_rules = dict(rules)
+        names = list(names)
+        if "kv_heads" in names:
+            hd_idx = names.index("kv_heads")
+            if shape[hd_idx] % model_size == 0:
+                local_rules["kv_seq"] = ()
+            else:
+                names[hd_idx] = None
+                local_rules["kv_seq"] = ("model",)
+        for name in ("kv_seq", "layers", "units", "per_unit"):
+            local_rules.setdefault(name, ())
+        return shd.NamedSharding(mesh, shd.resolve_spec(names, shape, mesh, local_rules))
+
+    def shape_of(leaf):
+        return tuple(leaf.shape) if hasattr(leaf, "shape") else None
+
+    if model is not None and hasattr(model, "cache_axes"):
+        def walk(axes, leaf):
+            if isinstance(leaf, dict):
+                return {k: walk(axes[k], v) for k, v in leaf.items()}
+            shape = shape_of(leaf)
+            if not shape:
+                return None if shape is None else shd.NamedSharding(mesh, ())
+            return resolve_names(axes, shape)
+
+        return walk(model.cache_axes(), cache)
+
+    def f(path, leaf):
+        shape = shape_of(leaf)
+        if not shape:
+            return None if shape is None else shd.NamedSharding(mesh, ())
+        names: list = [None] * len(shape)
+        ndim = len(shape)
+        if ("kv" in path or "cross" in path) and ndim >= 4:
+            names[-4] = "batch"
+            names[-2] = "kv_heads"
+            names[-3] = "kv_seq"
+        elif path.endswith("S") or "states" in path:
+            if ndim >= 4:
+                names[-3] = "ssm_heads"
+        return resolve_names(names, shape)
+
+    return shd.map_with_path(f, cache)

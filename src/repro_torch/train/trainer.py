@@ -1,11 +1,14 @@
 """Fault-tolerant training loop: checkpoint-restart, auto-resume after
 simulated node failures, prefetched data -- the reference's
-``train/trainer.py`` for one device.
+``train/trainer.py``.
 
 State lives in (checkpoint, step) and data is a pure function of step, so
 ``Trainer.run`` can be killed at any point and re-invoked to continue
 bit-exactly.  Batches are made in numpy by the prefetch thread and moved to
-the model's device by the train step.
+the model's device by the train step.  A meshed ``step_fn``
+(``make_train_step(..., mesh=...)``) runs on every rank of the process group
+with the same data; it lays the state out on its first call and the
+checkpoint restores it laid out (``step_fn.state_shardings``).
 """
 
 from __future__ import annotations
@@ -95,7 +98,12 @@ class Trainer:
         # model.init allocates nothing and draws nothing from its generator.
         with FakeTensorMode():
             params, opt_state = self._init_state()
-        state = self.ckpt.restore({"params": params, "opt": opt_state}, step=latest)
+        template = {"params": params, "opt": opt_state}
+        layouts = getattr(self.step_fn, "state_shardings", None)
+        if layouts is None:
+            state = self.ckpt.restore(template, step=latest)
+        else:   # a meshed step: the state comes back laid out as the step holds it
+            state = self.ckpt.restore(template, step=latest, shardings=layouts(params))
         return state["params"], state["opt"], latest
 
     # -------------------------------------------------------------------- run
