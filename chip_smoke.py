@@ -129,6 +129,20 @@ raises and the script exits non-zero:
 27. ``whisper_train_parity`` -- ``train_parity`` for whisper-tiny at full depth.
 28. ``whisper_train`` -- whisper-tiny trained: 8 steps of 4 x (1500 frames +
    448 tokens), remat of each layer.
+29. ``save_tp`` (after ``train``) -- ``train``'s minicpm-2b recipe, 3 steps
+   under ``remat_policy="save_tp_outputs"`` and 3 under ``"full"`` from the same
+   init: equal losses, the exact launches of every step, peak memory and step
+   ms of both.
+30. ``roofline`` (after ``whisper_train``) -- the port's ``Roofline`` on H100
+   constants (``launch/roofline.py``) for ``train``'s step, glm4-9b's
+   1024-token prefill and 8-lane decode (timed after ``serve``) and
+   ``zamba``'s 32k forward: FLOPs from ``FlopCounterMode`` on meta tensors,
+   bytes from ``analytic_hbm_bytes``; measured ms against ``bound_s``.
+31. ``dryrun`` -- ``python -m repro_torch.launch.dryrun`` on the card machine's
+   host for whisper-tiny x decode_32k, minicpm-2b x train_4k and
+   qwen3-moe-235b-a22b x decode_32k on the single-pod mesh (256 fake ranks,
+   meta tensors), three processes started after ``mesh_host`` and collected
+   here: status, chips, peak bytes per device, roofline terms.
 
 The parallelism layer (``repro_torch.parallel``, the meshed steps of
 ``train/train_step.py``) runs in three phases.  One card holds one rank (NCCL
@@ -140,12 +154,16 @@ and its multi-rank logic on the host:
   (``tests/torch_parallel_world.py``, the reduced models' weights made by the
   port from a seed) on this machine's torch: the meshed train step on a (2, 2)
   mesh for a dense, a MoE and a hybrid model against the unmeshed step, the
-  seq-sharded decode, the pipeline, the compressed mean.
+  seq-sharded decode, zamba2's, the xLSTM's and Whisper's meshed decodes, the
+  pipeline, the compressed mean.
 - ``mesh_serve`` (after ``serve``) -- glm4-9b at full width and the serve
   phase's depth: 16 greedy dense decode steps at 8 lanes through
   ``make_serve_step`` with ``cache_shardings`` on a world of one against the
   unmeshed ``decode_step``: the same tokens, the logits within ``parity``'s
-  bf16 rule, the same launches.
+  bf16 rule, the same launches; ``mesh_serve_zamba`` (after ``zamba``) and
+  ``mesh_serve_xlstm`` (after ``xlstm``) the same for zamba2-2.7b and
+  xlstm-350m at full width and depth (their ring caches and recurrent states
+  written back through each rank's shard).
 - ``mesh_train`` (after ``trainer``) -- minicpm-2b at full width and depth,
   ``train``'s recipe: 3 steps of the meshed ``make_train_step`` on a world of
   one, then 3 unmeshed from the same init; the losses within 1e-4, every leaf
@@ -175,7 +193,8 @@ dispatch, expert GEMMs and combine apart).
 Then the ``kernels`` summary line (the three forwards and the three
 backwards: launches over every main path -- serve, zamba, train,
 zamba_train, moe_serve, moe_train, vlm_train, xlstm, xlstm_train, whisper,
-whisper_train, mesh_train, mesh_serve -- error, times and roofline
+whisper_train, mesh_train, mesh_serve, mesh_serve_zamba, mesh_serve_xlstm,
+save_tp -- error, times and roofline
 bound per kernel), the host's CPU model, the card as ``nvidia-smi`` names it,
 and the verdict as the last line.  There is no CPU path: without a CUDA device the
 script exits non-zero before printing anything.
@@ -184,6 +203,7 @@ script exits non-zero before printing anything.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -224,6 +244,7 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as _fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as _rms  # noqa: E402
 from repro_torch.kernels import ssd_chunk as _ssd  # noqa: E402
+from repro_torch.launch import roofline as rf  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.convert import to_jax_layout  # noqa: E402
 from repro_torch.launch.mesh import arnold_rank_grid, grid_group_spread, process_group  # noqa: E402
@@ -254,10 +275,11 @@ from repro_torch.parallel import sharding as shd  # noqa: E402
 from repro_torch.parallel.pipeline import pp_boundary_bytes  # noqa: E402
 from repro_torch.train.train_step import batch_to_device, make_serve_step  # noqa: E402
 
-# Published peaks of one H100 SXM (dense, no sparsity); bounds are stated
-# against these whatever the card's power limit, which is printed beside them.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# Published peaks of one H100 SXM (dense, no sparsity; launch/roofline.py,
+# from NVIDIA's datasheet); bounds are stated against these whatever the
+# card's power limit, which is printed beside them.
+HBM_BYTES_PER_S = rf.HBM_BW
+PEAK_FLOPS = {torch.bfloat16: rf.PEAK_FLOPS, torch.float32: rf.PEAK_FLOPS_FP32}
 L2_BYTES = 50 * 2**20
 
 # |kernel - plain| <= TOL + TOL * |plain| elementwise (the reference's own test
@@ -301,7 +323,13 @@ def compare(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     return err
 
 
+#: every phase's line as emitted, by phase (the roofline phase reads the times)
+REPORTS: dict[str, dict] = {}
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj:
+        REPORTS[obj["phase"]] = obj
     print(json.dumps(obj), flush=True)
 
 
@@ -2315,13 +2343,16 @@ def mesh_train_phase(cfg, dev: torch.device, steps: int = MESH_TRAIN_STEPS) -> d
 
 
 @torch.no_grad()
-def mesh_serve_phase(cfg, dev: torch.device, n_layers: int) -> dict:
-    """glm4-9b at full width and ``n_layers`` layers, bf16: MESH_SERVE_STEPS
-    greedy dense decode steps at MESH_SERVE_LANES lanes through the unmeshed
-    ``decode_step``, then through ``make_serve_step`` on a world of one with
-    the cache laid out by ``cache_shardings`` (the same weights, wrapped).
-    Rules: the same tokens at every step, the logits within the ``parity``
-    phase's bf16 rule (2e-2 of the largest |logit|), the same launches."""
+def mesh_serve_phase(cfg, dev: torch.device, n_layers: int, phase: str = "mesh_serve") -> dict:
+    """``cfg`` (glm4-9b; zamba2-2.7b for ``mesh_serve_zamba``, xlstm-350m for
+    ``mesh_serve_xlstm``) at full width and ``n_layers`` layers, bf16:
+    MESH_SERVE_STEPS greedy decode steps at MESH_SERVE_LANES lanes through the
+    unmeshed ``decode_step``, then through ``make_serve_step`` on a world of
+    one with the cache laid out by ``cache_shardings`` (the same weights,
+    wrapped; zamba2's ring cache and Mamba2 states, the xLSTM's states written
+    back through each rank's shard).  Rules: the same tokens at every step,
+    the logits within the ``parity`` phase's bf16 rule (2e-2 of the largest
+    |logit|), the same launches."""
     cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = build_model(cfg, ModelOptions(), dev)
     params = model.init(torch.Generator(device=dev).manual_seed(5))
@@ -2336,7 +2367,8 @@ def mesh_serve_phase(cfg, dev: torch.device, n_layers: int) -> dict:
         t0 = time.perf_counter()
         for _ in range(MESH_SERVE_STEPS):
             logits, cache = step_fn(p, cache, tokens)
-            logits = shd.full_tensor(logits)[:, -1].float()
+            # the real vocabulary: padding entries hold -1e30
+            logits = shd.full_tensor(logits)[:, -1, :cfg.vocab].float()
             tokens = logits.argmax(-1, keepdim=True).to(torch.int32)
             outs.append(logits)
             chosen.append(tokens)
@@ -2350,20 +2382,23 @@ def mesh_serve_phase(cfg, dev: torch.device, n_layers: int) -> dict:
         mesh = world_of_one_mesh()
         step = make_serve_step(model, mesh)
         p, cache = step.lay_out(params, model.init_cache(MESH_SERVE_LANES, MESH_SERVE_CACHE))
-        specs = {k: shd.from_placements(t.placements, mesh, t.ndim) for k, t in cache["kv"].items()}
+        specs = {}
+        shd.map_with_path(lambda path, t: specs.__setitem__(
+            path, shd.from_placements(t.placements, mesh, t.ndim)) if shd.is_dtensor(t) else None,
+            cache)
         tok_m, log_m, counts_m, ms_m = run(step, p, cache)
         del p, cache
     diff = (log_m - log_u).abs().max().item()
     scale = log_u.abs().max().item()
     same = torch.equal(tok_m, tok_u)
-    report = {"phase": "mesh_serve", "model": cfg.name, "n_layers": n_layers,
+    report = {"phase": phase, "model": cfg.name, "n_layers": n_layers,
               "lanes": MESH_SERVE_LANES, "decode_steps": MESH_SERVE_STEPS,
               "cache_len": MESH_SERVE_CACHE, "world": 1, "cache_specs": specs,
               "tokens_identical": same, "max_abs_logit_diff": diff, "tol": 2e-2 * scale,
               "launches": counts_m, "ms_per_step_meshed": ms_m, "ms_per_step_unmeshed": ms_u}
     if not (same and diff <= 2e-2 * scale and counts_m == counts_u and counts_m["rmsnorm"] > 0
             and torch.isfinite(log_m).all().item()):
-        raise AssertionError(f"mesh_serve: {report} (unmeshed launches {counts_u})")
+        raise AssertionError(f"{phase}: {report} (unmeshed launches {counts_u})")
     emit(report)
     return counts_m
 
@@ -2382,7 +2417,8 @@ def host_world_inputs() -> dict:
                 out[f"{prefix}|{path}{k}"] = v
 
     out = {}
-    configs = [(a, get_config(a).reduced()) for a in world.TRAIN_ARCHS]
+    configs = [(a, get_config(a).reduced())
+               for a in dict.fromkeys(world.TRAIN_ARCHS + world.DECODE_ARCHS)]
     for prefix, cfg in configs + [("decode", world.decode_config())]:
         model = build_model(cfg, ModelOptions("float32", "float32", remat=False), "cpu")
         flat(prefix, to_jax_layout(model.init(torch.Generator().manual_seed(0)), cfg), out)
@@ -2390,6 +2426,9 @@ def host_world_inputs() -> dict:
     out["pp_W"] = (rng.standard_normal((4, 16, 16)) * 0.3).astype(np.float32)
     out["pp_x"] = rng.standard_normal((8, 2, 16)).astype(np.float32)
     out["cc_x"] = rng.standard_normal((4, 64)).astype(np.float32)
+    out["frames"] = rng.standard_normal(
+        (world.DECODE_B, world.DECODE_FRAMES, get_config("whisper-tiny").reduced().d_model)
+    ).astype(np.float32)
     return out
 
 
@@ -2403,13 +2442,17 @@ def mesh_host_phase(device_type: str = "cpu") -> None:
     zamba2-2.7b (3 fp32 steps against the unmeshed step, 1e-4; every leaf a
     local shard of its spec's shape), the seq-sharded decode (1e-4 against
     the unsharded decode, the seq-sharded branch taken; with 2 KV heads the
-    head-sharded decode), the GPipe pipeline
+    head-sharded decode), zamba2's, the xLSTM's and Whisper's decodes (1e-4
+    against their unmeshed decodes, every cache leaf in its
+    ``cache_shardings`` layout after the steps), the GPipe pipeline
     (S = 4, m = 8: forward 1e-5 and gradient 1e-4 against the stages applied
     in turn, Eq. 13's bytes across a boundary), ``compressed_psum_mean``
     (fp16 1e-2, int8 5e-2 of the exact mean) and ``make_dp_grad_fn``.  The
     ranks are processes of their own; their process groups end with them."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import pickle
+
+    import torch_parallel_world as world
 
     with tempfile.TemporaryDirectory() as tmp:
         inputs = host_world_inputs()
@@ -2446,6 +2489,13 @@ def mesh_host_phase(device_type: str = "cpu") -> None:
                        "seq_sharded": dec["seq_sharded"], "cache_spec": dec["cache_spec"]}
         if not (dec["seq_sharded"] == seq and report[key]["max_abs_logit_diff"] <= 1e-4):
             failures.append((key, report[key]))
+    for arch in world.DECODE_ARCHS:   # zamba2's, the xLSTM's and Whisper's meshed decodes
+        dec = got[f"decode|{arch}"]
+        diff = float(np.abs(dec["mesh"] - dec["plain"]).max())
+        report[f"decode|{arch}"] = {"max_abs_logit_diff": diff,
+                                    "wrong_layouts": dec["wrong_layouts"]}
+        if not (diff <= 1e-4 and not dec["wrong_layouts"]):
+            failures.append((arch, report[f"decode|{arch}"]))
     pp = got["pipeline"]
     W = torch.from_numpy(inputs["pp_W"]).requires_grad_(True)
     y = torch.from_numpy(inputs["pp_x"])
@@ -2468,6 +2518,284 @@ def mesh_host_phase(device_type: str = "cpu") -> None:
         failures.append(("collectives", report["collectives"]))
     if failures:
         raise AssertionError(f"{report['phase']}: {failures}")
+    emit(report)
+
+
+# ------------------------------------------- remat policy, roofline, dry run
+SAVE_TP_STEPS = 3
+
+
+def save_tp_launches(cfg) -> dict[str, int]:
+    """Launches of one ``save_tp_outputs`` train step: ``train_launches(cfg,
+    remat=True)``.  The policy saves each layer's attention and MLP outputs
+    (products and, on a mesh, their all-reduce), while every kernel's output
+    is still needed by a backward -- both norms' by the projections' weight
+    gradients, flash attention's out and lse by its own backward and by wo's
+    weight gradient -- so the recompute launches every kernel it launched
+    under ``"full"``: no recompute of a kernel is saved."""
+    return train_launches(cfg, remat=True)
+
+
+def save_tp_phase(cfg, dev: torch.device, steps: int = SAVE_TP_STEPS) -> dict:
+    """minicpm-2b, ``train``'s recipe (40 layers, 4 x 1024 tokens, bf16 on fp32
+    masters, remat): ``steps`` steps under ``remat_policy="save_tp_outputs"``,
+    then ``steps`` under ``"full"`` from the same init, each run's state freed
+    before the next.  Rules: the losses equal (the kernels are
+    deterministic and the recompute replays the same ops: bit for bit), the
+    launches of every step ``save_tp_launches``.  Reports the median step ms
+    and the peak memory of both, and what one more forward leaves held for its
+    backward (the saved outputs: 2 x 40 x 4096 x 2304 x 2 B = 1.51 GB more
+    predicted).  Returns the save_tp run's launches."""
+    data = train_data(cfg)
+    batches = [data.batch(i) for i in range(steps)]
+    expected = save_tp_launches(cfg)
+    opt = AdamWConfig(lr=get_schedule(cfg.lr_schedule, TRAIN_LR, 2, steps))
+    report = {"phase": "save_tp", "model": cfg.name, "n_layers": cfg.n_layers,
+              "batch": [TRAIN_BATCH, TRAIN_SEQ], "steps": steps, "launches_per_step": expected,
+              "predicted_extra_gb": 2 * cfg.n_layers * TRAIN_BATCH * TRAIN_SEQ * cfg.d_model * 2 / 1e9}
+    totals = dict.fromkeys(expected, 0)
+    for policy in ("save_tp_outputs", "full"):
+        model = build_model(cfg, ModelOptions("float32", "bfloat16", remat=True,
+                                              remat_policy=policy), dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        opt_state = init_opt_state(params)
+        step_fn = make_train_step(model, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for i in range(steps):
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, metrics = step_fn(params, opt_state, batches[i])
+            losses.append(metrics["loss"].item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            counts = ops.launch_counts()
+            if counts != expected:
+                raise AssertionError(f"save_tp {policy} step {i + 1}: launches {counts}, "
+                                     f"expected {expected}")
+            if policy == "save_tp_outputs":
+                totals = {k: totals[k] + counts[k] for k in totals}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # a step's peak lies where the gradients and AdamW's temporaries live,
+        # after the saved activations are freed: what one more forward leaves
+        # held for its backward shows them
+        held = torch.cuda.memory_allocated()
+        graph = model.loss(params, batch_to_device(batches[0], dev))   # loss and metrics
+        torch.cuda.synchronize()
+        report[policy] = {"losses": losses, "step_ms": ms,
+                          "median_step_ms_after_first": sorted(ms[1:])[(steps - 1) // 2],
+                          "peak_device_memory_gb": peak_gb,
+                          "held_for_backward_gb": (torch.cuda.memory_allocated() - held) / 1e9}
+        del model, params, opt_state, step_fn, metrics, graph
+        gc.collect()
+        torch.cuda.empty_cache()
+    save, full = report["save_tp_outputs"], report["full"]
+    report["losses_bit_identical"] = save["losses"] == full["losses"]
+    report["extra_peak_gb"] = save["peak_device_memory_gb"] - full["peak_device_memory_gb"]
+    report["extra_held_for_backward_gb"] = (save["held_for_backward_gb"]
+                                            - full["held_for_backward_gb"])
+    if not (report["losses_bit_identical"] and all(math.isfinite(x) for x in save["losses"])):
+        raise AssertionError(f"save_tp: losses {save['losses']} under save_tp_outputs against "
+                             f"{full['losses']} under full")
+    emit(report)
+    return totals
+
+
+@torch.no_grad()
+def time_glm4_prefill_decode(model, params, dev: torch.device, lanes: int = 8,
+                             prefill: int = 1024, cached: int = 512, cache_len: int = 1024,
+                             repeats: int = 5) -> dict:
+    """glm4-9b's (``serve``'s model's) median ms of a ``prefill``-token forward
+    at batch 1 and of a dense decode step at ``lanes`` lanes with ``cached``
+    tokens in a ``cache_len`` cache, after a warm-up of each: the times the
+    ``roofline`` phase holds to their bounds."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    tokens = torch.randint(0, model.cfg.vocab, (1, prefill), device=dev, generator=gen)
+    step_tokens = torch.randint(0, model.cfg.vocab, (lanes, 1), device=dev, generator=gen,
+                                dtype=torch.int32)
+    cache = model.init_cache(lanes, cache_len)
+
+    def median_ms(fn) -> float:
+        fn()
+        times = []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[repeats // 2]
+
+    def decode():
+        cache["index"] = cached
+        model.decode_step(params, cache, step_tokens)
+
+    return {"prefill_ms": median_ms(lambda: model.forward(params, {"tokens": tokens})),
+            "decode_ms": median_ms(decode), "lanes": lanes, "prefill_tokens": prefill,
+            "cached": cached, "cache_len": cache_len}
+
+
+def meta_flops(run) -> int:
+    """``FlopCounterMode``'s count of ``run()`` (on meta tensors)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with counter:
+        run()
+    return counter.get_total_flops()
+
+
+def roofline_phase(mcfg, cfg, zcfg, glm4_times: dict) -> None:
+    """The port's ``Roofline`` (H100 constants, one chip) on the paths the
+    smoke times: ``train``'s minicpm-2b step (4 x 1024 tokens, remat, bf16 on
+    fp32 masters), glm4-9b's 1024-token prefill and 8-lane decode step
+    (``time_glm4_prefill_decode``, after ``serve``) and ``zamba``'s 32k
+    forward.  FLOPs from ``FlopCounterMode`` over the same call on meta
+    tensors (the plain versions there: attention's full s x s products, so
+    above the causal kernels' work; zamba2's at no unit and one, extended
+    over its nine identical units), bytes from ``analytic_hbm_bytes`` with
+    ``attn_impl="flash"`` (the decode's cache read once).  Prints each path's
+    measured ms, ``bound_s``, ``dominant`` and measured / bound beside the
+    phase's own ``model_tflops`` (which counts attention; not replaced).
+    Reporting for the benchmark to come, not a limit."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import input_specs
+
+    meta = torch.device("meta")
+    paths = {}
+    t0 = time.perf_counter()
+
+    # minicpm-2b's train step
+    spec = ShapeSpec("train_4x1024", TRAIN_SEQ, TRAIN_BATCH, "train")
+    model = build_model(mcfg, ModelOptions("float32", "bfloat16", remat=True), meta)
+    params = model.init()
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_LR))
+    flops = meta_flops(lambda: step(params, init_opt_state(params), input_specs(mcfg, spec)))
+    train = REPORTS["train"]
+    paths["train"] = (mcfg, spec, flops, train["median_step_ms_after_first"], 0.0,
+                      train["model_tflops"])
+    # glm4-9b's prefill and decode step
+    model = build_model(cfg, ModelOptions(), meta)
+    params = model.init()
+    spec = ShapeSpec("prefill_1024", glm4_times["prefill_tokens"], 1, "prefill")
+    with torch.no_grad():
+        flops = meta_flops(lambda: model.forward(params, input_specs(cfg, spec)))
+    paths["prefill"] = (cfg, spec, flops, glm4_times["prefill_ms"], 0.0, None)
+    spec = ShapeSpec("decode_8x1024", glm4_times["cache_len"], glm4_times["lanes"], "decode")
+    cache = model.init_cache(glm4_times["lanes"], glm4_times["cache_len"])
+    cache["index"] = glm4_times["cached"]
+    with torch.no_grad():
+        flops = meta_flops(lambda: model.decode_step(
+            params, cache, torch.zeros((glm4_times["lanes"], 1), dtype=torch.int32, device=meta)))
+    paths["decode"] = (cfg, spec, flops, glm4_times["decode_ms"], float(rf.tensor_bytes(cache)),
+                       None)
+    # zamba2-2.7b's 32k forward, counted without its units and with one (the
+    # plain SSD scan on meta takes seconds a layer) and extended over the
+    # identical units, as the dry run extends its counts
+    spec = ShapeSpec("prefill_32k_b1", ZAMBA_SEQ, 1, "prefill")
+    per_depth = {}
+    for n in (0, zcfg.attn_every):
+        c = dataclasses.replace(zcfg, n_layers=n)
+        model = build_model(c, ModelOptions(), meta)
+        params = model.init()
+        with torch.no_grad():
+            per_depth[n] = meta_flops(lambda: model.forward(params, input_specs(c, spec)))
+    flops = per_depth[0] + (per_depth[zcfg.attn_every] - per_depth[0]) * (
+        zcfg.n_layers // zcfg.attn_every)
+    paths["zamba_forward"] = (zcfg, spec, flops, REPORTS["zamba"]["forward"]["wall_s"] * 1e3,
+                              0.0, None)
+
+    report = {"phase": "roofline", "chips": 1, "peak_flops": rf.PEAK_FLOPS, "hbm_bw": rf.HBM_BW,
+              "count_s": time.perf_counter() - t0}
+    for name, (c, spec, flops, ms, cache_bytes, model_tflops) in paths.items():
+        rl = rf.Roofline(arch=c.name, shape=spec.name, mesh="one-chip", chips=1,
+                         hlo_flops=float(flops), hlo_bytes=0.0, collective_bytes=0.0,
+                         collectives={}, model_flops=rf.model_flops_for(c, spec),
+                         analytic_bytes=rf.analytic_hbm_bytes(
+                             c, spec, attn_impl="flash", remat=True, kv_cache_bytes=cache_bytes))
+        report[name] = {"model": c.name, "shape": dataclasses.asdict(spec), "measured_ms": ms,
+                        "counted_flops": flops, "analytic_bytes": rl.analytic_bytes,
+                        "compute_s": rl.compute_s, "memory_s": rl.memory_s,
+                        "bound_s": rl.bound_s, "dominant": rl.dominant,
+                        "measured_over_bound": ms / 1e3 / rl.bound_s,
+                        "model_tflops": (model_tflops if model_tflops is not None
+                                         else rl.model_flops / ms / 1e9)}
+        if not (math.isfinite(ms) and ms > 0 and rl.bound_s > 0):
+            raise AssertionError(f"roofline {name}: {report[name]}")
+    emit(report)
+
+
+#: the dry run's cells on the card machine's host: the reference test's cell,
+#: the train step this smoke runs, and a MoE; run after the card's phases
+DRYRUN_CELLS = (("whisper-tiny", "decode_32k"), ("minicpm-2b", "train_4k"),
+                ("qwen3-moe-235b-a22b", "decode_32k"))
+
+
+def start_dryrun() -> dict:
+    """``python -m repro_torch.launch.dryrun`` for each of DRYRUN_CELLS on the
+    single-pod mesh, each in a process of its own (a ``fake`` world of 256
+    ranks cannot share a process with NCCL), all at once, no card visible;
+    ``dryrun_phase`` collects them.  Started after the card's phases, so that
+    no host-bound phase shares its cores with them."""
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"), "CUDA_VISIBLE_DEVICES": ""}
+    procs = {}
+    atexit.register(_stop, procs)   # a phase that fails before dryrun_phase leaves none running
+    for arch, shape in DRYRUN_CELLS:
+        cell_dir = os.path.join(out, f"{arch}_{shape}")
+        procs[(arch, shape)] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+             "--mesh", "single", "--out", cell_dir], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return {"dir": out, "procs": procs, "t0": time.perf_counter()}
+
+
+def _stop(procs: dict) -> None:
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def dryrun_phase(started: dict) -> None:
+    """Waits for ``start_dryrun``'s processes and prints each record's status,
+    chips, peak bytes per device and roofline terms.  Rules: every process
+    returns 0, every record ``ok`` on 256 chips with a roofline whose
+    collective bytes are positive and a positive peak, whisper-tiny's decode
+    cell's under the card's 80 GiB (the reference test's cell; what
+    ``MemTracker`` reports depends on the torch release: PERF.md, PR 26)."""
+    import shutil
+
+    report = {"phase": "dryrun", "mesh": "single", "cells": {}}
+    failures = []
+    try:
+        for (arch, shape), proc in started["procs"].items():
+            out, _ = proc.communicate(timeout=600)
+            key = f"{arch} x {shape}"
+            if proc.returncode != 0:
+                failures.append((key, proc.returncode, out[-2000:]))
+                continue
+            with open(os.path.join(started["dir"], f"{arch}_{shape}", "dryrun.jsonl")) as f:
+                rec = json.loads(f.readline())
+            rl = rec.get("roofline", {})
+            report["cells"][key] = {
+                "status": rec["status"], "chips": rec.get("chips"), "trace_s": rec.get("trace_s"),
+                "peak_bytes_per_device": rec.get("memory", {}).get("peak_bytes_per_device"),
+                **{k: rl.get(k) for k in ("hlo_flops", "collective_bytes", "collectives",
+                                          "compute_s", "memory_s", "collective_s", "dominant",
+                                          "useful_ratio")}}
+            cell = report["cells"][key]
+            fits = arch != "whisper-tiny" or cell["peak_bytes_per_device"] < 80 * 2**30
+            if not (cell["status"] == "ok" and cell["chips"] == 256 and fits
+                    and (cell["collective_bytes"] or 0) > 0 and cell["peak_bytes_per_device"] > 0):
+                failures.append((key, cell))
+    finally:
+        _stop(started["procs"])
+        shutil.rmtree(started["dir"], ignore_errors=True)
+    report["wall_s"] = time.perf_counter() - started["t0"]
+    if failures:
+        raise AssertionError(f"dryrun: {failures}")
     emit(report)
 
 
@@ -3127,6 +3455,7 @@ def main() -> None:
     serve_counts, model, params = serve_phase(cfg, dev, args.layers or cfg.n_layers)
     if args.profile:
         profile_phase(model, params, dev)
+    glm4_times = time_glm4_prefill_decode(model, params, dev)
     del model, params
     torch.cuda.empty_cache()
     mesh_serve_counts = mesh_serve_phase(cfg, dev, args.layers or cfg.n_layers)
@@ -3137,6 +3466,8 @@ def main() -> None:
         profile_zamba_phase(model, params, dev)
     del model, params
     torch.cuda.empty_cache()
+    mesh_zamba_counts = mesh_serve_phase(zcfg, dev, zcfg.n_layers, "mesh_serve_zamba")
+    torch.cuda.empty_cache()
     train_parity_phase(mcfg, dev)
     torch.cuda.empty_cache()
     if args.profile:
@@ -3146,6 +3477,8 @@ def main() -> None:
     if args.profile:
         profile_train_phase(*train_state)
     del train_state
+    torch.cuda.empty_cache()
+    save_tp_counts = save_tp_phase(mcfg, dev)
     torch.cuda.empty_cache()
     trainer_phase(mcfg, dev)
     torch.cuda.empty_cache()
@@ -3189,6 +3522,8 @@ def main() -> None:
         profile_recurrent_phase(model, params, dev, "profile_xlstm")
     del model, params
     torch.cuda.empty_cache()
+    mesh_xlstm_counts = mesh_serve_phase(xcfg, dev, xcfg.n_layers, "mesh_serve_xlstm")
+    torch.cuda.empty_cache()
     print(f"NOTE: {xcfg.name}'s training sequence cut from train_4k's 4096 to "
           f"{XLSTM_TRAIN_SEQ} tokens (its recurrences run a step at a time on the host); "
           "widths and depth unchanged", flush=True)
@@ -3214,16 +3549,20 @@ def main() -> None:
         profile_train_phase(*train_state, phase="profile_whisper_train")
     del train_state
     torch.cuda.empty_cache()
+    dry = start_dryrun()   # host processes, beside the roofline phase's counting on meta
+    roofline_phase(mcfg, cfg, zcfg, glm4_times)
+    dryrun_phase(dry)
     # every kernel ran on a main path: the three forwards on zamba2's, rmsnorm
     # and flash attention on glm4's and qwen3-moe's serving and on every
     # training, their backwards on every training, the SSD scan's forward and
     # backward on zamba2's training; rmsnorm and its backward on the xLSTM's
     # paths, both with flash attention and its backward on Whisper's (its
     # serving's flash in prefill_cross)
-    trained = (train_counts, moe_train_counts, vlm_train_counts, mesh_train_counts)
+    trained = (train_counts, moe_train_counts, vlm_train_counts, mesh_train_counts, save_tp_counts)
     if min(zamba_counts[k] for k in ("rmsnorm", "flash_attention", "ssd_chunk_scan")) <= 0 or \
             min(c[k] for c in (serve_counts, moe_serve_counts)
-                for k in ("rmsnorm", "flash_attention")) <= 0 or mesh_serve_counts["rmsnorm"] <= 0 or \
+                for k in ("rmsnorm", "flash_attention")) <= 0 or \
+            min(c["rmsnorm"] for c in (mesh_serve_counts, mesh_zamba_counts, mesh_xlstm_counts)) <= 0 or \
             min(c[k] for c in trained for k in ("rmsnorm", "flash_attention", "rmsnorm_bwd",
                                                 "flash_attention_bwd")) <= 0 or \
             min(zamba_train_counts.values()) <= 0 or \
@@ -3238,10 +3577,13 @@ def main() -> None:
                              f"moe_train {moe_train_counts}, vlm_train {vlm_train_counts}, "
                              f"xlstm {xlstm_counts}, xlstm_train {xlstm_train_counts}, "
                              f"whisper {whisper_counts}, whisper_train {whisper_train_counts}, "
-                             f"mesh_train {mesh_train_counts}, mesh_serve {mesh_serve_counts}")
+                             f"mesh_train {mesh_train_counts}, mesh_serve {mesh_serve_counts}, "
+                             f"mesh_serve_zamba {mesh_zamba_counts}, mesh_serve_xlstm "
+                             f"{mesh_xlstm_counts}, save_tp {save_tp_counts}")
     paths = (serve_counts, zamba_counts, train_counts, zamba_train_counts, moe_serve_counts,
              moe_train_counts, vlm_train_counts, xlstm_counts, xlstm_train_counts,
-             whisper_counts, whisper_train_counts, mesh_train_counts, mesh_serve_counts)
+             whisper_counts, whisper_train_counts, mesh_train_counts, mesh_serve_counts,
+             mesh_zamba_counts, mesh_xlstm_counts, save_tp_counts)
 
     def summary(name: str, source: str, replaces: str) -> dict:
         case = cases[name]

@@ -153,13 +153,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ref.flash_attention_ref(q, k, v, causal)
 
 
-def heads_on_shards(fn, q, k, v, head_dim: int):
-    """``fn(q, k, v) -> out`` (attention, ``out`` in q's layout) on the local
-    shards of DTensors: batch (dim 0) and heads (``head_dim``) may stay
-    sharded, the rest is replicated.  Where the query heads are sharded over
-    mesh dimensions whose size does not divide the KV heads, K/V stay
+def heads_on_shards(fn, q, k, v, head_dim: int, extra: tuple = ()):
+    """``fn(q, k, v, *extra) -> out`` (attention, ``out`` in q's layout) on
+    the local shards of DTensors: batch (dim 0) and heads (``head_dim``) may
+    stay sharded, the rest is replicated.  Where the query heads are sharded
+    over mesh dimensions whose size does not divide the KV heads, K/V stay
     replicated there and each rank reads the KV head of each of its query
-    heads (the group map of GQA)."""
+    heads (the group map of GQA).  ``extra`` (a per-lane mask) is laid out
+    with q's batch sharding and replicated elsewhere."""
     from torch.distributed.tensor import Replicate, Shard
 
     mesh = q.device_mesh
@@ -170,19 +171,21 @@ def heads_on_shards(fn, q, k, v, head_dim: int):
         n_split *= mesh.size(i)
     kv_split = k.shape[head_dim] % n_split == 0
     pkv = [Replicate() if p == Shard(head_dim) and not kv_split else p for p in pq]
+    args = [q, k, v, *extra]
+    pls = [pq, pkv, pkv] + [_kept(pq, (0,))] * len(extra)
     if kv_split or not head_dims:
-        return on_shards(fn, mesh, [q, k, v], [pq, pkv, pkv], [pq])
+        return on_shards(fn, mesh, args, pls, [pq])
     coord = mesh.get_coordinate()
     shard = 0
     for i in head_dims:   # this rank's block of query heads, major first
         shard = shard * mesh.size(i) + coord[i]
     h_local, group = q.shape[head_dim] // n_split, q.shape[head_dim] // k.shape[head_dim]
 
-    def local(a, b, c):
+    def local(a, b, c, *rest):
         idx = torch.arange(shard * h_local, (shard + 1) * h_local, device=a.device) // group
-        return fn(a, b.index_select(head_dim, idx), c.index_select(head_dim, idx))
+        return fn(a, b.index_select(head_dim, idx), c.index_select(head_dim, idx), *rest)
 
-    return on_shards(local, mesh, [q, k, v], [pq, pkv, pkv], [pq])
+    return on_shards(local, mesh, args, pls, [pq])
 
 
 def _ssd_fwd(x, B, C, dt, loga, chunk, out_dtype):

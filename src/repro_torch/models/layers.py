@@ -113,6 +113,20 @@ def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
     return x.reshape(b, s, n_heads, head_dim)
 
 
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(b, s, h, hd) -> (b, s, h * hd).  A DTensor is reshaped on its local
+    shards (batch, sequence and heads may stay sharded): where the heads are
+    replicated and the gradient comes back sharded over the flat dimension in
+    blocks that cut through heads, DTensor refuses to unflatten it."""
+    b, s = x.shape[:2]
+    if not shd.is_dtensor(x):
+        return x.reshape(b, s, -1)
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = [p if isinstance(p, Shard) and p.dim in (0, 1, 2) else Replicate() for p in x.placements]
+    return ops.on_shards(lambda t: t.reshape(*t.shape[:2], -1), x.device_mesh, [x], [pl], [pl])
+
+
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     if n_rep == 1:
         return k
@@ -127,10 +141,13 @@ def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: to
     broadcastable to (b, H, sq, sk), True = attend.  Scores and softmax in
     fp32, probabilities cast to ``compute_dtype`` before the PV product.
     DTensors (a meshed decode) run on their local shards: batch and heads may
-    stay sharded (``ops.heads_on_shards``); ``mask`` is a plain tensor."""
+    stay sharded (``ops.heads_on_shards``); ``mask`` is a plain tensor, or a
+    DTensor with one row a lane (zamba's ring), taken lane by lane."""
     if shd.is_dtensor(q):
+        extra = (mask,) if shd.is_dtensor(mask) else ()
         return ops.heads_on_shards(
-            lambda a, b, c: attention_scores(a, b, c, mask, compute_dtype), q, k, v, 2)
+            lambda a, b, c, *m: attention_scores(a, b, c, m[0] if m else mask, compute_dtype),
+            q, k, v, 2, extra)
     b, sq, n_heads, hd = q.shape
     sk, n_kv = k.shape[1], k.shape[2]
     group = n_heads // n_kv
@@ -181,8 +198,7 @@ def attention_fwd(params: dict, x: torch.Tensor, positions: torch.Tensor, *, n_h
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal
     )   # (b, H, s, hd), in q's memory layout
     out = lshard(out.transpose(1, 2), "batch", "seq", "heads", "head_dim")
-    out = out.reshape(b, s, n_heads * head_dim)
-    return out @ params["wo"].to(cd)
+    return merge_heads(out) @ params["wo"].to(cd)
 
 
 # --------------------------------------------------------------- KV caching
@@ -209,6 +225,28 @@ def write_position(buf: torch.Tensor, index: int, value: torch.Tensor) -> None:
     def write(b, v):   # every rank lays the value out, the holder of ``index`` writes it
         if start <= index < start + size:
             write_position(b, index - start, v)
+
+    ops.on_shards(write, buf.device_mesh, [buf, value], [buf.placements, pl], [])
+
+
+def write_leading(buf: torch.Tensor, idx: tuple[int, ...], value: torch.Tensor) -> None:
+    """``buf[idx] = value`` in place for integer indices ``idx`` into the
+    leading (layer / unit) dimensions of a stacked cache; ``value`` has
+    ``buf[idx]``'s shape.  On a DTensor cache each rank writes its local
+    shard; the indexed dimensions must not be sharded (``cache_axes`` leaves
+    them whole)."""
+    if not shd.is_dtensor(buf):
+        buf[idx] = value.to(buf.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    n = len(idx)
+    if any(isinstance(p, Shard) and p.dim < n for p in buf.placements):
+        raise ValueError(f"write_leading: an indexed dimension of {buf.placements} is sharded")
+    pl = [Shard(p.dim - n) if isinstance(p, Shard) else Replicate() for p in buf.placements]
+
+    def write(b, v):
+        b[idx] = v.to(b.dtype)
 
     ops.on_shards(write, buf.device_mesh, [buf, value], [buf.placements, pl], [])
 
@@ -595,10 +633,43 @@ def _moe_fwd_meshed(params: dict, x, top_k: int, gs: int, capacity: int, return_
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Next-token cross-entropy in fp32 over the (padded, masked) vocab,
     averaged over the tokens whose label is >= 0 (labels < 0 are not scored):
-    (ce, the scored token count, at least 1), as the reference's losses."""
+    (ce, the scored token count, at least 1), as the reference's losses.
+    DTensor logits keep their vocab shards (:func:`_vocab_parallel_nll`)."""
     labels = labels.long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
     mask = (labels >= 0).float()
-    nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    if shd.is_dtensor(logits):
+        nll = _vocab_parallel_nll(logits, labels.clamp(min=0))
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     denom = mask.sum().clamp(min=1.0)
     return (nll * mask).sum() / denom, denom
+
+
+def _vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """-log softmax(logits)[label] of DTensor logits (b, s, V) whose vocab may
+    be sharded, without gathering them: the max and the sum of exponentials
+    are reduced across the vocab shards ((b, s) each), and the label's logit
+    is picked with a one-hot mask each rank builds for its own block of the
+    vocab (a log_softmax would gather every logit to each rank, and its
+    gradient would come back whole: the LM head's weight gradient over the
+    full vocab on every rank)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = logits.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate() for p in logits.placements]
+    lf = logits.redistribute(mesh, pl).float()
+    # each reduction over the vocab is brought to ``rows`` (the batch sharded,
+    # nothing else) at once: left partial, DTensor would reduce-scatter it
+    # over the vocab's mesh dimension and move the logits' gradient between
+    # shards on the way back
+    rows = [p if p == Shard(0) else Replicate() for p in pl]
+    m = lf.amax(-1, keepdim=True).detach().redistribute(mesh, rows)
+    lse = (lf - m).exp().sum(-1).redistribute(mesh, rows).log() + m[..., 0]
+    start, size = shd.local_offset(lf, 2), lf.to_local().shape[-1]
+
+    def one_hot(lab):
+        return torch.arange(start, start + size, device=lab.device) == lab[..., None]
+
+    hot = ops.on_shards(one_hot, mesh, [labels], [rows], [pl])
+    return lse - (lf * hot).sum(-1).redistribute(mesh, rows)

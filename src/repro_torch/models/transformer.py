@@ -8,23 +8,103 @@ options and the device; parameters and caches are explicit dictionaries of
 tensors.  Layers are a Python list walked by a Python loop (the reference
 stacks them on a leading axis for ``lax.scan``), each under
 ``torch.utils.checkpoint`` when ``remat`` is on and autograd is recording (the
-reference's per-layer ``jax.checkpoint``).  KV caches and page pools are
-updated in place and returned.
+reference's per-layer ``jax.checkpoint``), with the ``remat_policy`` of the
+options.  KV caches and page pools are updated in place and returned.
+
+``remat_policy="save_tp_outputs"`` is the reference's
+``save_only_these_names("attn_out", "mlp_out")``, built on selective
+checkpointing: :func:`tp_output` stands for ``checkpoint_name``.  It lays the
+attention's and the MLP's (MoE's) output out for the residual stream -- on a
+mesh, the tensor-parallel all-reduce of the row-parallel product -- and the
+policy saves what comes out: the collective's result where there is one, else
+a copy made by the identity op ``repro_torch::saved_output`` (the policy sees
+ops, not names, and a custom op's output may not alias its input).  Every op
+issued inside :func:`tp_output` is saved, so the recompute pass replays the
+layer's math and no collective.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
+import functools
+import threading
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.parallel.sharding import lshard
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+REMAT_POLICIES = ("full", "save_tp_outputs")
+
+
+@torch.library.custom_op("repro_torch::saved_output", mutates_args=())
+def saved_output(x: torch.Tensor) -> torch.Tensor:
+    """The identity, as a copy: the op the ``save_tp_outputs`` policy saves."""
+    return x.clone()
+
+
+@saved_output.register_fake
+def _(x: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(x)
+
+
+saved_output.register_autograd(lambda ctx, grad: grad)
+
+
+class _Tagging(threading.local):
+    active = False
+
+
+_TAGGING = _Tagging()
+
+
+@contextlib.contextmanager
+def _tagging():
+    prev, _TAGGING.active = _TAGGING.active, True
+    try:
+        yield
+    finally:
+        _TAGGING.active = prev
+
+
+def tp_output(x: torch.Tensor, *logical: str) -> torch.Tensor:
+    """``x`` laid out at ``logical`` (``lshard``), every op of it tagged for
+    the ``save_tp_outputs`` policy: the counterpart of the reference's
+    ``checkpoint_name`` on a post-all-reduce tensor.  A DTensor that is a
+    partial sum (a row-parallel product) is reduced here, and the collective's
+    result is the saved tensor; any other tensor is copied by
+    :func:`saved_output` (on a DTensor, its local shard)."""
+    from torch.distributed.tensor import Partial
+
+    with _tagging():
+        if not ops.is_dtensor(x):
+            return saved_output(x)
+        reduced = any(isinstance(p, Partial) for p in x.placements)
+        x = lshard(x, *logical)
+        if reduced:
+            return x
+        return ops.on_shards(saved_output, x.device_mesh, [x], [x.placements], [x.placements])
+
+
+def _save_tp_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    if _TAGGING.active:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_tp_contexts():
+    return create_selective_checkpoint_contexts(_save_tp_policy)
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -39,20 +119,52 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return device
 
 
+def init_on_meta(init):
+    """Decorator of a model's ``init(generator)``: on a model built on the
+    ``meta`` device it takes no generator and returns the tree ``init``
+    builds -- the same paths, shapes and dtypes -- as meta tensors, drawing
+    nothing (the counterpart of ``jax.eval_shape`` of the reference's
+    ``init``).  ``init`` runs for a CPU twin of the model under
+    ``FakeTensorMode``, so no storage is allocated either."""
+    @functools.wraps(init)
+    def wrapper(self, generator: torch.Generator | None = None) -> dict:
+        if self.device.type != "meta":
+            return init(self, generator)
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        from repro_torch.parallel.sharding import map_with_path
+
+        twin = copy.copy(self)
+        twin.device = torch.device("cpu")
+        with FakeTensorMode():
+            tree = init(twin, torch.Generator())
+        return map_with_path(lambda _, t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+                             tree)
+
+    return wrapper
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelOptions:
     """Dtypes of the weights and of the activations.  For serving the weights
     are held once, in the compute dtype (the reference keeps fp32 masters and
     casts at every use); training passes ``param_dtype="float32"``, the
     reference's masters.  Norm scales and MoE routers are always fp32.
-    ``remat``: recompute each layer's activations in the backward (the
-    reference's ``"full"`` policy; its ``"save_tp_outputs"`` waits for the
-    parallelism layer).  ``moe_capacity_factor``: 0 takes the config's."""
+    ``remat``: recompute each layer's activations in the backward, under
+    ``remat_policy``: ``"full"`` keeps only the layer's input,
+    ``"save_tp_outputs"`` also its attention and MLP (MoE) outputs after the
+    tensor-parallel all-reduce (:func:`tp_output`; read by ``DecoderLM`` only,
+    as in the reference).  ``moe_capacity_factor``: 0 takes the config's."""
 
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     remat: bool = True
     moe_capacity_factor: float = 0.0
+    remat_policy: str = "full"
+
+    def __post_init__(self):
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {self.remat_policy!r} is not one of {REMAT_POLICIES}")
 
     @property
     def pdt(self) -> torch.dtype:
@@ -75,9 +187,11 @@ class DecoderLM:
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ init
+    @init_on_meta
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters drawn on ``generator``'s device, which must be the
-        model's: weights go straight to the device in ``param_dtype``."""
+        model's: weights go straight to the device in ``param_dtype``.  On
+        ``meta``: the tree drawn from nothing (:func:`init_on_meta`)."""
         cfg, pdt = self.cfg, self.opts.pdt
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on {self.device}")
@@ -123,21 +237,24 @@ class DecoderLM:
         return lshard(out, "batch", "seq", "vocab")
 
     # -------------------------------------------------------------- forward
-    def _layer(self, lp: dict, x: torch.Tensor, attn, return_aux: bool = False):
+    def _layer(self, lp: dict, x: torch.Tensor, attn, return_aux: bool = False,
+               tag: bool = False):
         """One pre-norm block; ``attn(attn_params, normed_x) -> h``.  Returns
         (x, the MoE's aux loss where ``return_aux`` and the family has one,
-        else None)."""
+        else None).  ``tag``: the attention's and the MLP's outputs go through
+        :func:`tp_output` (the ``save_tp_outputs`` policy)."""
         cfg = self.cfg
-        x = x + attn(lp["attn"], L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps))
+        named = (lambda h: tp_output(h, "batch", "seq_sp", "embed")) if tag else (lambda h: h)
+        x = x + named(attn(lp["attn"], L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)))
         x = lshard(x, "batch", "seq_sp", "embed")
         normed = L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps)
         if not cfg.is_moe:
-            return lshard(x + L.mlp_fwd(lp["mlp"], normed), "batch", "seq_sp", "embed"), None
+            return lshard(x + named(L.mlp_fwd(lp["mlp"], normed)), "batch", "seq_sp", "embed"), None
         out = L.moe_fwd(lp["moe"], normed, top_k=cfg.top_k,
                         capacity_factor=self.opts.moe_capacity_factor or cfg.capacity_factor,
                         return_aux=return_aux)
         h, aux = out if return_aux else (out, None)
-        return lshard(x + h, "batch", "seq_sp", "embed"), aux
+        return lshard(x + named(h), "batch", "seq_sp", "embed"), aux
 
     def forward(self, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """batch: {"tokens": (b, s) int [, "patches": (b, P, d)]} -> (logits
@@ -155,12 +272,15 @@ class DecoderLM:
         attn = lambda ap, normed: L.attention_fwd(ap, normed, positions, causal=True,
                                                   **self._attn_kwargs())
         remat = self.opts.remat and torch.is_grad_enabled()
+        save_tp = self.opts.remat_policy == "save_tp_outputs"
+        contexts = {"context_fn": _save_tp_contexts} if save_tp else {}
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in params["layers"]:
             if remat:
                 # a layer draws no random numbers: no RNG state to keep
-                x, layer_aux = checkpoint(self._layer, lp, x, attn, True, use_reentrant=False,
-                                          preserve_rng_state=False)
+                x, layer_aux = checkpoint(self._layer, lp, x, attn, True, save_tp,
+                                          use_reentrant=False, preserve_rng_state=False,
+                                          **contexts)
             else:
                 x, layer_aux = self._layer(lp, x, attn, True)
             if layer_aux is not None:

@@ -28,8 +28,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import ModelOptions, resolve_device
+from repro_torch.models.transformer import ModelOptions, init_on_meta, resolve_device
 from repro_torch.models.xlstm import _mask_padded_vocab
+from repro_torch.parallel.sharding import lshard
 
 N_FRAMES = 1500  # whisper's 30 s window after the conv stack
 
@@ -76,9 +77,11 @@ class WhisperLM:
         return L.init_attention(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                 cfg.resolved_head_dim, dtype=self.opts.pdt)
 
+    @init_on_meta
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters drawn on ``generator``'s device, which must be the
-        model's: weights go straight to the device in ``param_dtype``."""
+        model's: weights go straight to the device in ``param_dtype``.  On
+        ``meta``: the tree drawn from nothing (``transformer.init_on_meta``)."""
         cfg, pdt, dev = self.cfg, self.opts.pdt, self.device
         if generator.device.type != dev.type:
             raise ValueError(f"generator on {generator.device}, model on {dev}")
@@ -117,7 +120,18 @@ class WhisperLM:
 
     def _logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
-        return _mask_padded_vocab(x @ params["embed"]["tokens"].T.to(self.opts.cdt), self.cfg)
+        logits = _mask_padded_vocab(x @ params["embed"]["tokens"].T.to(self.opts.cdt), self.cfg)
+        return lshard(logits, "batch", "seq", "vocab")
+
+    def _embed(self, params: dict, tokens: torch.Tensor, offset: int = 0) -> torch.Tensor:
+        """Token embeddings plus the sinusoid positions from ``offset``.  Laid
+        out at once: a vocab-sharded table's lookup is a masked partial sum,
+        which DTensor can reduce only once."""
+        cfg, cd = self.cfg, self.opts.cdt
+        x = lshard(F.embedding(tokens.long(), params["embed"]["tokens"].to(cd)),
+                   "batch", "seq", "embed")
+        return x + sinusoid_pos(tokens.shape[1], cfg.d_model, offset=offset,
+                                device=x.device).to(cd)[None]
 
     # --------------------------------------------------------------- encoder
     def _enc_layer(self, lp: dict, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -131,6 +145,7 @@ class WhisperLM:
         cfg, cd = self.cfg, self.opts.cdt
         x = frames.to(cd) @ params["frame_proj"].to(cd)
         x = x + sinusoid_pos(x.shape[1], cfg.d_model, device=x.device).to(cd)[None]
+        x = lshard(x, "batch", "seq", "embed")
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         x = self._stack(self._enc_layer, params["enc_layers"], x, positions)
         return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
@@ -140,10 +155,9 @@ class WhisperLM:
         """The cross-attention's K/V projected from the encoder's output:
         each (b, n_frames, K, hd), contiguous."""
         cfg, cd = self.cfg, self.opts.cdt
-        b, se, _ = enc_out.shape
-        shape = (b, se, cfg.n_kv_heads, cfg.resolved_head_dim)
-        return ((enc_out @ lp["xattn"]["wk"].to(cd)).reshape(shape),
-                (enc_out @ lp["xattn"]["wv"].to(cd)).reshape(shape))
+        K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        return (L._split_heads(enc_out @ lp["xattn"]["wk"].to(cd), K, hd),
+                L._split_heads(enc_out @ lp["xattn"]["wv"].to(cd), K, hd))
 
     def _dec_layer(self, lp: dict, x: torch.Tensor, positions: torch.Tensor,
                    enc_out: torch.Tensor) -> torch.Tensor:
@@ -158,9 +172,7 @@ class WhisperLM:
     def decode_stack(self, params: dict, tokens: torch.Tensor, enc_out: torch.Tensor
                      ) -> torch.Tensor:
         """tokens (b, s) over the encoder's output -> logits (b, s, padded_vocab)."""
-        cfg, cd = self.cfg, self.opts.cdt
-        x = F.embedding(tokens.long(), params["embed"]["tokens"].to(cd))
-        x = x + sinusoid_pos(x.shape[1], cfg.d_model, device=x.device).to(cd)[None]
+        x = self._embed(params, tokens)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         x = self._stack(self._dec_layer, params["dec_layers"], x, positions, enc_out)
         return self._logits(params, x)
@@ -214,8 +226,7 @@ class WhisperLM:
         eps, b = cfg.norm_eps, tokens.shape[0]
         H, hd = cfg.n_heads, cfg.resolved_head_dim
         index = cache["index"]
-        x = F.embedding(tokens.long(), params["embed"]["tokens"].to(cd))
-        x = x + sinusoid_pos(1, cfg.d_model, offset=index, device=x.device).to(cd)[None]
+        x = self._embed(params, tokens, offset=index)
         for i, lp in enumerate(params["dec_layers"]):
             kvc = {n: t[i] for n, t in cache["kv"].items()}
             h, _ = L.attention_decode(lp["attn"], L.rmsnorm(lp["attn_norm"], x, eps), kvc, index,
@@ -223,7 +234,7 @@ class WhisperLM:
             x = x + h
             # cross attention over the (precomputed) encoder K/V, every frame
             xn = L.rmsnorm(lp["xattn_norm"], x, eps)
-            q = (xn @ lp["xattn"]["wq"].to(cd)).reshape(b, 1, H, hd)
+            q = L._split_heads(xn @ lp["xattn"]["wq"].to(cd), H, hd)
             ck, cv = cache["cross_k"][i].to(cd), cache["cross_v"][i].to(cd)
             mask = torch.ones((1, 1, 1, ck.shape[1]), dtype=torch.bool, device=x.device)
             h = L.attention_scores(q, ck, cv, mask, compute_dtype=cd).reshape(b, 1, H * hd)

@@ -41,8 +41,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import ModelOptions, resolve_device
+from repro_torch.models.transformer import ModelOptions, init_on_meta, resolve_device
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import lshard
 
 SEG_LEN = 128   # steps between the backward's saved carries (segmented_scan)
 
@@ -83,6 +86,42 @@ def segmented_scan(step, state: dict, xs: tuple, seg_len: int = SEG_LEN
                               preserve_rng_state=False)
         ys.append(y)
     return state, torch.cat(ys)
+
+
+def recurrence(step, weights: tuple, state: dict, xs: tuple) -> tuple[dict, torch.Tensor]:
+    """``segmented_scan`` of ``step(weights, state, inputs_t)`` over the
+    time-major ``xs`` (each (s, b, H, ...) or (s, b, H x width)) from ``state``
+    (leaves (b, H, ...)); ``weights``: tensors with a leading head dimension.
+    On DTensors each rank scans its own lanes and heads, the layout of the
+    first DTensor among the state's leaves and ``xs`` (torch 2.11's DTensor
+    refuses the steps' batched products, which flatten the sharded heads into
+    the batch)."""
+    def scan(w, st, x):
+        return segmented_scan(lambda st_, inp: step(w, st_, inp), st, x)
+
+    lead = next((t for t in (*state.values(), *xs) if shd.is_dtensor(t)), None)
+    if lead is None:
+        return scan(weights, state, xs)
+    from torch.distributed.tensor import Replicate, Shard
+
+    batch = 0 if any(lead is t for t in state.values()) else 1   # lead's batch dimension
+    kinds = ["batch" if p == Shard(batch) else "heads" if p == Shard(batch + 1) else None
+             for p in lead.placements]
+
+    def pl(batch_dim, heads_dim):
+        return [Shard(batch_dim) if k == "batch" and batch_dim is not None
+                else Shard(heads_dim) if k == "heads" else Replicate() for k in kinds]
+
+    keys, n = list(state), len(xs)
+
+    def local(*args):   # xs first: a replicated weight's gradient is then a partial sum
+        st, hs = scan(args[n + len(keys):], dict(zip(keys, args[n:n + len(keys)])), args[:n])
+        return (*(st[k] for k in keys), hs)
+
+    out = ops.on_shards(local, lead.device_mesh, [*xs, *(state[k] for k in keys), *weights],
+                        [pl(1, 2)] * n + [pl(0, 1)] * len(keys) + [pl(None, 0)] * len(weights),
+                        [pl(0, 1)] * len(keys) + [pl(1, 2)])
+    return dict(zip(keys, out[:-1])), out[-1]
 
 
 # ---------------------------------------------------------------- mLSTM cell
@@ -142,11 +181,12 @@ def mlstm_fwd(params: dict, x: torch.Tensor, state: dict, eps: float
     q = (xm @ p["w_q"].to(cd)).reshape(b, s, H, dh)
     k = (xm @ p["w_k"].to(cd)).reshape(b, s, H, dh) / math.sqrt(dh)
     v = (xm @ p["w_v"].to(cd)).reshape(b, s, H, dh)
+    q, k, v = (lshard(t, "batch", "seq", "heads", None) for t in (q, k, v))
     i_raw = (xm @ p["w_i"].to(cd)).float()
     f_raw = (xm @ p["w_f"].to(cd)).float() + p["f_bias"].float()
     xs = tuple(t.transpose(0, 1).float() for t in (q, k, v, i_raw, f_raw))   # time-major
-    state, hs = segmented_scan(_mlstm_step, state, xs)                      # (s, b, H, dh)
-    h = hs.transpose(0, 1).reshape(b, s, d_in).to(cd)
+    state, hs = recurrence(lambda w, st, inp: _mlstm_step(st, inp), (), state, xs)   # (s, b, H, dh)
+    h = L.merge_heads(hs.transpose(0, 1)).to(cd)
     h = h * F.silu(z.float()).to(cd)
     return h @ p["w_out"].to(cd), state
 
@@ -201,24 +241,32 @@ def slstm_bias(p: dict, cd: torch.dtype) -> torch.Tensor:
     which the step's per-head split reads as head 1's whole i, f, z, o block
     (the reference's placement, kept)."""
     d_in = p["f_bias"].shape[0]
-    return F.pad(p["f_bias"].to(cd), (d_in, 2 * d_in))
+    pad = lambda f: F.pad(f.to(cd), (d_in, 2 * d_in))   # noqa: E731
+    if shd.is_dtensor(p["f_bias"]):
+        # padded on each rank's copy: torch 2.11's DTensor pads a replicated
+        # tensor into one that a partial sum then counts once per rank
+        from torch.distributed.tensor import Replicate
+
+        f = p["f_bias"]
+        whole = [Replicate()] * f.device_mesh.ndim
+        return ops.on_shards(pad, f.device_mesh, [f], [whole], [whole])
+    return pad(p["f_bias"])
 
 
 def slstm_fwd(params: dict, x: torch.Tensor, state: dict, eps: float
               ) -> tuple[torch.Tensor, dict]:
     p = params["ssm"]
     cd = x.dtype
-    b, s, _ = x.shape
-    H, dh, _ = p["r_gates"].shape
+    dh = p["r_gates"].shape[1]
     xn = L.rmsnorm(params["norm"], x, eps)
     xg = (xn @ p["w_in"].to(cd)) @ p["w_gates"].to(cd) + slstm_bias(p, cd)
 
-    def step(st, inp):
-        st = _slstm_step(p, st, inp[0], H, dh)
+    def step(w, st, inp):   # w: (r_gates,), this rank's heads of it
+        st = _slstm_step({"r_gates": w[0]}, st, inp[0], w[0].shape[0], dh)
         return st, st["h"]
 
-    state, hs = segmented_scan(step, state, (xg.transpose(0, 1),))
-    h = hs.transpose(0, 1).reshape(b, s, H * dh).to(cd)
+    state, hs = recurrence(step, (p["r_gates"],), state, (xg.transpose(0, 1),))
+    h = L.merge_heads(hs.transpose(0, 1)).to(cd)
     return h @ p["w_out"].to(cd), state
 
 
@@ -244,9 +292,11 @@ class XLSTMLM:
         return self.d_in // self.cfg.n_heads
 
     # ------------------------------------------------------------------ init
+    @init_on_meta
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters drawn on ``generator``'s device, which must be the
-        model's: weights go straight to the device in ``param_dtype``."""
+        model's: weights go straight to the device in ``param_dtype``.  On
+        ``meta``: the tree drawn from nothing (``transformer.init_on_meta``)."""
         cfg, pdt = self.cfg, self.opts.pdt
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on {self.device}")
@@ -261,12 +311,16 @@ class XLSTMLM:
         }
 
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        # F.embedding: its CUDA backward sums a row's gradients in a fixed order
-        return F.embedding(tokens.long(), params["embed"]["tokens"].to(self.opts.cdt))
+        # F.embedding: its CUDA backward sums a row's gradients in a fixed order.
+        # Laid out at once: a vocab-sharded table's lookup is a masked partial
+        # sum, which DTensor can reduce only once
+        x = F.embedding(tokens.long(), params["embed"]["tokens"].to(self.opts.cdt))
+        return lshard(x, "batch", "seq", "embed")
 
     def _logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
-        return _mask_padded_vocab(x @ params["lm_head"].to(self.opts.cdt), self.cfg)
+        logits = _mask_padded_vocab(x @ params["lm_head"].to(self.opts.cdt), self.cfg)
+        return lshard(logits, "batch", "seq", "vocab")
 
     def _zero_state(self, batch: int) -> tuple[list[dict], dict]:
         H = self.cfg.n_heads
@@ -347,7 +401,7 @@ class XLSTMLM:
             x, new_m, s_state = self._unit_fwd(up, x, m_states, {k: t[u] for k, t in s_all.items()})
             for j, st in enumerate(new_m):
                 for k, t in st.items():
-                    m_all[k][u, j] = t
+                    L.write_leading(m_all[k], (u, j), t)
             for k, t in s_state.items():
-                s_all[k][u] = t
+                L.write_leading(s_all[k], (u,), t)
         return self._logits(params, x), {**cache, "index": cache["index"] + 1}

@@ -32,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import ModelOptions, resolve_device
+from repro_torch.models.transformer import ModelOptions, init_on_meta, resolve_device
 from repro_torch.models.xlstm import _mask_padded_vocab
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import lshard
@@ -152,6 +152,28 @@ def mamba2_fwd(params: dict, x: torch.Tensor, eps: float, chunk: int = CHUNK) ->
     return y @ p["w_out"].to(cd)
 
 
+def _ssd_step(S: torch.Tensor, xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor, D: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One recurrent SSD step, fp32: S (b, H, P, N), xh (b, H, P), dt (b, H),
+    A and D (H,), B and C (b, N) -> (y (b, 1, H P), S_new).  On DTensors each
+    rank steps its own lanes and heads (torch 2.11's DTensor refuses the
+    batched product, which flattens the sharded heads into the batch)."""
+    if shd.is_dtensor(S):
+        from torch.distributed.tensor import Replicate, Shard
+
+        pl = [p if p in (Shard(0), Shard(1)) else Replicate() for p in S.placements]
+        rows = [p if p == Shard(0) else Replicate() for p in pl]
+        heads = [Shard(0) if p == Shard(1) else Replicate() for p in pl]
+        out = [Shard(2) if p == Shard(1) else p for p in pl]
+        return ops.on_shards(_ssd_step, S.device_mesh, [S, xh, dt, A, B, C, D],
+                             [pl, pl, pl, heads, rows, rows, heads], [out, pl])
+    S_new = S * torch.exp(dt * A)[:, :, None, None] + (dt[:, :, None, None] * xh[..., None]) * \
+        B[:, None, None, :]
+    y = (S_new @ C[:, None, :, None])[..., 0]                # (b, H, P)
+    y = y + xh * D[None, :, None]
+    return y.reshape(y.shape[0], 1, -1), S_new
+
+
 def mamba2_step(params: dict, x: torch.Tensor, S: torch.Tensor, conv_tail: torch.Tensor,
                 eps: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token recurrent step.  x: (b, 1, d); S: (b, H, P, N) fp32;
@@ -164,14 +186,9 @@ def mamba2_step(params: dict, x: torch.Tensor, S: torch.Tensor, conv_tail: torch
     xn = L.rmsnorm(params["norm"], x, eps)
     z, xc, B, C, dt, conv_tail = _ssd_split(p, xn, H, d_in, d_state, conv_tail)
     A = -torch.exp(p["A_log"].float())
-    a = torch.exp(dt[:, 0, :] * A)                           # (b, H)
-    xh = xc.reshape(b, H, P).float()
-    S_new = S * a[:, :, None, None] + (dt[:, 0, :, None, None] * xh[..., None]) * \
-        B[:, 0, None, None, :].float()
-    y = (S_new @ C[:, 0, None, :, None].float())[..., 0]    # (b, H, P)
-    y = y + xh * p["D"].float()[None, :, None]
-    y = y.reshape(b, 1, d_in).to(cd)
-    y = y * F.silu(z.float()).to(cd)
+    y, S_new = _ssd_step(S, xc.reshape(b, H, P).float(), dt[:, 0, :], A, B[:, 0].float(),
+                         C[:, 0].float(), p["D"].float())   # y (b, 1, d_in)
+    y = y.to(cd) * F.silu(z.float()).to(cd)
     return y @ p["w_out"].to(cd), S_new, conv_tail
 
 
@@ -195,9 +212,11 @@ class ZambaLM:
         self.ssm_heads = cfg.ssm_heads or (self.d_in // 64)
 
     # ------------------------------------------------------------------ init
+    @init_on_meta
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters drawn on ``generator``'s device, which must be the
-        model's: weights go straight to the device in ``param_dtype``."""
+        model's: weights go straight to the device in ``param_dtype``.  On
+        ``meta``: the tree drawn from nothing (``transformer.init_on_meta``)."""
         cfg, pdt, dev = self.cfg, self.opts.pdt, self.device
         if generator.device.type != dev.type:
             raise ValueError(f"generator on {generator.device}, model on {dev}")
@@ -325,9 +344,9 @@ class ZambaLM:
         pos = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
         q = L.apply_rope(q, pos, cfg.rope_theta)
         k_new = L.apply_rope(k_new, pos, cfg.rope_theta)
-        kvc["k"][:, slot] = k_new[:, 0].to(kvc["k"].dtype)
-        kvc["v"][:, slot] = v_new[:, 0].to(kvc["v"].dtype)
-        kv_pos[:, slot] = index
+        L.write_position(kvc["k"], slot, k_new[:, 0])
+        L.write_position(kvc["v"], slot, v_new[:, 0])
+        L.write_position(kv_pos, slot, torch.full((b,), index, dtype=kv_pos.dtype, device=x.device))
         valid = (kv_pos >= 0) & (kv_pos <= index)
         h = L.attention_scores(q, kvc["k"].to(cd), kvc["v"].to(cd), valid[:, None, None, :],
                                compute_dtype=cd).reshape(b, 1, H * hd)
@@ -343,8 +362,9 @@ class ZambaLM:
         index = cache["index"]
         for u, layers in self._units(params):
             for i, lp in layers:
-                y, cache["S"][i], cache["conv"][i] = mamba2_step(
-                    lp, x, cache["S"][i], cache["conv"][i], cfg.norm_eps)
+                y, S, tail = mamba2_step(lp, x, cache["S"][i], cache["conv"][i], cfg.norm_eps)
+                L.write_leading(cache["S"], (i,), S)
+                L.write_leading(cache["conv"], (i,), tail)
                 x = x + y
             kvc = {n: t[u] for n, t in cache["kv"].items()}
             x = self._shared_attn_step(params["shared"], x, kvc, cache["kv_pos"][u], index)

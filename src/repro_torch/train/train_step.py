@@ -104,13 +104,15 @@ def loss_and_grads(model, params, batch: dict, microbatches: int = 1, layout=Non
     return loss, metrics, grads
 
 
-def make_train_step(model, opt_cfg: AdamWConfig, mesh=None, microbatches: int = 1):
+def make_train_step(model, opt_cfg: AdamWConfig, mesh=None, microbatches: int = 1,
+                    rules: dict | None = None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` on the model's device; the batch may be numpy.  Parameters and
     moments are updated in place (the reference donates their buffers).  With
     a ``mesh``: see the module's docstring; the metrics come back as plain
     tensors, the same on every rank, and ``train_step.state_shardings(params)``
-    gives the layouts of ``{"params", "opt"}``."""
+    gives the layouts of ``{"params", "opt"}``.  ``rules``: the logical-axis
+    rule table (``parallel.sharding.default_rules`` of the mesh when None)."""
     if mesh is None:
         def train_step(params, opt_state, batch):
             batch = batch_to_device(batch, model.device)
@@ -125,13 +127,13 @@ def make_train_step(model, opt_cfg: AdamWConfig, mesh=None, microbatches: int = 
     def state_shardings(params) -> dict:
         key = _shapes(params)
         if key not in layouts:
-            opt = shd.opt_shardings(params, mesh)
-            layouts[key] = {"params": shd.param_shardings(params, mesh),
+            opt = shd.opt_shardings(params, mesh, rules)
+            layouts[key] = {"params": shd.param_shardings(params, mesh, rules),
                             "opt": {"m": opt, "v": opt, "step": None}}
         return layouts[key]
 
     def layout(params, mbatch):
-        return gather_fsdp(params, mesh), shard_batch(mbatch, mesh)
+        return gather_fsdp(params, mesh, rules), shard_batch(mbatch, mesh, rules)
 
     def train_step(params, opt_state, batch):
         batch = batch_to_device(batch, model.device)
@@ -141,7 +143,7 @@ def make_train_step(model, opt_cfg: AdamWConfig, mesh=None, microbatches: int = 
         opt_state = {"m": shd.lay_out_tree(opt_state["m"], lay["opt"]["m"]),
                      "v": shd.lay_out_tree(opt_state["v"], lay["opt"]["v"]),
                      "step": int(opt_state["step"])}
-        with shd.activate(mesh):
+        with shd.activate(mesh, rules):
             loss, metrics, grads = loss_and_grads(model, params, batch, microbatches, layout)
             params, opt_state, opt_metrics = adamw_update(params, grads, opt_state, opt_cfg)
         metrics = {"loss": loss, **metrics, **opt_metrics}
@@ -157,13 +159,16 @@ def _shapes(tree) -> tuple:
     return tuple(tuple(t.shape) for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
 
 
-def gather_fsdp(params, mesh):
+def gather_fsdp(params, mesh, rules: dict | None = None):
     """The parameters as the model computes with them: each DTensor leaf
-    redistributed to be replicated over the data dimensions (ZeRO-3's
-    all-gather at use; its backward reduce-scatters the gradient)."""
+    redistributed to be replicated over the ZeRO-3 dimensions, the rules'
+    ``fsdp`` (the data dimensions by default: ZeRO-3's all-gather at use; its
+    backward reduce-scatters the gradient)."""
     from torch.distributed.tensor import Replicate
 
-    data = [i for i, n in enumerate(mesh.mesh_dim_names) if n in ("pod", "data")]
+    rules = rules or shd.default_rules(mesh.mesh_dim_names)
+    fsdp = tuple(rules.get("fsdp") or ())
+    data = [i for i, n in enumerate(mesh.mesh_dim_names) if n in fsdp]
 
     def one(p):
         if not shd.is_dtensor(p):
@@ -174,25 +179,26 @@ def gather_fsdp(params, mesh):
     return tree_map(one, params)
 
 
-def batch_sharding(leaf, mesh) -> "shd.NamedSharding":
+def batch_sharding(leaf, mesh, rules: dict | None = None) -> "shd.NamedSharding":
     """A batch leaf's layout: its first dimension over the data dimensions
     where it divides them (the rules' ``batch``), else replicated."""
     names = ("batch",) + (None,) * (len(leaf.shape) - 1)
-    rules = shd.default_rules(mesh.mesh_dim_names)
+    rules = rules or shd.default_rules(mesh.mesh_dim_names)
     return shd.NamedSharding(mesh, shd.resolve_spec(names, leaf.shape, mesh, rules))
 
 
-def shard_batch(batch: dict, mesh) -> dict:
-    return {k: shd.lay_out(v, batch_sharding(v, mesh)) for k, v in batch.items()}
+def shard_batch(batch: dict, mesh, rules: dict | None = None) -> dict:
+    return {k: shd.lay_out(v, batch_sharding(v, mesh, rules)) for k, v in batch.items()}
 
 
-def make_serve_step(model, mesh=None):
+def make_serve_step(model, mesh=None, rules: dict | None = None):
     """``serve_step(params, cache, tokens) -> (logits, cache)``: one-token
     decode (the cache is updated in place, as the reference donates it).
     With a ``mesh`` the parameters are laid out by ``param_shardings`` and the
     cache by :func:`cache_shardings` (on the first call; ``serve_step.lay_out
     (params, cache)`` does it ahead), the tokens replicated, the ZeRO-3
-    weights gathered for the decode; the logits come back as a DTensor."""
+    weights gathered for the decode; the logits come back as a DTensor.
+    ``rules`` as in :func:`make_train_step`."""
     if mesh is None:
         def serve_step(params, cache, tokens):
             return model.decode_step(params, cache, tokens)
@@ -204,16 +210,16 @@ def make_serve_step(model, mesh=None):
     def lay_out(params, cache):
         key = (_shapes(params), _shapes(cache))
         if key not in layouts:
-            layouts[key] = (shd.param_shardings(params, mesh),
-                            cache_shardings(cache, mesh, model=model))
+            layouts[key] = (shd.param_shardings(params, mesh, rules),
+                            cache_shardings(cache, mesh, rules, model=model))
         p_lay, c_lay = layouts[key]
         return shd.lay_out_tree(params, p_lay), shd.lay_out_tree(cache, c_lay)
 
     def serve_step(params, cache, tokens):
         params, cache = lay_out(params, cache)
         tokens = shd.lay_out(shd.full_tensor(tokens), shd.NamedSharding(mesh, (None,) * tokens.ndim))
-        with shd.activate(mesh):
-            return model.decode_step(gather_fsdp(params, mesh), cache, tokens)
+        with shd.activate(mesh, rules):
+            return model.decode_step(gather_fsdp(params, mesh, rules), cache, tokens)
 
     serve_step.lay_out = lay_out
     return serve_step

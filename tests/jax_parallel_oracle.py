@@ -2,9 +2,10 @@
 ``tests/test_torch_parallel.py``: ``python tests/jax_parallel_oracle.py OUT_DIR``.
 
 Writes ``OUT_DIR/inputs.npz`` first (the reduced models' initial parameters,
-the pipeline's and the compressed mean's inputs; the port's ranks start from
-them), then ``OUT_DIR/oracle.npz``: the reference's meshed train step (3 steps,
-fp32, on a (2, 2) ``data x model`` mesh) per model, its seq-sharded decode,
+the pipeline's and the compressed mean's inputs, Whisper's frames; the port's
+ranks start from them), then ``OUT_DIR/oracle.npz``: the reference's meshed
+train step (3 steps, fp32, on a (2, 2) ``data x model`` mesh) per model, its
+seq-sharded decode, the meshed decodes of zamba2, the xLSTM and Whisper,
 its GPipe forward and ``jax.grad`` of the pipelined loss, ``compressed_psum_mean``
 over 4 devices, and the Arnold placement the launcher prints for
 ``--devices 4 --mesh-shape 2x2 --arnold --scheduler mip``.
@@ -33,6 +34,8 @@ from jax.sharding import AxisType, PartitionSpec as P  # noqa: E402
 TRAIN_ARCHS = ("minicpm-2b", "qwen3-moe-235b-a22b", "zamba2-2.7b")
 SEQ, BATCH, STEPS, LR = 16, 8, 3, 1e-3
 DECODE_B, DECODE_L, DECODE_TOKENS = 4, 32, 5
+DECODE_ARCHS = ("zamba2-2.7b", "xlstm-350m", "whisper-tiny")
+DECODE_FRAMES = 24
 S, M, MB, D = 4, 8, 2, 16          # the pipeline test's stages, microbatches, rows, width
 
 
@@ -69,7 +72,7 @@ def main(out_dir: str) -> None:
 
     opts = ModelOptions(compute_dtype="float32", remat=False)
     models, inputs = {}, {}
-    for arch in TRAIN_ARCHS:
+    for arch in dict.fromkeys(TRAIN_ARCHS + DECODE_ARCHS):
         cfg = get_config(arch).reduced()
         model = build_model(cfg, opts)
         models[arch] = (cfg, model, jax.jit(model.init)(jax.random.PRNGKey(0)))
@@ -82,12 +85,15 @@ def main(out_dir: str) -> None:
     inputs["pp_W"] = (rng.standard_normal((S, D, D)) * 0.3).astype(np.float32)
     inputs["pp_x"] = rng.standard_normal((M, MB, D)).astype(np.float32)
     inputs["cc_x"] = rng.standard_normal((4, 64)).astype(np.float32)
+    inputs["frames"] = rng.standard_normal(
+        (DECODE_B, DECODE_FRAMES, get_config("whisper-tiny").reduced().d_model)).astype(np.float32)
     np.savez(os.path.join(out_dir, ".inputs.npz"), **inputs)
     os.replace(os.path.join(out_dir, ".inputs.npz"), os.path.join(out_dir, "inputs.npz"))
 
     out = {}
     mesh = auto_mesh((2, 2), ("data", "model"))
-    for arch, (cfg, model, params) in models.items():
+    for arch in TRAIN_ARCHS:
+        cfg, model, params = models[arch]
         ds = SyntheticDataset(cfg.vocab, SEQ, BATCH)
         state = jax.jit(init_opt_state)(params)
         losses = []
@@ -120,6 +126,8 @@ def main(out_dir: str) -> None:
             lg, cache = step(p2, cache, t)
             logits.append(np.asarray(lg, np.float32))
     out["decode"] = np.stack(logits)
+    for arch in DECODE_ARCHS:
+        out[f"decode|{arch}"] = family_decode(*models[arch], mesh, inputs["frames"])
 
     smesh = auto_mesh((S,), ("stage",))
     stage_fn = lambda W, x: jnp.tanh(x @ W)
@@ -143,6 +151,30 @@ def main(out_dir: str) -> None:
     out["arnold"] = np.asarray(arnold())
     np.savez(os.path.join(out_dir, ".oracle.npz"), **out)
     os.replace(os.path.join(out_dir, ".oracle.npz"), os.path.join(out_dir, "oracle.npz"))
+
+
+def family_decode(cfg, model, params, mesh, frames):
+    """The reference's meshed decode of a reduced zamba2, xLSTM or Whisper
+    (after ``prefill_cross`` of ``frames``): DECODE_TOKENS steps' logits."""
+    from repro.parallel import sharding as shd
+    from repro.train.train_step import cache_shardings
+
+    if cfg.family == "audio":
+        cache = jax.jit(model.prefill_cross)(
+            params, model.init_cache(DECODE_B, DECODE_L, DECODE_FRAMES), jnp.asarray(frames))
+    else:
+        cache = model.init_cache(DECODE_B, DECODE_L)
+    with shd.activate(mesh):
+        p_sh = shd.param_shardings(jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0))), mesh)
+        c_sh = cache_shardings(jax.eval_shape(lambda: cache), mesh, model=model)
+        step = jax.jit(model.decode_step, in_shardings=(p_sh, c_sh, None),
+                       out_shardings=(None, c_sh))
+        params, cache = jax.device_put(params, p_sh), jax.device_put(cache, c_sh)
+        logits = []
+        for t in range(DECODE_TOKENS):
+            lg, cache = step(params, cache, jnp.full((DECODE_B, 1), t % cfg.vocab, jnp.int32))
+            logits.append(np.asarray(lg, np.float32))
+    return np.stack(logits)
 
 
 def arnold():

@@ -31,7 +31,9 @@ def test_port_files_found():
             "trainer.py", "checkpointer.py", "pipeline.py", "mip.py", "hierarchical.py",
             "scheduler.py", "fabric.py", "placement.py", "mesh.py", "netmodel.py", "queue.py",
             "simulator.py", "repair.py", "driver.py", "xlstm.py", "whisper.py", "sharding.py",
-            "collectives.py"} <= names
+            "collectives.py", "roofline.py", "dryrun.py", "perf.py", "model_zoo.py"} <= names
+    launch = {p.name for p in PORT_FILES if p.parent.name == "launch"}
+    assert launch == {"__init__.py", "mesh.py", "train.py", "roofline.py", "dryrun.py", "perf.py"}
     parallel = {p.name for p in PORT_FILES if p.parent.name == "parallel"}
     assert parallel == {"__init__.py", "sharding.py", "collectives.py", "pipeline.py"}
 
@@ -63,6 +65,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import repro_torch, repro_torch.serve, repro_torch.models, repro_torch.convert\n"
         "import repro_torch.kernels.ops, repro_torch.train, repro_torch.launch.train\n"
         "import repro_torch.core, repro_torch.topo, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.dryrun, repro_torch.launch.perf\n"
         "import repro_torch.parallel.collectives, repro_torch.parallel.pipeline\n"
         "from repro_torch.serve import place_replicas\n"
         "import warnings; warnings.simplefilter('ignore', DeprecationWarning)\n"

@@ -39,6 +39,7 @@ from repro_torch.parallel.sharding import param_spec
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TESTS = ROOT / "tests"
 TRAIN_ARCHS = ("minicpm-2b", "qwen3-moe-235b-a22b", "zamba2-2.7b")
+DECODE_ARCHS = ("zamba2-2.7b", "xlstm-350m", "whisper-tiny")
 LAUNCH = ["-m", "repro_torch.launch.train", "--device", "cpu", "--devices", "4",
           "--mesh-shape", "2x2", "--arnold", "--scheduler", "mip", "--steps", "4",
           "--ckpt-every", "2", "--log-every", "1"]
@@ -162,3 +163,28 @@ def test_meshed_launcher_places_and_restarts(runs):
     assert sorted(a) == [1, 2, 3, 4] and sorted(b) == [3, 4]
     assert b == {s: a[s] for s in (3, 4)}
     assert "done: first logged loss" in first
+
+
+#: a recurrent or encoder-decoder cache leaf of each family and its layout on
+#: the (2, 2) mesh: batch over ``data``, the state's or the KV's heads over
+#: ``model`` (every reduced config has 4 of them)
+FAMILY_CACHE_SPECS = {
+    "zamba2-2.7b": ("S", (None, "data", "model", None, None)),
+    "xlstm-350m": ("states/mlstm/C", (None, None, "data", "model", None, None)),
+    "whisper-tiny": ("kv/k", (None, "data", None, "model", None)),
+}
+
+
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_family_meshed_decode_matches_unmeshed_and_reference(runs, arch):
+    """zamba2's ring cache and Mamba2 states, the xLSTM's states and
+    Whisper's self- and cross-attention caches through ``make_serve_step``:
+    5 steps within 1e-4 of the unmeshed decode and of the reference's meshed
+    decode, and every cache leaf still in its ``cache_shardings`` layout
+    after the in-place writes."""
+    got = runs["port"][f"decode|{arch}"]
+    np.testing.assert_allclose(got["mesh"], got["plain"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got["mesh"], runs["ref"][f"decode|{arch}"], rtol=0, atol=1e-4)
+    assert got["wrong_layouts"] == []
+    leaf, spec = FAMILY_CACHE_SPECS[arch]
+    assert got["cache_specs"][leaf] == spec

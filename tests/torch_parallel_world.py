@@ -4,7 +4,8 @@ INPUTS_NPZ OUT_PKL [cpu|cuda]``.
 
 Every rank starts from the reference's parameters and inputs in
 ``INPUTS_NPZ`` (written by ``tests/jax_parallel_oracle.py``) and runs every
-case on a (2, 2) ``data x model`` DeviceMesh (the pipeline and the
+case -- the meshed train steps, the dense decodes, zamba2's, the xLSTM's and
+Whisper's decodes -- on a (2, 2) ``data x model`` DeviceMesh (the pipeline and the
 compressed mean on the world's 4 ranks); rank 0's results go to ``OUT_PKL``.
 The world is gloo on the CPU (the default) or NCCL on 4 cards, rank r on
 ``cuda:r``, where the meshed step's kernels run on the local shards and the
@@ -21,6 +22,10 @@ import torch
 TRAIN_ARCHS = ("minicpm-2b", "qwen3-moe-235b-a22b", "zamba2-2.7b")
 SEQ, BATCH, STEPS, LR = 16, 8, 3, 1e-3
 DECODE_B, DECODE_L, DECODE_TOKENS = 4, 32, 5
+# the recurrent and encoder-decoder families' meshed decodes (Whisper's over
+# DECODE_FRAMES encoder frames)
+DECODE_ARCHS = ("zamba2-2.7b", "xlstm-350m", "whisper-tiny")
+DECODE_FRAMES = 24
 
 
 def decode_config(n_kv_heads: int = 3):
@@ -150,6 +155,59 @@ def decode_case(inputs, mesh, dev, n_kv_heads: int = 3) -> dict:
             "cache_local": tuple(k.to_local().shape)}
 
 
+def family_decode_case(inputs, arch, mesh, dev) -> dict:
+    """zamba2's, the xLSTM's and Whisper's decode (reduced configs, fp32, the
+    inputs' weights), unmeshed and through ``make_serve_step``: the logits of
+    DECODE_TOKENS steps, and the leaves of the meshed cache whose layout is not
+    ``cache_shardings``' (the recurrent states written back on every rank's
+    shard)."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import from_jax_params
+    from repro_torch.models import ModelOptions, build_model
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.train_step import cache_shardings, make_serve_step
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, ModelOptions(param_dtype="float32", compute_dtype="float32",
+                                          remat=False), device=dev)
+    tree = unflatten(inputs, arch)
+    params = from_jax_params(tree, cfg, device=dev)
+
+    def fresh_cache():   # Whisper's: the encoder's K/V put in by prefill_cross
+        if cfg.family != "audio":
+            return model.init_cache(DECODE_B, DECODE_L)
+        frames = torch.from_numpy(inputs["frames"]).to(dev)
+        return model.prefill_cross(params, model.init_cache(DECODE_B, DECODE_L, DECODE_FRAMES),
+                                   frames)
+
+    toks = [torch.full((DECODE_B, 1), t % cfg.vocab, dtype=torch.int32, device=dev)
+            for t in range(DECODE_TOKENS)]
+    out = {}
+    for name, step in (("plain", model.decode_step), ("mesh", make_serve_step(model, mesh))):
+        p, cache = params, fresh_cache()
+        if name == "mesh":
+            p, cache = step.lay_out(from_jax_params(tree, cfg, device=dev, mesh=mesh), cache)
+        logits = []
+        for t in toks:
+            lg, cache = step(p, cache, t)
+            logits.append(shd.full_tensor(lg).cpu().numpy())
+        out[name] = np.stack(logits)
+    specs, wrong = {}, []
+
+    def check(leaf, sharding, path):
+        if isinstance(leaf, dict):
+            for k, v in leaf.items():
+                check(v, sharding[k], f"{path}{k}/")
+        elif isinstance(leaf, torch.Tensor):
+            specs[path[:-1]] = shd.from_placements(leaf.placements, mesh, leaf.ndim)
+            if tuple(leaf.placements) != sharding.placements:
+                wrong.append((path[:-1], specs[path[:-1]], sharding.spec))
+
+    check(cache, cache_shardings(cache, mesh, model=model), "")
+    out["cache_specs"], out["wrong_layouts"] = specs, wrong
+    return out
+
+
 def pipeline_case(inputs, dev) -> dict:
     import torch.distributed as dist
 
@@ -203,6 +261,8 @@ def world(rank: int, inputs_path: str, device_type: str = "cpu"):
     out = {f"train|{arch}": train_case(inputs, arch, mesh, dev) for arch in TRAIN_ARCHS}
     out["decode"] = decode_case(inputs, mesh, dev)
     out["decode_heads"] = decode_case(inputs, mesh, dev, n_kv_heads=2)
+    for arch in DECODE_ARCHS:
+        out[f"decode|{arch}"] = family_decode_case(inputs, arch, mesh, dev)
     out["pipeline"] = pipeline_case(inputs, dev)
     out["collectives"] = collectives_case(inputs, mesh, dev)
     return out if rank == 0 else None
