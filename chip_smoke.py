@@ -15,8 +15,10 @@ raises and the script exits non-zero:
    training steps, the last with flash attention at head dim 96 on both
    routes; xlstm-350m's norms and whisper-tiny's, with its flash attention
    without a causal mask over 1500 frames and across 448 queries to 1500
-   keys, forward and backward on both routes; plus ragged, unaligned and small
-   cases), holds
+   keys, forward and backward on both routes; dbrx-132b's, granite-8b's and
+   phi4-mini-3.8b's prefill at GQA 6:1, 4:1 and 3:1, phi4-mini's training
+   step's flash forward with lse and backward and its norms; plus ragged,
+   unaligned and small cases), holds
    the result against the plain PyTorch version on the same inputs, and times
    kernel, plain version and the one PyTorch library call that computes the
    same function (a yardstick; the port never calls it; none exists for the
@@ -141,8 +143,32 @@ raises and the script exits non-zero:
 31. ``dryrun`` -- ``python -m repro_torch.launch.dryrun`` on the card machine's
    host for whisper-tiny x decode_32k, minicpm-2b x train_4k and
    qwen3-moe-235b-a22b x decode_32k on the single-pod mesh (256 fake ranks,
-   meta tensors), three processes started after ``mesh_host`` and collected
-   here: status, chips, peak bytes per device, roofline terms.
+   meta tensors), three processes started before ``roofline`` and collected
+   here: status, chips, peak bytes per device (the dry run's own account of
+   the step's storages) at or above the arguments and within a closed-form
+   reckoning printed beside it, roofline terms; and one cell the card runs
+   for real beside its trace (minicpm-2b at full width, 4 layers, 2 x 4096
+   tokens, the meshed step on a world of one, the kernels' calls taking the
+   plain route the trace takes): the counted peak within 3 % of
+   ``max_memory_allocated``.
+32. ``dbrx_parity`` (after ``moe_train``) -- ``moe_parity`` for dbrx-132b (16
+   experts of 10752, top-4, GQA 48:8) at full width, 2 layers.
+33. ``dbrx_serve`` -- dbrx-132b at full width and 9 of its 40 layers (61.1 GB
+   of bf16 weights: one card's cut; its training waits for more than one
+   card) through ``serve``'s engine, requests and checks.
+34. ``phi4_serve`` -- phi4-mini-3.8b (GQA 24:8, an untied 200 192-column head)
+   at full width and depth (32 layers) through ``serve``.
+35. ``phi4_train_parity`` -- ``train_parity`` for phi4-mini-3.8b at 4 layers
+   (flash forward with lse and backward at the GQA group of 3).
+36. ``phi4_train`` -- phi4-mini-3.8b at full width and depth (32 layers; 71.2
+   GB of fp32 weights, gradients and AdamW moments): ``train``'s 8 steps,
+   checks and reports.
+37. ``granite_serve`` -- granite-8b (GQA 32:8, rope_theta 1e7) at full width
+   and depth (36 layers) through ``serve``.
+38. ``examples`` (before ``roofline``) -- the four ``repro_torch.examples``
+   (quickstart, serve, schedule_and_launch on a world of one, elastic_failover)
+   on the card through their ``main()``: their asserts, their closing ``OK``,
+   their scheduling output and launches.
 
 The parallelism layer (``repro_torch.parallel``, the meshed steps of
 ``train/train_step.py``) runs in three phases.  One card holds one rank (NCCL
@@ -194,7 +220,8 @@ Then the ``kernels`` summary line (the three forwards and the three
 backwards: launches over every main path -- serve, zamba, train,
 zamba_train, moe_serve, moe_train, vlm_train, xlstm, xlstm_train, whisper,
 whisper_train, mesh_train, mesh_serve, mesh_serve_zamba, mesh_serve_xlstm,
-save_tp -- error, times and roofline
+save_tp, dbrx_serve, phi4_serve, phi4_train, granite_serve, examples -- error,
+times and roofline
 bound per kernel), the host's CPU model, the card as ``nvidia-smi`` names it,
 and the verdict as the last line.  There is no CPU path: without a CUDA device the
 script exits non-zero before printing anything.
@@ -994,14 +1021,18 @@ def ssd_bwd_case(b: int, H: int, s: int, P: int, N: int, chunk: int, dtype: torc
     return case
 
 
-def kernels_phase(cfg, zcfg, mcfg, qcfg, vcfg, xcfg, wcfg, dev: torch.device) -> dict[str, dict]:
+def kernels_phase(cfg, zcfg, mcfg, qcfg, vcfg, xcfg, wcfg, dcfg, pcfg, gcfg,
+                  dev: torch.device) -> dict[str, dict]:
     """Every kernel case; returns the case of each kernel at its main paths'
     heaviest shape (zamba2-2.7b's 32k prefill for the three forwards,
     minicpm-2b's training step for the RMSNorm and flash backwards, zamba2's
     for the SSD backward).  ``qcfg``/``vcfg``: qwen3-moe-235b-a22b's and
     phi-3-vision-4.2b's shapes (flash at hd 96 on both routes); ``xcfg``/
     ``wcfg``: xlstm-350m's and whisper-tiny's (flash without a causal mask,
-    and over more keys than queries, on both routes)."""
+    and over more keys than queries, on both routes); ``dcfg``/``pcfg``/
+    ``gcfg``: dbrx-132b's, phi4-mini-3.8b's and granite-8b's (GQA 6:1, 3:1
+    and 4:1 at hd 128; phi4-mini's training step, forward with lse and
+    backward)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     hd = cfg.resolved_head_dim
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -1154,11 +1185,35 @@ def kernels_phase(cfg, zcfg, mcfg, qcfg, vcfg, xcfg, wcfg, dev: torch.device) ->
                        flash_bwd_case(b, wh, wh, sq, skv, whd, dt, gen, iters, True, causal=causal),
                        flash_lse_case(b, wh, wh, sq, whd, dt, gen, skv=skv, causal=causal))),
     ]
+    new_config_cases = config_cases(dcfg, pcfg, gcfg, gen)
     emit({"phase": "kernels", "cases": cases + zamba_cases + train_cases + zamba_train_cases
-          + moe_vlm_cases + ssm_audio_cases})
+          + moe_vlm_cases + ssm_audio_cases + new_config_cases})
     return {"rmsnorm": rmsnorm_main, "flash_attention": flash_main, "ssd_chunk_scan": ssd_main,
             "rmsnorm_bwd": rmsnorm_bwd_main, "flash_attention_bwd": flash_bwd_main,
             "ssd_chunk_scan_bwd": ssd_bwd_main}
+
+
+def config_cases(dcfg, pcfg, gcfg, gen: torch.Generator) -> list[dict]:
+    """dbrx-132b's and granite-8b's largest prefill bucket (GQA 48:8 and 32:8
+    at hd 128; d 6144 and 4096), phi4-mini-3.8b's (24:8, d 3072) and its
+    training step: 4 x 1024 tokens, forward with lse and backward at the odd
+    group of 3, its norms forward and backward."""
+    bf16, b = torch.bfloat16, TRAIN_BATCH
+    ph, pkv, phd, pd = pcfg.n_heads, pcfg.n_kv_heads, pcfg.resolved_head_dim, pcfg.d_model
+    return [
+        flash_case(1, dcfg.n_heads, dcfg.n_kv_heads, 1024, 1024, dcfg.resolved_head_dim, bf16,
+                   gen, 20, True),
+        flash_case(1, gcfg.n_heads, gcfg.n_kv_heads, 1024, 1024, gcfg.resolved_head_dim, bf16,
+                   gen, 20, True),
+        flash_case(1, ph, pkv, 1024, 1024, phd, bf16, gen, 20, True),
+        flash_case(b, ph, pkv, TRAIN_SEQ, TRAIN_SEQ, phd, bf16, gen, 10, True, with_lse=True),
+        flash_bwd_case(b, ph, pkv, TRAIN_SEQ, TRAIN_SEQ, phd, bf16, gen, 10, True),
+        flash_lse_case(b, ph, pkv, TRAIN_SEQ, phd, bf16, gen),
+        rmsnorm_case((1, 1024, dcfg.d_model), bf16, gen, 200),
+        rmsnorm_case((1, 1024, pd), bf16, gen, 200),
+        rmsnorm_case((b, TRAIN_SEQ, pd), bf16, gen, 50),
+        rmsnorm_bwd_case((b, TRAIN_SEQ, pd), bf16, gen, 50),
+    ]
 
 
 # ------------------------------------------------------------------- parity
@@ -1170,6 +1225,27 @@ def plain_kernels(keep: str | None = None):
     """Route the model's kernel calls, all but ``keep``'s, to the plain
     versions (comparison only)."""
     return mock.patch.multiple(ops, **{name: fn for name, fn in PLAIN.items() if name != keep})
+
+
+@contextlib.contextmanager
+def cpu_branch_kernels():
+    """Every kernel call of ``ops`` on a CUDA tensor computes what ``ops``
+    computes for a CPU tensor -- the plain forwards and, where autograd
+    records, the plain analytic backwards -- so that a step on the card takes
+    the route the dry run's trace takes on meta (comparison only)."""
+    def flash(q, k, v, causal, with_lse=False):
+        _fa.check_shapes(q, k, v, causal)
+        if not with_lse:
+            return ref.flash_attention_ref(q, k, v, causal)
+        out32, lse = ref.flash_attention_lse_ref(q.float(), k.float(), v.float(), causal)
+        out = out32.to(q.dtype)
+        return out, lse, None if q.dtype == torch.float32 else (out32 - out.float()).to(q.dtype)
+
+    with mock.patch.object(_fa, "flash_attention_cuda", flash), \
+            mock.patch.object(_fa, "flash_attention_bwd_cuda", ref.flash_attention_bwd_ref), \
+            mock.patch.object(_rms, "rmsnorm_cuda", ref.rmsnorm_ref), \
+            mock.patch.object(_rms, "rmsnorm_bwd_cuda", ref.rmsnorm_bwd_ref):
+        yield
 
 
 def leaf_paths(tree, path: str = "") -> list[str]:
@@ -1253,6 +1329,11 @@ def parity_phase(cfg, dev: torch.device) -> None:
 # parallelism layer (ROADMAP A6).
 MOE_SERVE_LAYERS = 12
 MOE_TRAIN_LAYERS = 1
+# dbrx-132b (16 experts of 10752, top-4): 6.52 GB of bf16 weights a layer
+# (3.259 G parameters) and 2.47 GB of embedding and untied head; serving keeps
+# 9 of its 40 layers (61.1 GB).  Its training is left to more than one card:
+# one layer's fp32 state alone is 16 B x 4.49 G = 71.9 GB.
+DBRX_SERVE_LAYERS = 9
 
 
 def recorded_routes():
@@ -1283,7 +1364,7 @@ def pinned_routes(log):
     return flips, mock.patch.object(model_layers, "moe_route", route)
 
 
-def moe_parity_phase(cfg, dev: torch.device, n_layers: int = 2) -> None:
+def moe_parity_phase(cfg, dev: torch.device, n_layers: int = 2, phase: str = "moe_parity") -> None:
     """qwen3-moe-235b-a22b at full width and ``n_layers`` layers: one padded
     prefill (its bucket's padding routes and takes capacity, as in the
     reference) and a few paged decode steps (8 lanes, 7 idle, which route
@@ -1325,7 +1406,7 @@ def moe_parity_phase(cfg, dev: torch.device, n_layers: int = 2) -> None:
         torch.cuda.synchronize()
         return outs
 
-    report = {"phase": "moe_parity", "model": cfg.name, "n_layers": n_layers,
+    report = {"phase": phase, "model": cfg.name, "n_layers": n_layers,
               "n_experts": cfg.n_experts, "top_k": cfg.top_k, "prompt_len": prompt_len,
               "bucket": bucket, "decode_steps": n_decode,
               "rule": "the plain run takes the kernel run's routing choices; fp32: its own "
@@ -1342,7 +1423,7 @@ def moe_parity_phase(cfg, dev: torch.device, n_layers: int = 2) -> None:
         with plain_kernels(), pinning:
             through_plain = run(model, params)
         if ops.launch_counts() != counts or counts["flash_attention"] != n_layers:
-            raise AssertionError(f"moe_parity: the plain run launched kernels, or the kernel run "
+            raise AssertionError(f"{phase}: the plain run launched kernels, or the kernel run "
                                  f"did not: {counts} -> {ops.launch_counts()}")
         # every routed (token, layer, k): the bucket's padding and the idle lanes too
         n_routes = sum(i.numel() for i, _ in log)
@@ -1351,15 +1432,15 @@ def moe_parity_phase(cfg, dev: torch.device, n_layers: int = 2) -> None:
         finite = all(torch.isfinite(a).all().item() for a in through_kernels)
         if dtype == torch.float32:
             if flipped:
-                raise AssertionError(f"moe_parity float32: {flipped} of {n_routes} routes differ")
-            diff = max(compare(a, b, "moe_parity float32 logits")
+                raise AssertionError(f"{phase} float32: {flipped} of {n_routes} routes differ")
+            diff = max(compare(a, b, f"{phase} float32 logits")
                        for a, b in zip(through_kernels, through_plain))
             tol = TOL[dtype]
         else:
             diff = max((a - b).abs().max().item() for a, b in zip(through_kernels, through_plain))
             tol = TOL[dtype] * scale
         if not finite or not diff <= tol:
-            raise AssertionError(f"moe_parity {name}: max abs logit diff {diff} > {tol} "
+            raise AssertionError(f"{phase} {name}: max abs logit diff {diff} > {tol} "
                                  f"(finite={finite})")
         report[name] = {"max_abs_logit_diff": diff, "tol": tol, "max_abs_logit": scale,
                         "routes": n_routes, "routes_the_plain_run_would_flip": flipped,
@@ -2758,18 +2839,178 @@ def _stop(procs: dict) -> None:
             proc.wait()
 
 
-def dryrun_phase(started: dict) -> None:
-    """Waits for ``start_dryrun``'s processes and prints each record's status,
-    chips, peak bytes per device and roofline terms.  Rules: every process
-    returns 0, every record ``ok`` on 256 chips with a roofline whose
-    collective bytes are positive and a positive peak, whisper-tiny's decode
-    cell's under the card's 80 GiB (the reference test's cell; what
-    ``MemTracker`` reports depends on the torch release: PERF.md, PR 26)."""
+# ----------------------------------------------------------------- examples
+def examples_phase() -> dict[str, int]:
+    """The four examples (``repro_torch.examples``) on the card, as a user runs
+    ``python -m repro_torch.examples.<name>``: each ``main()`` with its
+    default device, its own asserts, and its last printed line (``OK``).
+    Returns the launches of all four (the reduced models' fp32 trainings and
+    serving go through the kernels)."""
+    import io
+
+    from repro_torch.examples import elastic_failover, quickstart, schedule_and_launch
+    from repro_torch.examples import serve as serve_example
+
+    report = {"phase": "examples"}
+    totals = None
+    for name, module in (("quickstart", quickstart), ("serve", serve_example),
+                         ("schedule_and_launch", schedule_and_launch),
+                         ("elastic_failover", elastic_failover)):
+        printed = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            out = module.main()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        last = printed.getvalue().rstrip().splitlines()[-1]
+        if not last.startswith("OK"):
+            raise AssertionError(f"examples {name}: last line {last!r}")
+        totals = counts if totals is None else {k: totals[k] + counts[k] for k in totals}
+        report[name] = {"seconds": seconds, "last_line": last, "launches": counts, "result": out}
+    emit(report)
+    return totals
+
+
+#: the dry run's mesh: (data, model) = (16, 16)
+DRYRUN_MESH = {"data": 16, "model": 16}
+
+
+def dryrun_reckoning(arch: str, shape_name: str, record: dict) -> dict:
+    """A closed-form reckoning of a cell's peak bytes a device on
+    DRYRUN_MESH, the terms the traced step holds at once (bytes, each term
+    an upper estimate): the arguments (the record's local shards); every
+    weight gathered whole over ``data`` for the step (its bytes over the
+    ``model`` shards ``param_spec`` gives it, ZeRO-3's all-gather at use),
+    and the receive buffer of the largest beside it;
+    for a train step at one microbatch of b sequences of s tokens, the layer
+    inputs remat keeps (L x b s d in bf16), one layer's recompute (the plain
+    attention's backward holds four fp32 s x s products a head -- P, dP,
+    dP - D, dS -- on the heads ``model`` splits, and a dozen d-wide and three
+    ffn-wide fp32 rows a token), the fp32 logits and their gradient on the
+    vocabulary's shard, and the fp32 gradients of the local shards; for a
+    decode step, one layer's attention over its cache shard (K and V
+    repeated to the query heads in bf16, K upcast to fp32 and made
+    contiguous, three fp32 score rows) and the fp32 logits."""
+    from repro_torch.configs import SHAPES
+
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    data, model = DRYRUN_MESH["data"], DRYRUN_MESH["model"]
+    params = build_model(cfg, ModelOptions("bfloat16", "bfloat16"), "meta").init()
+
+    def split(path, leaf, axes):
+        spec = shd.param_spec(path, leaf.shape, DRYRUN_MESH)
+        named = {a for part in spec for a in (part if isinstance(part, tuple) else (part,)) if a}
+        return math.prod(DRYRUN_MESH[a] for a in named & set(axes))
+
+    leaves = []
+    shd.map_with_path(lambda path, leaf: leaves.append((path, leaf)), params)
+    gathered = sum(t.numel() * t.element_size() / split(p, t, ("model",)) for p, t in leaves)
+    terms = {"arguments": record["memory"]["argument_bytes_per_device"],
+             "gathered_weights": gathered}
+    hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    vocab = cfg.padded_vocab // model if cfg.padded_vocab % model == 0 else cfg.padded_vocab
+    if shape.kind == "train":
+        b = shape.global_batch // data // record["microbatches"]
+        s, d = shape.seq_len, cfg.d_model
+        heads = hq // model if hq % model == 0 else hq
+        ffn = cfg.d_ff // model if cfg.d_ff % model == 0 else cfg.d_ff
+        terms["layer_inputs_remat_keeps"] = cfg.n_layers * b * s * d * 2
+        terms["one_layer_recompute"] = 4 * b * heads * s * s * 4 + b * s * (12 * d + 3 * ffn) * 4
+        terms["logits_and_gradient"] = 2 * b * s * vocab * 4
+        terms["gradients"] = sum(t.numel() * 4 / split(p, t, ("data", "model")) for p, t in leaves)
+    else:
+        lanes = shape.global_batch // data
+        if hkv % model == 0:
+            heads, slots = hq // model, shape.seq_len
+        else:
+            heads, slots = hq, shape.seq_len // model
+        group = heads // (hkv // model if hkv % model == 0 else hkv)
+        cache = lanes * slots * heads * hd
+        terms["one_layer_attention"] = (2 * cache * 2 * (group > 1) + 2 * cache * 4
+                                        + 3 * lanes * heads * slots * 4)
+        terms["logits"] = lanes * vocab * 4
+    # a leaf gathered along a dimension other than its first holds the
+    # collective's receive buffer beside the gathered result while it is joined
+    terms["gather_buffer"] = max(t.numel() * t.element_size() / split(p, t, ("model",))
+                                 for p, t in leaves)
+    terms["total"] = sum(terms.values())
+    return terms
+
+
+#: the cell the card runs for real beside its trace: minicpm-2b at full width
+#: and 4 layers, train_4k's sequence, the one microbatch of 2 sequences that a
+#: device of the single-pod mesh holds, the meshed step on a world of one
+DRYRUN_REAL_LAYERS, DRYRUN_REAL_BATCH = 4, 2
+#: |counted - allocated| <= this share of the allocator's peak (its 512-byte
+#: rounding and the CUDA ops' internal workspaces)
+DRYRUN_REAL_RULE = 0.03
+
+
+def dryrun_real_cell(mcfg, dev: torch.device) -> dict:
+    """The dry run's count of a cell against the card: the step traced on
+    meta in a ``fake`` world of one (``dryrun._trace``, its peak above the
+    arguments), then the same step on the card (``dryrun._cell_step`` on
+    ``dev``, NCCL world of one) with the plain versions in place of the
+    kernels' calls, as the trace takes them on meta (``cpu_branch_kernels``:
+    the plain attention's s x s products, which the flash kernel never
+    allocates): its peak above what
+    was allocated before, ``max_memory_allocated`` after
+    ``reset_peak_memory_stats``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    cfg = dataclasses.replace(mcfg, n_layers=DRYRUN_REAL_LAYERS)
+    shape = ShapeSpec("train_4k_one_device", 4096, DRYRUN_REAL_BATCH, "train")
+    opts = dryrun.options_for(cfg.name, "train_4k")
+    with dryrun.fake_world(1):
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        trace = dryrun._trace(cfg, shape, mesh, opts, 1)
+    counted = trace.peak_bytes - trace.argument_bytes
+    with process_group("cuda"):
+        args, step, arg_bytes = dryrun._cell_step(cfg, shape, world_of_one_mesh(), opts, 1,
+                                                  device=dev)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with cpu_branch_kernels():
+            out = step(*args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        allocated = torch.cuda.max_memory_allocated() - before
+        loss = float(out[2]["loss"])
+        del args, step, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"model": cfg.name, "n_layers": cfg.n_layers, "batch": [DRYRUN_REAL_BATCH, 4096],
+            "microbatches": 1, "attention": "plain (s x s scores), as the trace",
+            "argument_bytes": trace.argument_bytes, "argument_bytes_on_card": arg_bytes,
+            "counted_step_bytes": counted, "allocated_step_bytes": allocated,
+            "rel_diff": abs(counted - allocated) / allocated, "rule": DRYRUN_REAL_RULE,
+            "trace_s": trace.seconds, "step_s": seconds, "loss": loss}
+
+
+def dryrun_phase(started: dict, mcfg, dev: torch.device) -> None:
+    """Runs ``dryrun_real_cell`` while ``start_dryrun``'s processes run on the
+    host, then waits for them and prints each record's status, chips, peak
+    bytes per device (the port's own account, ``StepCounts``) beside its
+    ``dryrun_reckoning``, and roofline terms.  Rules: the real cell's count
+    within DRYRUN_REAL_RULE of the card's allocator; every process returns
+    0, every record ``ok`` on 256 chips with positive collective bytes, and
+    its peak at or above its arguments and at or below its reckoning."""
     import shutil
 
     report = {"phase": "dryrun", "mesh": "single", "cells": {}}
     failures = []
     try:
+        real = dryrun_real_cell(mcfg, dev)
+        report["real_cell"] = real
+        if not real["rel_diff"] <= DRYRUN_REAL_RULE:
+            failures.append(("real cell", real))
         for (arch, shape), proc in started["procs"].items():
             out, _ = proc.communicate(timeout=600)
             key = f"{arch} x {shape}"
@@ -2779,16 +3020,19 @@ def dryrun_phase(started: dict) -> None:
             with open(os.path.join(started["dir"], f"{arch}_{shape}", "dryrun.jsonl")) as f:
                 rec = json.loads(f.readline())
             rl = rec.get("roofline", {})
+            reckoning = dryrun_reckoning(arch, shape, rec)
             report["cells"][key] = {
                 "status": rec["status"], "chips": rec.get("chips"), "trace_s": rec.get("trace_s"),
-                "peak_bytes_per_device": rec.get("memory", {}).get("peak_bytes_per_device"),
+                "microbatches": rec.get("microbatches"), **rec.get("memory", {}),
+                "reckoning": reckoning,
                 **{k: rl.get(k) for k in ("hlo_flops", "collective_bytes", "collectives",
                                           "compute_s", "memory_s", "collective_s", "dominant",
                                           "useful_ratio")}}
             cell = report["cells"][key]
-            fits = arch != "whisper-tiny" or cell["peak_bytes_per_device"] < 80 * 2**30
-            if not (cell["status"] == "ok" and cell["chips"] == 256 and fits
-                    and (cell["collective_bytes"] or 0) > 0 and cell["peak_bytes_per_device"] > 0):
+            peak = cell.get("peak_bytes_per_device") or 0
+            within = cell.get("argument_bytes_per_device", 0) <= peak <= reckoning["total"]
+            if not (cell["status"] == "ok" and cell["chips"] == 256 and within
+                    and (cell["collective_bytes"] or 0) > 0):
                 failures.append((key, cell))
     finally:
         _stop(started["procs"])
@@ -3445,7 +3689,8 @@ def main() -> None:
     cfg, zcfg, mcfg = get_config("glm4-9b"), get_config("zamba2-2.7b"), get_config("minicpm-2b")
     qcfg, vcfg = get_config("qwen3-moe-235b-a22b"), get_config("phi-3-vision-4.2b")
     xcfg, wcfg = get_config("xlstm-350m"), get_config("whisper-tiny")
-    cases = kernels_phase(cfg, zcfg, mcfg, qcfg, vcfg, xcfg, wcfg, dev)
+    dcfg, pcfg, gcfg = get_config("dbrx-132b"), get_config("phi4-mini-3.8b"), get_config("granite-8b")
+    cases = kernels_phase(cfg, zcfg, mcfg, qcfg, vcfg, xcfg, wcfg, dcfg, pcfg, gcfg, dev)
     torch.cuda.empty_cache()   # the 32k plain attention's graph pool
     parity_phase(cfg, dev)
     placed = placement_phase(card, cpu)
@@ -3509,6 +3754,24 @@ def main() -> None:
         profile_train_phase(*train_state, phase="profile_moe_train")
     del train_state
     torch.cuda.empty_cache()
+    moe_parity_phase(dcfg, dev, 2, "dbrx_parity")
+    torch.cuda.empty_cache()
+    dbrx_serve_counts, model, params = serve_phase(dcfg, dev, DBRX_SERVE_LAYERS, "dbrx_serve")
+    del model, params
+    torch.cuda.empty_cache()
+    phi4_serve_counts, model, params = serve_phase(pcfg, dev, pcfg.n_layers, "phi4_serve")
+    del model, params
+    torch.cuda.empty_cache()
+    train_parity_phase(pcfg, dev, 4, "phi4_train_parity")
+    torch.cuda.empty_cache()
+    # full depth fits: 71.2 GB of fp32 state (16 B x 4.45 G), its untied
+    # 200 192-column head's logits and their gradient (2 x 3.28 GB) on top
+    phi4_train_counts, *train_state = train_phase(pcfg, dev, phase="phi4_train")
+    del train_state
+    torch.cuda.empty_cache()
+    granite_serve_counts, model, params = serve_phase(gcfg, dev, gcfg.n_layers, "granite_serve")
+    del model, params
+    torch.cuda.empty_cache()
     train_parity_phase(vcfg, dev, 4, "vlm_train_parity")
     torch.cuda.empty_cache()
     vlm_train_counts, *train_state = train_phase(vcfg, dev, phase="vlm_train")
@@ -3549,19 +3812,24 @@ def main() -> None:
         profile_train_phase(*train_state, phase="profile_whisper_train")
     del train_state
     torch.cuda.empty_cache()
+    examples_counts = examples_phase()
+    torch.cuda.empty_cache()
     dry = start_dryrun()   # host processes, beside the roofline phase's counting on meta
     roofline_phase(mcfg, cfg, zcfg, glm4_times)
-    dryrun_phase(dry)
+    dryrun_phase(dry, mcfg, dev)
     # every kernel ran on a main path: the three forwards on zamba2's, rmsnorm
-    # and flash attention on glm4's and qwen3-moe's serving and on every
-    # training, their backwards on every training, the SSD scan's forward and
+    # and flash attention on every serving (glm4's, qwen3-moe's, dbrx's,
+    # phi4-mini's, granite's) and on every training (the examples' trainers
+    # too), their backwards on every training, the SSD scan's forward and
     # backward on zamba2's training; rmsnorm and its backward on the xLSTM's
     # paths, both with flash attention and its backward on Whisper's (its
     # serving's flash in prefill_cross)
-    trained = (train_counts, moe_train_counts, vlm_train_counts, mesh_train_counts, save_tp_counts)
+    trained = (train_counts, moe_train_counts, vlm_train_counts, mesh_train_counts, save_tp_counts,
+               phi4_train_counts, examples_counts)
+    served = (serve_counts, moe_serve_counts, dbrx_serve_counts, phi4_serve_counts,
+              granite_serve_counts)
     if min(zamba_counts[k] for k in ("rmsnorm", "flash_attention", "ssd_chunk_scan")) <= 0 or \
-            min(c[k] for c in (serve_counts, moe_serve_counts)
-                for k in ("rmsnorm", "flash_attention")) <= 0 or \
+            min(c[k] for c in served for k in ("rmsnorm", "flash_attention")) <= 0 or \
             min(c["rmsnorm"] for c in (mesh_serve_counts, mesh_zamba_counts, mesh_xlstm_counts)) <= 0 or \
             min(c[k] for c in trained for k in ("rmsnorm", "flash_attention", "rmsnorm_bwd",
                                                 "flash_attention_bwd")) <= 0 or \
@@ -3579,11 +3847,15 @@ def main() -> None:
                              f"whisper {whisper_counts}, whisper_train {whisper_train_counts}, "
                              f"mesh_train {mesh_train_counts}, mesh_serve {mesh_serve_counts}, "
                              f"mesh_serve_zamba {mesh_zamba_counts}, mesh_serve_xlstm "
-                             f"{mesh_xlstm_counts}, save_tp {save_tp_counts}")
+                             f"{mesh_xlstm_counts}, save_tp {save_tp_counts}, dbrx_serve "
+                             f"{dbrx_serve_counts}, phi4_serve {phi4_serve_counts}, granite_serve "
+                             f"{granite_serve_counts}, phi4_train {phi4_train_counts}, examples "
+                             f"{examples_counts}")
     paths = (serve_counts, zamba_counts, train_counts, zamba_train_counts, moe_serve_counts,
              moe_train_counts, vlm_train_counts, xlstm_counts, xlstm_train_counts,
              whisper_counts, whisper_train_counts, mesh_train_counts, mesh_serve_counts,
-             mesh_zamba_counts, mesh_xlstm_counts, save_tp_counts)
+             mesh_zamba_counts, mesh_xlstm_counts, save_tp_counts, dbrx_serve_counts,
+             phi4_serve_counts, phi4_train_counts, granite_serve_counts, examples_counts)
 
     def summary(name: str, source: str, replaces: str) -> dict:
         case = cases[name]

@@ -36,9 +36,12 @@ the reference's per-device ``cost_analysis`` times the chips:
 * collective bytes by kind: ``roofline.CollectiveBytes``.
 
 Memory per device: ``argument_bytes_per_device`` is the local shards of the
-parameters, optimizer state, batch and cache; ``temp_bytes_per_device`` is
-``MemTracker``'s peak during the step less the arguments; their sum is
-``peak_bytes_per_device``.
+parameters, optimizer state, batch and cache; ``temp_bytes_per_device`` is the
+most that the storages the step creates hold at once (``StepCounts``'s own
+account: a storage's bytes from the op that creates it until its last tensor
+dies, a view or an in-place result never, a DTensor by its local shard); their
+sum is ``peak_bytes_per_device``.  The trace takes the plain attention, so the
+figure holds its s x s scores, which the flash kernel never allocates.
 
 As in the reference, the analysis counts run at one microbatch (the true
 count with ``analysis_true_microbatches``) and, above 48 layers or 2
@@ -60,8 +63,10 @@ import pathlib
 import sys
 import time
 import traceback
+import weakref
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs import ARCHS, SHAPES, get_config
@@ -147,8 +152,15 @@ _ALLOCATIONS = frozenset({"empty", "empty_strided", "empty_like", "new_empty",
 
 
 class StepCounts(CollectiveBytes):
-    """``CollectiveBytes`` plus the FLOPs (``flop_counter``'s formulas) and
-    the bytes every op that is not a view or an allocation reads and writes."""
+    """``CollectiveBytes`` plus the FLOPs (``flop_counter``'s formulas), the
+    bytes every op that is not a view or an allocation reads and writes, and
+    the step's memory: ``live_bytes`` is what the storages that the step's ops
+    created hold now, ``peak_bytes`` the most they held at once.  A storage
+    counts from the op whose output first holds it until its last tensor dies
+    (``weakref.finalize`` on the untyped storage); an output that shares a
+    storage already counted, an input's or an argument's (:meth:`hold`) -- a
+    view, an in-place or ``out=`` result -- adds nothing.  A DTensor op is
+    counted as the ops on its local shards, so a DTensor counts by its shard."""
 
     def __init__(self):
         super().__init__()
@@ -157,6 +169,30 @@ class StepCounts(CollectiveBytes):
         self.registry = flop_registry
         self.flops = 0
         self.op_bytes = 0
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self._held: dict[int, int] = {}   # id of a counted or held storage -> its bytes
+
+    def hold(self, tree) -> None:
+        """Mark the storages of ``tree``'s tensors (the step's arguments, their
+        local shards) as held before the step: never counted by it."""
+        for t in tree_leaves(tree):
+            if isinstance(t, torch.Tensor):
+                self._see((t.to_local() if shd.is_dtensor(t) else t).untyped_storage(),
+                          count=False)
+
+    def _see(self, storage, count: bool) -> None:
+        key = id(storage)
+        if key in self._held:
+            return
+        nbytes = storage.nbytes() if count else 0
+        self._held[key] = nbytes
+        self.live_bytes += nbytes
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        weakref.finalize(storage, self._release, key)
+
+    def _release(self, key: int) -> None:
+        self.live_bytes -= self._held.pop(key)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = super().__torch_dispatch__(func, types, args, kwargs)
@@ -167,6 +203,12 @@ class StepCounts(CollectiveBytes):
             self.flops += formula(*args, **(kwargs or {}), out_val=out)
         if not func.is_view and func._overloadpacket.__name__ not in _ALLOCATIONS:
             self.op_bytes += tensor_bytes((args, kwargs)) + tensor_bytes(out)
+        if not func.is_view:
+            self.hold((args, kwargs))   # an input made before the step is not the step's
+            for t in tree_leaves(out):
+                # a factory op under DTensor's shape propagation makes a fake tensor
+                if isinstance(t, torch.Tensor) and not isinstance(t, FakeTensor):
+                    self._see(t.untyped_storage(), count=True)
         return out
 
 
@@ -176,13 +218,21 @@ def local_bytes(tree) -> int:
                          for t in tree_leaves(tree) if isinstance(t, torch.Tensor)])
 
 
-def _cell_step(cfg, shape, mesh, opts: ModelOptions, microbatches: int, rules=None):
+def _cell_step(cfg, shape, mesh, opts: ModelOptions, microbatches: int, rules=None,
+               device=META):
     """(args, step): the cell's inputs laid out as its meshed step holds them,
     and ``step(*args)`` running one step; also the local bytes of the
-    arguments."""
-    model = build_model(cfg, opts, META)
+    arguments.  On a ``device`` other than meta the step is real: parameters
+    drawn from seed 0, inputs zeros of the specs' shapes (a train or prefill
+    cell)."""
+    model = build_model(cfg, opts, device)
     specs = input_specs(cfg, shape, opts)
-    params = model.init()
+    if model.device == META:
+        params = model.init()
+    else:
+        params = model.init(torch.Generator(device=model.device).manual_seed(0))
+        specs = {k: torch.zeros(v.shape, dtype=v.dtype, device=model.device)
+                 for k, v in specs.items()}
     if shape.kind == "train":
         step = make_train_step(model, AdamWConfig(lr=3e-4), mesh, microbatches, rules)
         lay = step.state_shardings(params)
@@ -219,28 +269,20 @@ class Trace:
     counts: StepCounts
     argument_bytes: int
     output_bytes: int
-    peak_bytes: int | None   # MemTracker's peak, arguments included
+    peak_bytes: int   # the arguments plus the step's own peak
     seconds: float
 
 
-def _trace(cfg, shape, mesh, opts, microbatches, rules=None, memory: bool = False) -> Trace:
-    """One step of the cell, counted (and with ``memory`` under MemTracker)."""
+def _trace(cfg, shape, mesh, opts, microbatches, rules=None) -> Trace:
+    """One step of the cell, counted."""
     args, step, arg_bytes = _cell_step(cfg, shape, mesh, opts, microbatches, rules)
     counts = StepCounts()
-    peak = None
+    counts.hold(args)
     t0 = time.perf_counter()
-    if memory:
-        from torch.distributed._tools.mem_tracker import MemTracker
-
-        tracker = MemTracker()
-        tracker.track_external(*[t for t in tree_leaves(args) if isinstance(t, torch.Tensor)])
-        with tracker, counts:
-            out = step(*args)
-        peak = sum(d["Total"] for d in tracker.get_tracker_snapshot("peak").values())
-    else:
-        with counts:
-            out = step(*args)
-    return Trace(counts, arg_bytes, local_bytes(out), peak, time.perf_counter() - t0)
+    with counts:
+        out = step(*args)
+    return Trace(counts, arg_bytes, local_bytes(out), arg_bytes + counts.peak_bytes,
+                 time.perf_counter() - t0)
 
 
 def grid_points(cfg, microbatches: int) -> tuple[tuple, tuple]:
@@ -345,7 +387,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             rules = shd.default_rules(mesh.mesh_dim_names)
             rules.update(rule_overrides)
 
-        prod = _trace(cfg, shape, mesh, opts, mb, rules, memory=True)
+        prod = _trace(cfg, shape, mesh, opts, mb, rules)
         record = {
             "arch": arch, "shape": shape_name, "mesh": mesh_name, "status": "ok",
             "chips": chips, "microbatches": mb,

@@ -58,7 +58,7 @@ def traced(cfg, opts, microbatches: int = 1):
 
     with dryrun.fake_world(4):
         mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
-        return dryrun._trace(cfg, CELL, mesh, opts, microbatches, memory=True)
+        return dryrun._trace(cfg, CELL, mesh, opts, microbatches)
 
 
 @pytest.fixture(scope="module")
@@ -90,6 +90,83 @@ def test_memory_of_the_traced_step(minicpm):
     n = sum(t.numel() for t in tree_leaves(build_model(cfg, opts, "meta").init()))
     assert 10 * n / 4 <= trace.argument_bytes < 10 * n / 2
     assert trace.peak_bytes > trace.argument_bytes
+
+
+def test_the_memory_account_by_hand():
+    """``StepCounts``'s account on a (2, 2) fake world: a storage counts from
+    the op that creates it until its last tensor dies; a view and an in-place
+    result add nothing; a DTensor counts by its local shard; an argument,
+    passed twice, is held and never counted."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
+
+    with dryrun.fake_world(4):
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        x = DTensor.from_local(torch.empty(32, 16, device="meta"), mesh, [Shard(0), Shard(1)])
+        counts = dryrun.StepCounts()
+        counts.hold((x, x))
+        with counts:
+            a = torch.empty(1000, device="meta")   # 4000 bytes
+            y = x * 2                                # a (32, 16) fp32 shard: 2048
+            v = y.t()                                # a view: 0
+            y.add_(1)                                # in place: 0
+            z = a + x.to_local().sum()               # 4000 (the scalar sum: 4)
+            live = counts.live_bytes
+            del a, z
+            w = v * 1                                # 2048
+        assert (x * 1).shape == (64, 32)             # outside the account
+    assert live == 4000 + 2048 + 4000
+    assert counts.peak_bytes == 4000 + 2048 + 4 + 4000   # the sum's scalar, until z is made
+    assert counts.live_bytes == 2048 + 2048          # y (through v) and w
+    del y, v, w
+    assert counts.live_bytes == 0
+
+
+def test_the_peak_of_a_decode_cell_by_hand():
+    """A meshed decode step of reduced glm4-9b (4 layers, 4 query heads on 2 kv
+    heads of 16) on a (2, 2) fake world, 8 lanes over an 8192-slot bf16 cache:
+    each rank holds 4 lanes and 1 kv head.  Above its arguments, the step's
+    peak is one layer's attention over its cache shard (``attention_decode``):
+    K and V repeated to the rank's 2 query heads in bf16, K upcast to fp32 and
+    made contiguous for the product, the fp32 scores.  Rule: the count equals
+    that reckoning within 2 % (the token's projections, norms and mask ride on
+    top)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    cfg = get_config("glm4-9b").reduced()
+    opts = dryrun.options_for("glm4-9b", "decode_32k")
+    lanes, slots, heads, hd = 8 // 2, 8192, cfg.n_heads // 2, cfg.resolved_head_dim
+    with dryrun.fake_world(4):
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        trace = dryrun._trace(cfg, ShapeSpec("probe", slots, 8, "decode"), mesh, opts, 1)
+    repeated = lanes * slots * heads * hd * 2                  # bf16, K and V
+    upcast = lanes * slots * heads * hd * 4                    # fp32 K, and its contiguous copy
+    scores = lanes * heads * slots * 4
+    reckoning = 2 * repeated + 2 * upcast + scores
+    temp = trace.peak_bytes - trace.argument_bytes
+    assert abs(temp - reckoning) <= 0.02 * reckoning, (temp, reckoning)
+
+
+def test_a_real_step_counts_what_its_trace_counts():
+    """The account of a real step on the CPU (reduced minicpm-2b's meshed
+    train step in a fake world of one, 2 x 256 tokens) equals the account of
+    its trace on meta, peak and arguments, to the byte."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    cfg = get_config("minicpm-2b").reduced()
+    cell = ShapeSpec("probe", 256, 2, "train")
+    opts = dryrun.options_for("minicpm-2b", "train_4k")
+    with dryrun.fake_world(1):
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        trace = dryrun._trace(cfg, cell, mesh, opts, 1)
+        args, step, arg_bytes = dryrun._cell_step(cfg, cell, mesh, opts, 1, device="cpu")
+        counts = dryrun.StepCounts()
+        counts.hold(args)
+        with counts:
+            step(*args)
+    assert arg_bytes == trace.argument_bytes
+    assert counts.peak_bytes == trace.peak_bytes - trace.argument_bytes > 0
 
 
 def test_bilinear_fit_equals_the_full_depth_trace():

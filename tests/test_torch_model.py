@@ -34,6 +34,29 @@ def pair():
     return make_pair(jax_get_config("glm4-9b").reduced(), get_config("glm4-9b").reduced())
 
 
+#: reduced configurations with their published GQA group kept (the reduced
+#: config's 4 heads share 4 kv heads): granite-8b 32:8 (and rope_theta 1e7),
+#: phi4-mini-3.8b 24:8, an odd group of 3
+GQA_KEPT = {"granite-8b": dict(n_heads=8, n_kv_heads=2),
+            "phi4-mini-3.8b": dict(n_heads=6, n_kv_heads=2)}
+
+
+def reduced_pair(name: str):
+    cj, ct = (dataclasses.replace(get(name).reduced(), **GQA_KEPT.get(name, {}))
+              for get in (jax_get_config, get_config))
+    return make_pair(cj, ct, seed=2)
+
+
+@pytest.fixture(scope="module")
+def pair_granite():
+    return reduced_pair("granite-8b")
+
+
+@pytest.fixture(scope="module")
+def pair_phi4():
+    return reduced_pair("phi4-mini-3.8b")
+
+
 @pytest.fixture(scope="module")
 def pair_vocab500():
     """vocab 500 pads to 512: the logits mask is live."""
@@ -131,7 +154,7 @@ def _prefill_both(jm, jp, tm, tp, prompt, bucket, table):
 
 
 class TestLogitsParity:
-    @pytest.mark.parametrize("which", ["pair", "pair_vocab500"])
+    @pytest.mark.parametrize("which", ["pair", "pair_vocab500", "pair_granite", "pair_phi4"])
     def test_prefill_paged(self, which, request):
         jm, jp, tm, tp = request.getfixturevalue(which)
         rng = np.random.default_rng(0)
@@ -144,7 +167,7 @@ class TestLogitsParity:
             close(pages_t[n][:, :N_PAGES], pages_j[n])
         assert int(got[0, 5].argmax()) == int(np.asarray(want)[0, 5].argmax())
 
-    @pytest.mark.parametrize("which", ["pair", "pair_vocab500"])
+    @pytest.mark.parametrize("which", ["pair", "pair_vocab500", "pair_granite", "pair_phi4"])
     def test_decode_step_paged_after_prefill(self, which, request):
         jm, jp, tm, tp = request.getfixturevalue(which)
         rng = np.random.default_rng(1)
@@ -167,7 +190,7 @@ class TestLogitsParity:
         for n in ("k", "v"):
             close(pages_t[n][:, :N_PAGES], pages_j[n])
 
-    @pytest.mark.parametrize("which", ["pair", "pair_vocab500"])
+    @pytest.mark.parametrize("which", ["pair", "pair_vocab500", "pair_granite", "pair_phi4"])
     def test_decode_step_dense(self, which, request):
         jm, jp, tm, tp = request.getfixturevalue(which)
         rng = np.random.default_rng(2)

@@ -164,8 +164,15 @@ class TestAdamW:
 
 
 # ---------------------------------------------------------- loss and grads
+#: reduced configurations that keep their published GQA group (the reduced
+#: config's 4 heads share 4 kv heads): granite-8b 32:8, phi4-mini-3.8b 24:8
+GQA_KEPT = {"granite-8b": dict(n_heads=8, n_kv_heads=2),
+            "phi4-mini-3.8b": dict(n_heads=6, n_kv_heads=2)}
+
+
 def model_pair(arch: str, remat: bool, vocab: int | None = None, seed: int = 0):
-    cfg_j, cfg_t = jax_get_config(arch).reduced(), get_config(arch).reduced()
+    cfg_j, cfg_t = (dataclasses.replace(get(arch).reduced(), **GQA_KEPT.get(arch, {}))
+                    for get in (jax_get_config, get_config))
     if vocab is not None:
         cfg_j, cfg_t = (dataclasses.replace(c, vocab=vocab) for c in (cfg_j, cfg_t))
     jm = jax_build_model(cfg_j, JaxOptions(compute_dtype="float32", remat=remat))
@@ -202,6 +209,8 @@ def bf16_weights(jax_params: dict, cfg) -> dict:
     _case("minicpm-2b", True, 2, None),
     _case("minicpm-2b", True, 1, 500),    # padded vocab: the logits mask is live
     _case("glm4-9b", False, 1, None),     # GQA, untied lm_head
+    _case("granite-8b", False, 1, None),  # rope_theta 1e7, untied lm_head
+    _case("phi4-mini-3.8b", True, 2, None),   # untied lm_head, remat, 2 microbatches
     # bf16 weights (the port's default), fp32 compute: only the sum differs
     _case("minicpm-2b", False, 1, None, "bfloat16"),
     _case("minicpm-2b", False, 2, None, "bfloat16"),
