@@ -17,7 +17,9 @@ raises and the script exits non-zero:
    without a causal mask over 1500 frames and across 448 queries to 1500
    keys, forward and backward on both routes; dbrx-132b's, granite-8b's and
    phi4-mini-3.8b's prefill at GQA 6:1, 4:1 and 3:1, phi4-mini's training
-   step's flash forward with lse and backward and its norms; plus ragged,
+   step's flash forward with lse and backward and its norms; a rank's shards
+   of glm4-9b's step on four cards, flash at GQA 16:1 with one KV head,
+   forward with lse and backward; plus ragged,
    unaligned and small cases), holds
    the result against the plain PyTorch version on the same inputs, and times
    kernel, plain version and the one PyTorch library call that computes the
@@ -202,8 +204,17 @@ With ``--cards 4`` (four cards of one host) only ``env``, ``build`` and
 ``mesh_cards`` run: ``mesh_host``'s world on NCCL, rank r on ``cuda:r``, the
 kernels on the local shards, held to ``mesh_host``'s rules and with the
 meshed train step's launches equal to the unmeshed step's; then the launcher
-with ``--devices 4 --mesh-shape 2x2 --arnold --scheduler mip`` (rc 0); no
-``kernels`` line.
+with ``--devices 4 --mesh-shape 2x2 --arnold --scheduler mip`` (rc 0); then
+``mesh_cards_glm4``: glm4-9b at full width and depth trained through the
+launcher (``--full --devices 4 --mesh-shape 2x2 --arnold``, 8 steps of 8 x
+1024 tokens at peak lr TRAIN_LR, a checkpoint at step 8, then ``--steps 9``
+restoring it; 112.8 GB of fp32 state, a checkpoint as large: it needs room
+for two on the temporary directory's file system or the checkout's, and
+rank 0 holds one on the host while it saves), each rank's peak before step 1
+and its launches a step, step 1's loss against an unmeshed bf16 forward on
+one card, and one step of its own world profiled on rank 0 (NCCL's device
+ms and bytes by kind) beside Eq. 1's volumes and the dry run's count of the
+cell; no ``kernels`` line.
 
 With ``--profile`` further phases, after ``serve``, ``zamba``,
 ``train_parity``, ``train``, ``zamba_train``, ``moe_serve``, ``moe_train``,
@@ -1186,6 +1197,14 @@ def kernels_phase(cfg, zcfg, mcfg, qcfg, vcfg, xcfg, wcfg, dcfg, pcfg, gcfg,
                        flash_lse_case(b, wh, wh, sq, whd, dt, gen, skv=skv, causal=causal))),
     ]
     new_config_cases = config_cases(dcfg, pcfg, gcfg, gen)
+    # glm4-9b's meshed training step on four cards, a (2, 2) mesh: each rank's
+    # local shards, 4 of the 8 sequences, 16 of the 32 q heads on 1 of the 2
+    # KV heads (GQA 16:1), forward with lse and backward
+    gh, gkv, gb = cfg.n_heads // 2, cfg.n_kv_heads // 2, GLM4_CARDS_BATCH // 2
+    new_config_cases += [
+        flash_case(gb, gh, gkv, TRAIN_SEQ, TRAIN_SEQ, hd, bf16, gen, 10, True, with_lse=True),
+        flash_bwd_case(gb, gh, gkv, TRAIN_SEQ, TRAIN_SEQ, hd, bf16, gen, 10, True),
+    ]
     emit({"phase": "kernels", "cases": cases + zamba_cases + train_cases + zamba_train_cases
           + moe_vlm_cases + ssm_audio_cases + new_config_cases})
     return {"rmsnorm": rmsnorm_main, "flash_attention": flash_main, "ssd_chunk_scan": ssd_main,
@@ -2519,9 +2538,12 @@ def mesh_host_phase(device_type: str = "cpu") -> None:
     NCCL, rank r on ``cuda:r``, the phase ``mesh_cards``, where the meshed
     train step must also launch each kernel as often as the unmeshed one, at
     least once): the meshed train step on a (2, 2)
-    ("data", "model") mesh for reduced minicpm-2b, qwen3-moe-235b-a22b and
-    zamba2-2.7b (3 fp32 steps against the unmeshed step, 1e-4; every leaf a
-    local shard of its spec's shape), the seq-sharded decode (1e-4 against
+    ("data", "model") mesh for reduced minicpm-2b, qwen3-moe-235b-a22b,
+    zamba2-2.7b and glm4-9b (3 fp32 steps against the unmeshed step, 1e-4;
+    every leaf a local shard of its spec's shape), the trainer's state of
+    reduced glm4-9b made in its layout (bit for bit ``model.init`` gathered,
+    its losses within 1e-6 of the whole-tree init's, a save's host copy on
+    rank 0 alone, the restore bit for bit), the seq-sharded decode (1e-4 against
     the unsharded decode, the seq-sharded branch taken; with 2 KV heads the
     head-sharded decode), zamba2's, the xLSTM's and Whisper's decodes (1e-4
     against their unmeshed decodes, every cache leaf in its
@@ -2564,6 +2586,15 @@ def mesh_host_phase(device_type: str = "cpu") -> None:
                 if case["mesh_launches"] != case["plain_launches"] or \
                         not {"rmsnorm", "rmsnorm_bwd"} <= set(used):
                     failures.append((key, case["mesh_launches"], case["plain_launches"]))
+    tr = got["trainer"]   # reduced glm4-9b's state made laid out, trained, saved, restored
+    report["trainer"] = {k: tr[k] for k in ("sharded_init", "whole_init", "host_copies_by_rank",
+                                            "restored_step")}
+    if tr["init_not_bitwise"] or tr["init_wrong_layouts"] or tr["moments_wrong"] or \
+            not max(abs(a - b) for a, b in zip(tr["sharded_init"], tr["whole_init"])) <= 1e-6 or \
+            tr["host_copies_by_rank"] != [tr["leaves"], 0, 0, 0] or \
+            tr["restored_step"] != (3, 3) or tr["restore_not_bitwise"] or \
+            tr["restore_wrong_layouts"]:
+        failures.append(("trainer", tr))
     for key, seq in (("decode", True), ("decode_heads", False)):
         dec = got[key]
         report[key] = {"max_abs_logit_diff": float(np.abs(dec["mesh"] - dec["plain"]).max()),
@@ -2600,6 +2631,269 @@ def mesh_host_phase(device_type: str = "cpu") -> None:
     if failures:
         raise AssertionError(f"{report['phase']}: {failures}")
     emit(report)
+
+
+# ---------------------------------------- four cards: glm4-9b through the launcher
+GLM4_CARDS_STEPS, GLM4_CARDS_BATCH = 8, 8
+GLM4_CARDS_ARGV = ("--arch", "glm4-9b", "--full", "--devices", "4", "--mesh-shape", "2x2",
+                   "--arnold", "--global-batch", str(GLM4_CARDS_BATCH), "--seq-len", str(TRAIN_SEQ),
+                   "--lr", str(TRAIN_LR), "--log-every", "1", "--ckpt-every", str(GLM4_CARDS_STEPS))
+GLM4_CARDS_LOSS_RULE = 1e-2      # step 1's loss against an unmeshed bf16 forward's
+GLM4_CARDS_INIT_SLACK = 0.05     # a rank's peak before step 1 over its shards + the largest leaf
+STEP_LINE = re.compile(r"^step\s+(\d+)\s+loss (\S+)\s+gnorm (\S+)\s+(\d+) ms$", re.M)
+RANK_LINE = re.compile(r"rank (\d+) on (cuda:\d+): ")
+#: NCCL's kernels by the collective kinds of ``launch.roofline.CollectiveBytes``
+NCCL_KINDS = (("AllGather", "all-gather"), ("ReduceScatter", "reduce-scatter"),
+              ("AllReduce", "all-reduce"))
+
+
+def launcher_run(argv: list[str], timeout: float) -> dict:
+    """``python -m repro_torch.launch.train`` with ``argv``, a process of its
+    own whose ranks are its children: its exit code and seconds, the steps it
+    logged, each rank's report (``rank R on cuda:I: {...}``) and its Arnold
+    line.  Its lines other than the ranks' reports are printed as they are."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *argv], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    out = proc.stdout
+    for line in out.splitlines():
+        print(f"  launcher: {line}", flush=True)
+    ranks, decoder = {}, json.JSONDecoder()
+    for m in RANK_LINE.finditer(out):   # a rank's report is one write, whole
+        ranks[int(m[1])] = {"device": m[2], **decoder.raw_decode(out, m.end())[0]}
+    arnold = re.search(r"^Arnold placement .*$", out, re.M)
+    return {"rc": proc.returncode, "seconds": seconds, "stderr_tail": proc.stderr[-3000:],
+            "steps": {int(m[1]): {"loss": float(m[2]), "grad_norm": float(m[3]), "ms": int(m[4])}
+                      for m in STEP_LINE.finditer(out)},
+            "ranks": ranks, "arnold": arnold[0] if arnold else None,
+            "done": "done: first logged loss" in out}
+
+
+def checkpoint_room(need: int) -> str:
+    """A new directory with room for ``need`` bytes of checkpoints: in shared
+    memory (``/dev/shm``) when the host's available memory holds them with
+    64 GiB to spare for the ranks, else under the temporary directory or the
+    checkout's ``build/`` where the file system has room.  Memory first: the
+    checkpoints live only until the restart has read them, so they need not
+    go through a disk."""
+    import shutil
+
+    free = {}
+    spare = host_memory()["MemAvailable"] - 64 * 2**30
+    for root in ("/dev/shm", tempfile.gettempdir(), os.path.join(ROOT, "build")):
+        if root != "/dev/shm":
+            os.makedirs(root, exist_ok=True)
+        elif not os.path.isdir(root):
+            continue
+        free[root] = shutil.disk_usage(root).free
+        if free[root] >= need and (root != "/dev/shm" or spare >= need):
+            return tempfile.mkdtemp(prefix="glm4_ckpt_", dir=root)
+    raise AssertionError(f"no room for two glm4-9b checkpoints ({need} B): free {free}, "
+                         f"host memory to spare {spare}")
+
+
+def host_memory() -> dict:
+    """MemTotal and MemAvailable of the host, bytes."""
+    with open("/proc/meminfo") as f:
+        info = dict(line.split(":", 1) for line in f)
+    return {k: int(info[k].split()[0]) * 1024 for k in ("MemTotal", "MemAvailable")}
+
+
+def glm4_dryrun_cell() -> dict:
+    """The dry run's count of the four-card cell (glm4-9b, 8 x 1024 tokens, the
+    launcher's recipe) on a (2, 2) fake world: rank 0's peak bytes, its
+    arguments' bytes and the collectives' bytes by kind.  A host process:
+    meta tensors, no card."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    opts = ModelOptions(param_dtype="float32", compute_dtype="bfloat16", remat=True)
+    t0 = time.perf_counter()
+    with dryrun.fake_world(4):
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        trace = dryrun._trace(get_config("glm4-9b"),
+                              ShapeSpec("cards", TRAIN_SEQ, GLM4_CARDS_BATCH, "train"), mesh, opts, 1)
+    return {"peak_bytes": trace.peak_bytes, "argument_bytes": trace.argument_bytes,
+            "collective_bytes": trace.counts.bytes, "collective_calls": trace.counts.counts,
+            "trace_s": time.perf_counter() - t0}
+
+
+def glm4_step_rank(rank: int) -> dict | None:
+    """One rank of the four-card world that measures glm4-9b's meshed step
+    (the launcher's recipe, its state made laid out from seed 0, the naive
+    (2, 2) mesh: on one host Arnold's order is the same): a warm-up step, a
+    step under ``CollectiveBytes`` (bytes by kind, on every rank) and one under
+    torch.profiler on rank 0 (NCCL's kernels by kind, device ms).  Rank 0's
+    report; None elsewhere."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.transformer import init_laid_out
+
+    cfg = get_config("glm4-9b")
+    dev = torch.device("cuda", rank)
+    model = build_model(cfg, ModelOptions("float32", "bfloat16", remat=True), dev)
+    mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_LR), mesh=mesh)
+    params = init_laid_out(model, torch.Generator(dev).manual_seed(0),
+                           lambda t: step.state_shardings(t)["params"])
+    state = init_opt_state(params, step.state_shardings(params)["opt"]["m"])
+    data = SyntheticDataset(cfg.vocab, TRAIN_SEQ, GLM4_CARDS_BATCH, seed=0)
+    params, state, metrics = step(params, state, data.batch(0))
+    float(metrics["loss"])
+    counted = rf.CollectiveBytes()
+    with counted:
+        params, state, metrics = step(params, state, data.batch(1))
+        float(metrics["loss"])
+    torch.cuda.synchronize()
+    prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if rank == 0
+            else contextlib.nullcontext())
+    with prof:
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, data.batch(2))
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if rank != 0:
+        return None
+    busy = 0.0
+    nccl = {kind: {"ms": 0.0, "kernels": 0} for _, kind in NCCL_KINDS}
+    other_nccl = 0.0
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "device_time", None)
+        ms = (evt.cuda_time if us is None else us) / 1e3
+        busy += ms
+        if "nccl" in evt.name.lower():
+            kind = next((k for frag, k in NCCL_KINDS if frag in evt.name), None)
+            if kind is None:
+                other_nccl += ms
+            else:
+                nccl[kind]["ms"] += ms
+                nccl[kind]["kernels"] += 1
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "device_idle_share": 1 - busy / wall_ms,
+            "nccl": nccl, "nccl_other_ms": other_nccl,
+            "collective_bytes": counted.bytes, "collective_calls": counted.counts,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+
+
+@torch.no_grad()
+def glm4_unmeshed_loss(cfg) -> float:
+    """glm4-9b's bf16 forward loss on one card (cuda:0), unmeshed: the
+    launcher's init (fp32 masters from seed 0) and its first batch."""
+    dev = torch.device("cuda", 0)
+    model = build_model(cfg, ModelOptions("float32", "bfloat16", remat=False), dev)
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    batch = batch_to_device(SyntheticDataset(cfg.vocab, TRAIN_SEQ, GLM4_CARDS_BATCH,
+                                             seed=0).batch(0), dev)
+    loss = float(model.loss(params, batch)[0])
+    del params
+    torch.cuda.empty_cache()
+    return loss
+
+
+def mesh_cards_glm4_phase(card: str) -> dict[str, int]:
+    """glm4-9b at full width and depth (40 layers, d 4096, 32/2 heads of 128,
+    vocab 151 552) trained through the launcher on the four cards' (2, 2)
+    Arnold mesh: 8 steps (falling loss, rc 0, a checkpoint at step 8), then
+    ``--steps 9`` on the same directory (step 8 restored into the layout, step
+    9 logged); each rank's peak before step 1 at most its shards + the largest
+    leaf + 5 %, its launches each step ``train_launches``'; step 1's loss
+    within 1e-2 of an unmeshed bf16 forward's on one card (same init, same
+    batch); then one step of a world of its own measured (``glm4_step_rank``)
+    beside Eq. 1's volumes of the job and the dry run's count of the cell.
+    Returns the kernels' launches over every rank and step of both runs."""
+    cfg = get_config("glm4-9b")
+    opts = ModelOptions("float32", "bfloat16", remat=True)
+    n = sum(t.numel() for t in tree_leaves(build_model(cfg, opts, "meta").init()))
+    largest = 4 * cfg.padded_vocab * cfg.d_model
+    state = 12 * n   # fp32 parameters, m and v
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    dry = subprocess.Popen(   # a host process beside the cards' work
+        [sys.executable, "-c", "import json, chip_smoke; "
+         "print(json.dumps(chip_smoke.glm4_dryrun_cell()))"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    atexit.register(_stop, {"glm4_dryrun": dry})
+    report = {"phase": "mesh_cards_glm4", "card": card, "parameters": n, "state_bytes": state,
+              "largest_leaf_bytes": largest, "host_memory": host_memory()}
+    ckpt = checkpoint_room(2 * state + 2 * 2**30)
+    import shutil
+
+    report["ckpt_free_bytes"] = shutil.disk_usage(ckpt).free
+    try:
+        first = launcher_run([*GLM4_CARDS_ARGV, "--steps", str(GLM4_CARDS_STEPS),
+                              "--ckpt-dir", ckpt], 600)
+        if first["rc"] != 0 or sorted(first["steps"]) != list(range(1, GLM4_CARDS_STEPS + 1)):
+            raise AssertionError(f"mesh_cards_glm4: the launcher returned {first['rc']}, steps "
+                                 f"{sorted(first['steps'])}: {first['stderr_tail']}")
+        report["ckpt_bytes"] = sum(os.path.getsize(os.path.join(d, f))
+                                   for d, _, fs in os.walk(ckpt) for f in fs)
+        second = launcher_run([*GLM4_CARDS_ARGV, "--steps", str(GLM4_CARDS_STEPS + 1),
+                               "--ckpt-dir", ckpt], 420)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    # one logged loss cannot fall: the launcher's rule returns 1 for the
+    # restart, which must log step 9 alone and finish
+    if sorted(second["steps"]) != [GLM4_CARDS_STEPS + 1] or not second["done"]:
+        raise AssertionError(f"mesh_cards_glm4: the restart logged steps {sorted(second['steps'])} "
+                             f"(rc {second['rc']}): {second['stderr_tail']}")
+    t0 = time.perf_counter()
+    from repro_torch.launch.mesh import spawn
+
+    measured = spawn(glm4_step_rank, 4, "cuda")[0]
+    measured["world_s"] = time.perf_counter() - t0
+    unmeshed = glm4_unmeshed_loss(cfg)
+    dry_out, _ = dry.communicate(timeout=600)
+    if dry.returncode != 0:
+        raise AssertionError(f"the glm4-9b dry-run cell failed ({dry.returncode})")
+    _, job = launch_train.arnold_job(cfg, launch_train._parse(
+        [*GLM4_CARDS_ARGV, "--steps", str(GLM4_CARDS_STEPS)]))
+    job = build_comm_matrix(job)
+    expected = train_launches(cfg, remat=True)
+    failures = []
+    for name, run in (("first", first), ("restart", second)):
+        if sorted(run["ranks"]) != [0, 1, 2, 3]:
+            failures.append((name, "rank reports", sorted(run["ranks"])))
+            continue
+        for r, rep in run["ranks"].items():
+            steps = sum(n for n, _ in rep["launches"])
+            if steps != len(run["steps"]) or any(c != expected for _, c in rep["launches"]):
+                failures.append((name, r, "launches", rep["launches"][:2]))
+            if name == "first" and rep["init_peak_bytes"] > \
+                    (rep["state_bytes"] + largest) * (1 + GLM4_CARDS_INIT_SLACK):
+                failures.append((name, r, "init peak", rep["init_peak_bytes"], rep["state_bytes"]))
+    losses = [first["steps"][s]["loss"] for s in sorted(first["steps"])]
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        failures.append(("losses", losses))
+    if not abs(losses[0] - unmeshed) <= GLM4_CARDS_LOSS_RULE:
+        failures.append(("step 1 against the unmeshed forward", losses[0], unmeshed))
+    if not (first["arnold"] or "").endswith("pods=1 spread(data axis)=1"):
+        failures.append(("arnold", first["arnold"]))
+    steps_ms = [first["steps"][s]["ms"] for s in sorted(first["steps"])][1:]
+    report.update({
+        "arnold": first["arnold"], "losses": losses, "restart_step": second["steps"],
+        "unmeshed_bf16_loss": unmeshed, "step1_abs_diff": abs(losses[0] - unmeshed),
+        "loss_rule": GLM4_CARDS_LOSS_RULE, "median_step_ms": float(np.median(steps_ms)),
+        "tokens_per_s": GLM4_CARDS_BATCH * TRAIN_SEQ / (float(np.median(steps_ms)) / 1e3),
+        "launcher_s": [first["seconds"], second["seconds"]], "launcher_rc": [first["rc"],
+                                                                             second["rc"]],
+        "ranks": {name: {r: {k: v for k, v in rep.items() if k != "launches"}
+                         for r, rep in run["ranks"].items()}
+                  for name, run in (("first", first), ("restart", second))},
+        "launches_a_step": expected, "measured_step": measured,
+        "eq1": {"v_w": job.v_w, "v_d": job.v_d, "v_p": job.v_p, "shape": list(job.shape)},
+        "dryrun": json.loads(dry_out.strip().splitlines()[-1]),
+    })
+    emit(report)
+    if failures:
+        raise AssertionError(f"mesh_cards_glm4: {failures}")
+    runs = [rep["launches"] for run in (first, second) for rep in run["ranks"].values()]
+    return {k: sum(n * c[k] for steps in runs for n, c in steps) for k in expected}
 
 
 # ------------------------------------------- remat policy, roofline, dry run
@@ -3644,7 +3938,8 @@ def main() -> None:
                         help="print each kernel's registers and shared memory from the build")
     parser.add_argument("--cards", type=int, default=1, choices=(1, 4),
                         help="4: instead of every phase, only mesh_host's world on NCCL over "
-                             "4 cards (the phase mesh_cards)")
+                             "4 cards (the phase mesh_cards), the launcher on them and glm4-9b "
+                             "trained through it (mesh_cards_glm4)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -3681,6 +3976,7 @@ def main() -> None:
             emit({"phase": "mesh_cards_launcher", "rc": rc, "seconds": time.perf_counter() - t0})
         if rc != 0:
             raise AssertionError(f"the launcher on 4 cards returned {rc}")
+        mesh_cards_glm4_phase(card)
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})

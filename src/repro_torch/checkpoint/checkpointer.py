@@ -4,16 +4,20 @@ retention -- the reference's ``checkpoint/checkpointer.py`` for the port.
 
 Tensors are copied from their device to host numpy when ``save`` is called
 (bf16 stored as a ``uint16`` view, as the reference stores it, since numpy has
-no bf16), so training may go on while the async thread writes.  ``restore``
+no bf16): leaf by leaf as each is written, or the whole tree before an async
+save returns, so training may go on while the async thread writes.  ``restore``
 puts every leaf back on the template leaf's device in its dtype.  A Python int
 (the optimizer's step counter) is a leaf too.  The trainer's fault
 tolerance rests on this: saves are atomic, and ``latest_step`` plus the
 deterministic data stream make a restart exact.
 
-A DTensor leaf (a meshed trainer) is gathered whole on every rank -- each rank
-of the process group calls ``save`` and ``restore`` -- and rank 0 alone
-writes, once; the others wait for the write at a barrier.  ``restore`` with
-``shardings`` lays each leaf out again as the meshed step holds it.
+A DTensor leaf (a meshed trainer) is gathered leaf by leaf -- each rank of
+the process group calls ``save`` and ``restore``, and every rank takes part in
+each leaf's gather, a collective -- and rank 0 alone makes the host copy and
+writes, once; the others free each gathered leaf at once and wait for the
+write at a barrier.  ``restore`` with ``shardings`` cuts each leaf, as it is
+read, to this rank's shard of the layout the meshed step holds it in: only
+the shard goes to the device.
 """
 
 from __future__ import annotations
@@ -65,26 +69,37 @@ def _barrier() -> None:
         dist.barrier()
 
 
-def _to_host(leaf) -> tuple[np.ndarray, str]:
-    """(array, dtype name); the name of a Python int is "int"."""
+def _to_host(leaf, keep: bool = True) -> tuple[np.ndarray | None, str]:
+    """(array, dtype name); the name of a Python int is "int".  A DTensor
+    leaf is gathered whole first (every rank must call this for it);
+    ``keep=False``: no host copy is made, the array is None."""
     if isinstance(leaf, int):
         return np.asarray(leaf), "int"
-    leaf = full_tensor(leaf)
-    t = leaf.detach().to("cpu", copy=True)   # a snapshot: training updates in place
+    whole = full_tensor(leaf)
+    if not keep:
+        return None, ""
+    t = whole.detach().to("cpu", copy=True)   # a snapshot: training updates in place
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     arr = t.numpy()
     return arr, str(arr.dtype)
 
 
-def _from_host(arr: np.ndarray, name: str, template):
+def _host_tensor(arr: np.ndarray, name: str) -> torch.Tensor:
+    if name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _from_host(arr: np.ndarray, name: str, template, sharding=None):
+    """The leaf on ``template``'s device in its dtype; with a ``sharding``
+    this rank's shard of it, cut on the host, as a DTensor."""
     if name == "int":
         return int(arr.item())
-    if name == "bfloat16":
-        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(arr)
-    return t.to(device=template.device, dtype=template.dtype)
+    t = _host_tensor(arr, name)
+    if sharding is None:
+        return t.to(device=template.device, dtype=template.dtype)
+    return distribute(t, sharding, device=template.device, dtype=template.dtype)
 
 
 class Checkpointer:
@@ -97,11 +112,15 @@ class Checkpointer:
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree) -> pathlib.Path:
-        """Atomic save; with use_async=True returns once the tree is copied
-        to host memory, and a thread writes it."""
-        host = [(k, *_to_host(v)) for k, v in _flatten(tree)]
+        """Atomic save.  Each leaf is copied to host memory in turn and
+        written before the next is copied, so the host holds one leaf at a
+        time; with use_async=True the whole tree is copied first (a snapshot:
+        training goes on and updates it in place), ``save`` returns, and a
+        thread writes it."""
         rank, grouped = _world()
+        host = ((k, *_to_host(v, keep=rank == 0)) for k, v in _flatten(tree))
         if self.use_async:
+            host = list(host)
             self.wait()
             if rank == 0:
                 self._pending = threading.Thread(target=self._write, args=(step, host),
@@ -110,6 +129,9 @@ class Checkpointer:
         else:
             if rank == 0:
                 self._write(step, host)
+            else:   # every rank takes part in each leaf's gather
+                for _ in host:
+                    pass
             _barrier()
         return self.dir / f"step_{step}"
 
@@ -168,6 +190,7 @@ class Checkpointer:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
         path = self.dir / f"step_{step}"
         manifest = json.loads((path / "manifest.json").read_text())["leaves"]
+        layouts = dict(_flatten(shardings)) if shardings is not None else {}
         leaves = {}
         for key, tmpl in _flatten(template):
             if key not in manifest:
@@ -177,9 +200,5 @@ class Checkpointer:
             shape = tuple(tmpl.shape) if isinstance(tmpl, torch.Tensor) else ()
             if tuple(arr.shape) != shape:
                 raise ValueError(f"{key}: ckpt shape {arr.shape} != template {shape}")
-            leaves[key] = _from_host(arr, entry["dtype"], tmpl)
-        if shardings is not None:
-            for key, sharding in _flatten(shardings):
-                if sharding is not None:
-                    leaves[key] = distribute(leaves[key], sharding)
+            leaves[key] = _from_host(arr, entry["dtype"], tmpl, layouts.get(key))
         return _unflatten(template, leaves)

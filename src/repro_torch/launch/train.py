@@ -16,10 +16,17 @@ the ``--scheduler`` policy (a registry name or a comma chain, as the
 reference's) and prints ``Arnold placement [method]: pods=... spread(data
 axis)=...``.  A job is node-granular (8 GPUs a node), so the placement is of
 the job rounded up to whole nodes and the mesh takes its first ``d * m`` GPUs
-in Arnold's logical order.
+in Arnold's logical order.  Each rank makes its state in the meshed step's
+layout (``Trainer._init_state``) and never holds the whole of it; on ``cuda``
+each rank prints, after the run, ``rank R on cuda:I: {...}``: the peak of
+allocated bytes before step 1 (``init_peak_bytes``, with the bytes of its
+state's shards, ``state_bytes``), the peak over the steps and checkpoint
+saves (``step_peak_bytes``), and the kernels' launches of each step (``[steps,
+{kernel: launches}]`` for each run of steps that launched alike).
 """
 
 import argparse
+import json
 import math
 import os
 import sys
@@ -107,6 +114,42 @@ def _mesh(cfg, args, device_type: str):
     return DeviceMesh(device_type, torch.as_tensor(ranks), mesh_dim_names=("data", "model"))
 
 
+def _measured(step_fn, report: dict):
+    """``step_fn`` recording into ``report`` what ``_train`` prints of a rank
+    on ``cuda``: on its first call the allocator's peak so far (the state's
+    init or restore) and the local bytes of that state, then the kernels'
+    launches of every call; the allocator's peak is reset before step 1."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import tree_leaves
+
+    def local_bytes(tree) -> int:
+        return sum((t.to_local() if ops.is_dtensor(t) else t).nbytes
+                   for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
+
+    report["launches"] = []   # [steps, launches of each of them], a run of equal steps each
+
+    def step(params, opt_state, batch):
+        if "init_peak_bytes" not in report:
+            torch.cuda.synchronize()
+            report["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+            report["state_bytes"] = local_bytes([params, opt_state])
+            torch.cuda.reset_peak_memory_stats()
+        before = ops.launch_counts()
+        out = step_fn(params, opt_state, batch)
+        after = ops.launch_counts()
+        launches = {k: after[k] - before[k] for k in after}
+        if report["launches"] and report["launches"][-1][1] == launches:
+            report["launches"][-1][0] += 1
+        else:
+            report["launches"].append([1, launches])
+        return out
+
+    step.state_shardings = step_fn.state_shardings
+    return step
+
+
 def _train(rank, args) -> int:
     """Train on this process: one device when ``rank`` is None, else rank
     ``rank`` of the started process group on the mesh.  Returns the exit
@@ -156,10 +199,18 @@ def _train(rank, args) -> int:
             flush=True,
         )) if talk else None,
     )
+    report: dict = {}
     if meshed:
         mesh = _mesh(cfg, args, torch.device(device).type)
         trainer.step_fn = make_train_step(model, opt, mesh=mesh, microbatches=args.microbatches)
+        if model.device.type == "cuda":
+            trainer.step_fn = _measured(trainer.step_fn, report)
     trainer.run()
+    if report:
+        torch.cuda.synchronize()
+        report["step_peak_bytes"] = torch.cuda.max_memory_allocated()
+        sys.stdout.flush()   # one write: the ranks share the launcher's output
+        os.write(sys.stdout.fileno(), f"rank {rank} on {device}: {json.dumps(report)}\n".encode())
 
     losses = trainer.losses()
     if not losses:

@@ -26,7 +26,9 @@ Two deliberate differences from the reference, both invisible in results:
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 
@@ -38,6 +40,40 @@ MASK_VALUE = -1e30
 
 
 # ------------------------------------------------------------------- init
+class _Making(threading.local):
+    hooks: tuple = ()
+
+
+_MAKING = _Making()
+
+
+def made(leaf: torch.Tensor) -> torch.Tensor:
+    """Every parameter a model's ``init`` makes passes through here once it is
+    whole, in the order it is drawn.  Inside :func:`making` each hook, the one
+    entered last first, replaces it by what it returns (``init_on_meta``'s
+    meta tensor, ``transformer.init_laid_out``'s local shard), outside any
+    fake-tensor mode; outside, the leaf is returned as it is."""
+    if not _MAKING.hooks:
+        return leaf
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with unset_fake_temporarily():
+        for hook in reversed(_MAKING.hooks):
+            leaf = hook(leaf)
+    return leaf
+
+
+@contextlib.contextmanager
+def making(hook):
+    """Run ``hook(leaf) -> leaf`` on every leaf :func:`made` sees here."""
+    prev = _MAKING.hooks
+    _MAKING.hooks = prev + (hook,)
+    try:
+        yield
+    finally:
+        _MAKING.hooks = prev
+
+
 def dense_init(generator: torch.Generator, shape: tuple[int, ...], in_axis: int = 0,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Truncated-normal (+-2 sigma) fan-in init, drawn in fp32 on the
@@ -48,11 +84,11 @@ def dense_init(generator: torch.Generator, shape: tuple[int, ...], in_axis: int 
     w = torch.empty(shape, dtype=torch.float32, device=generator.device)
     w.uniform_(2.0 * lo - 1.0, 2.0 * hi - 1.0, generator=generator)
     w.erfinv_().mul_(math.sqrt(2.0) * std).clamp_(-2.0 * std, 2.0 * std)
-    return w.to(dtype)
+    return made(w.to(dtype))
 
 
 def init_rmsnorm(d: int, device: torch.device | str = "cpu") -> dict:
-    return {"norm_scale": torch.ones(d, dtype=torch.float32, device=device)}
+    return {"norm_scale": made(torch.ones(d, dtype=torch.float32, device=device))}
 
 
 def init_attention(generator: torch.Generator, d_model: int, n_heads: int, n_kv_heads: int,

@@ -125,23 +125,81 @@ def init_on_meta(init):
     builds -- the same paths, shapes and dtypes -- as meta tensors, drawing
     nothing (the counterpart of ``jax.eval_shape`` of the reference's
     ``init``).  ``init`` runs for a CPU twin of the model under
-    ``FakeTensorMode``, so no storage is allocated either."""
+    ``FakeTensorMode``, so no storage is allocated either; each leaf becomes
+    a meta tensor as it is made (``layers.made``), before any outer hook sees
+    it."""
     @functools.wraps(init)
     def wrapper(self, generator: torch.Generator | None = None) -> dict:
         if self.device.type != "meta":
             return init(self, generator)
         from torch._subclasses.fake_tensor import FakeTensorMode
 
-        from repro_torch.parallel.sharding import map_with_path
-
         twin = copy.copy(self)
         twin.device = torch.device("cpu")
-        with FakeTensorMode():
+        to_meta = lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta")  # noqa: E731
+        with FakeTensorMode(), L.making(to_meta):
             tree = init(twin, torch.Generator())
-        return map_with_path(lambda _, t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
-                             tree)
+        _check_made(tree, lambda t: t.device.type == "meta")
+        return tree
 
     return wrapper
+
+
+def _check_made(tree, ok) -> None:
+    """Raise, naming them, on the leaves of ``tree`` for which ``ok`` is false:
+    leaves an ``init`` made without ``layers.made``."""
+    from repro_torch.parallel.sharding import map_with_path
+
+    bad = []
+    map_with_path(lambda path, t: None if ok(t) else bad.append(path), tree)
+    if bad:
+        raise RuntimeError(f"init made {', '.join(bad[:3])}{' and more' if len(bad) > 3 else ''} "
+                           "without layers.made")
+
+
+def init_laid_out(model, generator: torch.Generator | None, layouts) -> dict:
+    """``model.init(generator)`` laid out as it is drawn: the same leaves from
+    the same generator in the same order, each drawn whole on the model's
+    device, replaced at once by this rank's local shard of it (a DTensor by
+    ``layouts(template)``, a tree of ``parallel.sharding.NamedSharding`` for
+    the tree ``init`` builds) and freed before the next is drawn.  Gathered,
+    the tree is ``model.init(generator)`` bit for bit; a rank holds at most
+    its shards and one whole leaf.  The template and the order the leaves are
+    made in come from a first ``init`` under ``FakeTensorMode`` (of a CPU twin
+    for a model on ``meta``), which allocates nothing and draws nothing from
+    ``generator``.  Raises if a leaf is made outside
+    ``layers.made``: it would be laid out whole."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.parallel import sharding as shd
+
+    order: list = []
+    record = lambda t: order.append(t) or t  # noqa: E731
+    twin = model
+    if model.device.type == "meta":   # its init would make meta leaves
+        twin = copy.copy(model)
+        twin.device = torch.device("cpu")
+    with FakeTensorMode(), L.making(record):
+        template = twin.init(torch.Generator(device=twin.device))
+    paths: dict = {}
+    shd.map_with_path(lambda path, t: paths.setdefault(id(t), path), template)
+    if len(paths) != len(order) or any(id(t) not in paths for t in order):
+        raise RuntimeError(f"{type(model).__name__}.init made {len(order)} leaves through "
+                           f"layers.made for a tree of {len(paths)}")
+    shardings: dict = {}
+    shd.map_with_path(lambda path, s: shardings.setdefault(path, s), layouts(template))
+    queue = [shardings[paths[id(t)]] for t in order]
+    del order, template
+
+    def place(t):
+        if not queue:
+            raise RuntimeError(f"{type(model).__name__}.init made more leaves than its template")
+        return shd.distribute(t, queue.pop(0)).detach()
+
+    with L.making(place):
+        tree = model.init(generator)
+    _check_made(tree, shd.is_dtensor)
+    return tree
 
 
 @dataclasses.dataclass(frozen=True)

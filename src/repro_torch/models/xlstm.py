@@ -137,7 +137,7 @@ def init_mlstm(generator: torch.Generator, d_model: int, d_in: int, n_heads: int
             "w_i": L.dense_init(generator, (d_in, n_heads), dtype=dtype),
             "w_f": L.dense_init(generator, (d_in, n_heads), dtype=dtype),
             "w_out": L.dense_init(generator, (d_in, d_model), dtype=dtype),
-            "f_bias": torch.full((n_heads,), 3.0, dtype=dtype, device=dev),   # open forget gates
+            "f_bias": L.made(torch.full((n_heads,), 3.0, dtype=dtype, device=dev)),   # open forget gates
         },
         "norm": L.init_rmsnorm(d_model, dev),
     }
@@ -203,7 +203,7 @@ def init_slstm(generator: torch.Generator, d_model: int, d_in: int, n_heads: int
             # per head, fan-in dh (see the module note: not the reference's n_heads)
             "r_gates": L.dense_init(generator, (n_heads, dh, 4 * dh), in_axis=1, dtype=dtype),
             "w_out": L.dense_init(generator, (d_in, d_model), dtype=dtype),
-            "f_bias": torch.full((d_in,), 3.0, dtype=dtype, device=dev),
+            "f_bias": L.made(torch.full((d_in,), 3.0, dtype=dtype, device=dev)),
         },
         "norm": L.init_rmsnorm(d_model, dev),
     }

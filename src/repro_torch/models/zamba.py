@@ -51,10 +51,10 @@ def init_mamba2(generator: torch.Generator, d_model: int, d_in: int, n_heads: in
         "ssm": {
             # in_proj -> [z (d_in), x (d_in), B (N), C (N), dt (H)]
             "w_in": L.dense_init(generator, (d_model, 2 * d_in + 2 * d_state + n_heads), dtype=dtype),
-            "conv_w": conv_w.to(dtype),
-            "A_log": torch.log(torch.linspace(1.0, float(n_heads), n_heads, device=dev)),
-            "D": torch.ones(n_heads, device=dev),
-            "dt_bias": torch.log(torch.expm1(torch.full((n_heads,), 0.01, device=dev))),
+            "conv_w": L.made(conv_w.to(dtype)),
+            "A_log": L.made(torch.log(torch.linspace(1.0, float(n_heads), n_heads, device=dev))),
+            "D": L.made(torch.ones(n_heads, device=dev)),
+            "dt_bias": L.made(torch.log(torch.expm1(torch.full((n_heads,), 0.01, device=dev)))),
             "w_out": L.dense_init(generator, (d_in, d_model), dtype=dtype),
         },
         "norm": L.init_rmsnorm(d_model, dev),

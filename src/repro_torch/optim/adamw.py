@@ -39,12 +39,14 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of the trees
+    in ``rest``, which have ``tree``'s structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, *vs) for vs in zip(tree, *rest, strict=True)]
+    return fn(tree, *rest)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,13 +63,24 @@ class AdamWConfig:
         return float(np.float32(self.lr(step) if callable(self.lr) else self.lr))
 
 
-def init_opt_state(params) -> dict:
-    def zeros(p):
+def init_opt_state(params, shardings=None) -> dict:
+    """fp32 zero moments of the parameters' shapes and a step of 0.
+    ``shardings``: a tree of ``parallel.sharding.NamedSharding`` matching
+    ``params`` (the meshed step's ``opt_shardings``); each moment is then made
+    in its layout, this rank's shard alone, never at full shape."""
+    def zeros(p, sharding=None):
+        if sharding is not None:
+            from repro_torch.parallel.sharding import zeros as laid_out_zeros
+
+            return laid_out_zeros(p.shape, sharding, torch.float32, p.device)
         if is_dtensor(p):
             return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
-    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params), "step": 0}
+    if shardings is None:
+        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params), "step": 0}
+    return {"m": tree_map(zeros, params, shardings), "v": tree_map(zeros, params, shardings),
+            "step": 0}
 
 
 def _owned_sq(g) -> torch.Tensor:

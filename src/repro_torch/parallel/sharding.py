@@ -375,7 +375,9 @@ def opt_shardings(params, mesh, rules: Optional[dict] = None):
 
 def local_chunk(full: torch.Tensor, mesh, placements: Sequence) -> torch.Tensor:
     """This rank's shard of a tensor every rank holds whole: the tensor
-    narrowed mesh dimension by mesh dimension, in mesh order (major first)."""
+    narrowed mesh dimension by mesh dimension, in mesh order (major first).  A
+    shard has a storage of its own, so the whole tensor can be freed; a tensor
+    kept whole (replicated everywhere) is ``full`` itself."""
     from torch.distributed.tensor import Shard
 
     coord = mesh.get_coordinate()
@@ -384,17 +386,41 @@ def local_chunk(full: torch.Tensor, mesh, placements: Sequence) -> torch.Tensor:
         if isinstance(p, Shard):
             n = mesh.size(i)
             local = local.chunk(n, dim=p.dim)[coord[i]]
-    return local.contiguous()
+    return full if local is full else local.clone(memory_format=torch.contiguous_format)
 
 
-def distribute(full: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+def distribute(full: torch.Tensor, sharding: NamedSharding, device=None,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """A tensor every rank holds whole as a DTensor laid out by ``sharding``
-    (no communication: each rank keeps its own chunk)."""
+    (no communication: each rank keeps its own chunk).  ``device``/``dtype``:
+    where the chunk goes and what it is cast to once it is cut (a host
+    tensor's shard goes to the card alone); ``full``'s by default."""
     from torch.distributed.tensor import DTensor
 
     mesh, placements = sharding.mesh, sharding.placements
-    return DTensor.from_local(local_chunk(full.detach(), mesh, placements), mesh, placements,
-                              run_check=False, shape=full.shape, stride=full.stride())
+    local = local_chunk(full.detach(), mesh, placements).to(device=device or full.device,
+                                                           dtype=dtype or full.dtype)
+    return DTensor.from_local(local, mesh, placements, run_check=False, shape=full.shape,
+                              stride=full.stride())
+
+
+def zeros(shape: Sequence[int], sharding: NamedSharding, dtype: torch.dtype,
+          device) -> torch.Tensor:
+    """A DTensor of zeros of global ``shape`` laid out by ``sharding``: only
+    this rank's shard is allocated."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    mesh, placements = sharding.mesh, sharding.placements
+    coord, local = mesh.get_coordinate(), list(shape)
+    for i, p in enumerate(placements):   # local_chunk's pieces: torch.chunk's sizes
+        if isinstance(p, Shard):
+            n, step = local[p.dim], -(-local[p.dim] // mesh.size(i))
+            local[p.dim] = max(0, min(step, n - coord[i] * step))
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device), mesh, placements,
+                              run_check=False, shape=torch.Size(shape), stride=tuple(stride))
 
 
 def lay_out(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:

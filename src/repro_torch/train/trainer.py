@@ -7,8 +7,8 @@ State lives in (checkpoint, step) and data is a pure function of step, so
 bit-exactly.  Batches are made in numpy by the prefetch thread and moved to
 the model's device by the train step.  A meshed ``step_fn``
 (``make_train_step(..., mesh=...)``) runs on every rank of the process group
-with the same data; it lays the state out on its first call and the
-checkpoint restores it laid out (``step_fn.state_shardings``).
+with the same data; the state is made in its layout (``step_fn.
+state_shardings``) and the checkpoint restores it laid out.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.data import Prefetcher, SyntheticDataset
+from repro_torch.models.transformer import init_laid_out
 from repro_torch.optim import AdamWConfig, init_opt_state
 from repro_torch.train.train_step import make_train_step
 
@@ -84,10 +85,24 @@ class Trainer:
         self.history: list[dict] = []
 
     # ------------------------------------------------------------------ state
+    def _generator(self) -> torch.Generator | None:
+        """The seeded generator ``model.init`` draws from (none on ``meta``)."""
+        if self.model.device.type == "meta":
+            return None
+        return torch.Generator(device=self.model.device).manual_seed(self.cfg.seed)
+
     def _init_state(self):
-        generator = torch.Generator(device=self.model.device).manual_seed(self.cfg.seed)
-        params = self.model.init(generator)
-        return params, init_opt_state(params)
+        """Fresh parameters and moments.  Under a meshed ``step_fn`` the state
+        is made in its layout (``step_fn.state_shardings``): each parameter
+        drawn whole and cut to this rank's shard before the next is drawn
+        (``init_laid_out``: gathered, ``model.init``'s tree bit for bit), the
+        moments made as shards; a rank never holds the whole tree."""
+        layouts = getattr(self.step_fn, "state_shardings", None)
+        if layouts is None:
+            params = self.model.init(self._generator())
+            return params, init_opt_state(params)
+        params = init_laid_out(self.model, self._generator(), lambda t: layouts(t)["params"])
+        return params, init_opt_state(params, layouts(params)["opt"]["m"])
 
     def _restore_or_init(self):
         latest = self.ckpt.latest_step()
@@ -97,7 +112,8 @@ class Trainer:
         # storage (the reference's jax.eval_shape).  Under fake tensors
         # model.init allocates nothing and draws nothing from its generator.
         with FakeTensorMode():
-            params, opt_state = self._init_state()
+            params = self.model.init(self._generator())
+            opt_state = init_opt_state(params)
         template = {"params": params, "opt": opt_state}
         layouts = getattr(self.step_fn, "state_shardings", None)
         if layouts is None:

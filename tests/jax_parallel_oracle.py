@@ -31,7 +31,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from jax.sharding import AxisType, PartitionSpec as P  # noqa: E402
 
-TRAIN_ARCHS = ("minicpm-2b", "qwen3-moe-235b-a22b", "zamba2-2.7b")
+TRAIN_ARCHS = ("minicpm-2b", "qwen3-moe-235b-a22b", "zamba2-2.7b", "glm4-9b")
 SEQ, BATCH, STEPS, LR = 16, 8, 3, 1e-3
 DECODE_B, DECODE_L, DECODE_TOKENS = 4, 32, 5
 DECODE_ARCHS = ("zamba2-2.7b", "xlstm-350m", "whisper-tiny")

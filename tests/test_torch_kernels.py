@@ -473,6 +473,7 @@ PLAN_FLASH = [
     (1, 4, 4, 150, 150, 96, "float32", False, 0),        # hd 96, ragged
     (1, 4, 4, 150, 150, 96, "bfloat16", False, 1),       # and unaligned bf16
     (1, 64, 4, 1024, 1024, 128, "bfloat16", True, 0),    # qwen3-moe's prefill, GQA 16:1
+    (4, 16, 1, 1024, 1024, 128, "bfloat16", True, 0),    # glm4-9b's step, a rank's shards on (2, 2)
     (4, 6, 6, 1500, 1500, 64, "bfloat16", True, 0),      # whisper-tiny's encoder, 1500 frames
     (4, 6, 6, 1500, 1500, 64, "float32", True, 0),       # and in the launcher's fp32
     (4, 6, 6, 448, 1500, 64, "bfloat16", True, 0),       # its cross-attention, 448 over 1500
@@ -928,6 +929,7 @@ PLAN_FLASH_BWD = [
     (4, 32, 32, 1600, 1600, 96, "float32", True, 0),     # and in the launcher's fp32
     (1, 4, 4, 150, 150, 96, "bfloat16", False, 1),       # hd 96 unaligned, ragged
     (1, 64, 4, 1024, 1024, 128, "bfloat16", True, 0),    # qwen3-moe's training step, GQA 16:1
+    (4, 16, 1, 1024, 1024, 128, "bfloat16", True, 0),    # glm4-9b's step, a rank's shards on (2, 2)
     (4, 6, 6, 1500, 1500, 64, "bfloat16", True, 0),      # whisper-tiny's encoder, non-causal
     (4, 6, 6, 1500, 1500, 64, "float32", True, 0),       # and in the launcher's fp32
     (4, 6, 6, 448, 1500, 64, "bfloat16", True, 0),       # its cross-attention, 448 over 1500

@@ -13,13 +13,14 @@ kernels' launches of each train run are recorded.
 """
 
 import dataclasses
+import os
 import pickle
 import sys
 
 import numpy as np
 import torch
 
-TRAIN_ARCHS = ("minicpm-2b", "qwen3-moe-235b-a22b", "zamba2-2.7b")
+TRAIN_ARCHS = ("minicpm-2b", "qwen3-moe-235b-a22b", "zamba2-2.7b", "glm4-9b")
 SEQ, BATCH, STEPS, LR = 16, 8, 3, 1e-3
 DECODE_B, DECODE_L, DECODE_TOKENS = 4, 32, 5
 # the recurrent and encoder-decoder families' meshed decodes (Whisper's over
@@ -113,6 +114,103 @@ def train_case(inputs, arch, mesh, dev) -> dict:
     leaf = first["attn"]["wq"] if "attn" in first else first["ssm"]["w_in"]
     out["first_leaf"] = (tuple(leaf.shape), tuple(leaf.to_local().shape))
     return out
+
+
+def trainer_case(mesh, dev, ckpt_dir: str) -> dict:
+    """Reduced glm4-9b (4 q heads on 2 KV heads: one a rank on ``model``)
+    through the launcher's meshed recipe -- fp32 masters, bf16 compute -- on
+    the mesh: the state ``Trainer._init_state`` makes in its layout, gathered,
+    against ``model.init`` of the same seed; the trainer's losses (that state,
+    a save at the last step) against the same meshed step fed the whole-tree
+    init, which it lays out on its first call; the host copies each rank's
+    ``_to_host`` made in the save; and the checkpoint restored into the layout
+    against the whole-tree run's final state."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.models import ModelOptions, build_model
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import Trainer, TrainerConfig, make_train_step
+
+    cfg = get_config("glm4-9b").reduced()
+    model = build_model(cfg, ModelOptions(param_dtype="float32", compute_dtype="bfloat16",
+                                          remat=False), device=dev)
+    ds = SyntheticDataset(cfg.vocab, SEQ, BATCH)
+    opt = AdamWConfig(lr=LR)
+    trainer = Trainer(model, ds, opt, ckpt_dir,
+                      TrainerConfig(total_steps=STEPS, ckpt_every=STEPS, log_every=1))
+    trainer.step_fn = make_train_step(model, opt, mesh=mesh)
+    layouts = trainer.step_fn.state_shardings
+    out = {}
+
+    def paths_where(test, *trees) -> list[str]:
+        flat = [dict(_flat(t)) for t in trees]
+        return [path for path in flat[0] if not test(*(f[path] for f in flat))]
+
+    params, state = trainer._init_state()
+    whole = model.init(torch.Generator(dev).manual_seed(0))
+    lay = layouts(whole)
+    out["init_not_bitwise"] = paths_where(lambda a, b: torch.equal(shd.full_tensor(a), b),
+                                          params, whole)
+    out["init_wrong_layouts"] = paths_where(
+        lambda a, s: shd.is_dtensor(a) and tuple(a.placements) == s.placements,
+        params, lay["params"])
+    out["moments_wrong"] = [
+        (k, p) for k in ("m", "v") for p in paths_where(
+            lambda a, s: shd.is_dtensor(a) and tuple(a.placements) == s.placements
+            and a.dtype == torch.float32 and not a.to_local().any(), state[k], lay["opt"][k])]
+    del params, state
+
+    kept = []
+    to_host = checkpointer._to_host
+
+    def recording(leaf, keep=True):
+        arr, name = to_host(leaf, keep)
+        if isinstance(leaf, torch.Tensor):
+            kept.append(0 if arr is None else arr.nbytes)
+        return arr, name
+
+    checkpointer._to_host = recording
+    try:
+        trainer.run()
+    finally:
+        checkpointer._to_host = to_host
+    out["sharded_init"] = trainer.losses()
+    per_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(per_rank, kept)
+    out["host_bytes_by_rank"] = [sum(k) for k in per_rank]
+    out["host_copies_by_rank"] = [sum(1 for b in k if b) for k in per_rank]
+    out["leaves"] = len(kept)
+
+    step = make_train_step(model, opt, mesh=mesh)
+    p, s = whole, init_opt_state(whole)
+    losses = []
+    for i in range(STEPS):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in ds.batch(i).items()}
+        p, s, metrics = step(p, s, batch)
+        losses.append(float(metrics["loss"]))
+    out["whole_init"] = losses
+
+    rp, rs, start = trainer._restore_or_init()
+    out["restored_step"] = (start, rs["step"])
+    out["restore_not_bitwise"] = paths_where(
+        lambda a, b: torch.equal(shd.full_tensor(a), shd.full_tensor(b)),
+        {"params": rp, "m": rs["m"], "v": rs["v"]}, {"params": p, "m": s["m"], "v": s["v"]})
+    out["restore_wrong_layouts"] = paths_where(
+        lambda a, b: tuple(a.placements) == tuple(b.placements),
+        {"params": rp, "m": rs["m"]}, {"params": p, "m": s["m"]})
+    return out
+
+
+def _flat(tree, prefix: str = "") -> list:
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items() for kv in _flat(v, f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [kv for i, v in enumerate(tree) for kv in _flat(v, f"{prefix}{i}/")]
+    return [(prefix.rstrip("/"), tree)]
 
 
 def decode_case(inputs, mesh, dev, n_kv_heads: int = 3) -> dict:
@@ -259,6 +357,8 @@ def world(rank: int, inputs_path: str, device_type: str = "cpu"):
     inputs = np.load(inputs_path)
     mesh = init_device_mesh(device_type, (2, 2), mesh_dim_names=("data", "model"))
     out = {f"train|{arch}": train_case(inputs, arch, mesh, dev) for arch in TRAIN_ARCHS}
+    out["trainer"] = trainer_case(mesh, dev, os.path.join(os.path.dirname(inputs_path),
+                                                          "trainer_ckpt"))
     out["decode"] = decode_case(inputs, mesh, dev)
     out["decode_heads"] = decode_case(inputs, mesh, dev, n_kv_heads=2)
     for arch in DECODE_ARCHS:
