@@ -19,7 +19,9 @@ raises and the script exits non-zero:
    phi4-mini-3.8b's prefill at GQA 6:1, 4:1 and 3:1, phi4-mini's training
    step's flash forward with lse and backward and its norms; a rank's shards
    of glm4-9b's step on four cards, flash at GQA 16:1 with one KV head,
-   forward with lse and backward; plus ragged,
+   forward with lse and backward; of dbrx-132b's, flash at GQA 6:1 on 4 KV
+   heads, forward with lse and backward, its norms at d 6144 forward and
+   backward and its four-card decodes' norms (8 and 4 lanes); plus ragged,
    unaligned and small cases), holds
    the result against the plain PyTorch version on the same inputs, and times
    kernel, plain version and the one PyTorch library call that computes the
@@ -203,18 +205,27 @@ and its multi-rank logic on the host:
 With ``--cards 4`` (four cards of one host) only ``env``, ``build`` and
 ``mesh_cards`` run: ``mesh_host``'s world on NCCL, rank r on ``cuda:r``, the
 kernels on the local shards, held to ``mesh_host``'s rules and with the
-meshed train step's launches equal to the unmeshed step's; then the launcher
-with ``--devices 4 --mesh-shape 2x2 --arnold --scheduler mip`` (rc 0); then
-``mesh_cards_glm4``: glm4-9b at full width and depth trained through the
-launcher (``--full --devices 4 --mesh-shape 2x2 --arnold``, 8 steps of 8 x
-1024 tokens at peak lr TRAIN_LR, a checkpoint at step 8, then ``--steps 9``
-restoring it; 112.8 GB of fp32 state, a checkpoint as large: it needs room
-for two on the temporary directory's file system or the checkout's, and
-rank 0 holds one on the host while it saves), each rank's peak before step 1
-and its launches a step, step 1's loss against an unmeshed bf16 forward on
-one card, and one step of its own world profiled on rank 0 (NCCL's device
-ms and bytes by kind) beside Eq. 1's volumes and the dry run's count of the
-cell; no ``kernels`` line.
+meshed train step's launches equal to the unmeshed step's and each layer's
+ZeRO-3 leaves gathered twice in a remat step; then ``mesh_cards_dbrx``:
+dbrx-132b at its published widths through the meshed steps in one NCCL world
+-- 32 greedy decode steps at 8 lanes of all 40 layers in bf16 on a (1, 4) mesh
+(EP and TP 4) and on (2, 2) (TP/EP 2, ZeRO-3 2, each layer's weights gathered
+at its use), both meshes at 4 layers against one card's decode, 4 train steps
+at 5 of 40 layers on (2, 2) (the launcher's recipe) against the dry run's
+count of the cell (peak + 5 %, NCCL bytes to the byte) and an unmeshed bf16
+forward; then the launcher with ``--devices 4 --mesh-shape 2x2 --arnold
+--scheduler mip`` (rc 0); then ``mesh_cards_glm4``: glm4-9b at full width and
+depth trained through the launcher (``--full --devices 4 --mesh-shape 2x2
+--arnold``, 8 steps of 8 x 1024 tokens at peak lr TRAIN_LR, a checkpoint at
+step 8, then ``--steps 9`` restoring it; 112.8 GB of fp32 state, a
+checkpoint as large: it needs room for two in ``/dev/shm`` or on the
+temporary directory's file system or the checkout's, and rank 0 holds one
+on the host while it saves), each rank's peak before its first step and
+over the steps, its launches a step, step 1's loss against an unmeshed bf16
+forward on one card, and steps of its own world measured on rank 0 (NCCL's
+device ms and bytes by kind under torch.profiler, the host's time in the
+ZeRO-3 gathers) beside Eq. 1's volumes and the dry run's count of the cell;
+no ``kernels`` line.
 
 With ``--profile`` further phases, after ``serve``, ``zamba``,
 ``train_parity``, ``train``, ``zamba_train``, ``moe_serve``, ``moe_train``,
@@ -1204,6 +1215,21 @@ def kernels_phase(cfg, zcfg, mcfg, qcfg, vcfg, xcfg, wcfg, dcfg, pcfg, gcfg,
     new_config_cases += [
         flash_case(gb, gh, gkv, TRAIN_SEQ, TRAIN_SEQ, hd, bf16, gen, 10, True, with_lse=True),
         flash_bwd_case(gb, gh, gkv, TRAIN_SEQ, TRAIN_SEQ, hd, bf16, gen, 10, True),
+    ]
+    # dbrx-132b on four cards (mesh_cards_dbrx): its training step's shards on
+    # (2, 2), 4 of the 8 sequences, 24 of the 48 q heads on 4 of the 8 KV heads
+    # (GQA 6:1), forward with lse and backward, its norms at d 6144; the
+    # decodes' norms, 8 lanes a rank on (1, 4) and one card, 4 on (2, 2)
+    dh, dkv, dd = dcfg.n_heads // 2, dcfg.n_kv_heads // 2, dcfg.d_model
+    new_config_cases += [
+        flash_case(gb, dh, dkv, TRAIN_SEQ, TRAIN_SEQ, dcfg.resolved_head_dim, bf16, gen, 10, True,
+                   with_lse=True),
+        flash_bwd_case(gb, dh, dkv, TRAIN_SEQ, TRAIN_SEQ, dcfg.resolved_head_dim, bf16, gen, 10,
+                       True),
+        rmsnorm_case((gb, TRAIN_SEQ, dd), bf16, gen, 50),
+        rmsnorm_bwd_case((gb, TRAIN_SEQ, dd), bf16, gen, 50),
+        rmsnorm_case((DBRX_CARDS_LANES, 1, dd), bf16, gen, 200),
+        rmsnorm_case((DBRX_CARDS_LANES // 2, 1, dd), bf16, gen, 200),
     ]
     emit({"phase": "kernels", "cases": cases + zamba_cases + train_cases + zamba_train_cases
           + moe_vlm_cases + ssm_audio_cases + new_config_cases})
@@ -2539,13 +2565,16 @@ def mesh_host_phase(device_type: str = "cpu") -> None:
     train step must also launch each kernel as often as the unmeshed one, at
     least once): the meshed train step on a (2, 2)
     ("data", "model") mesh for reduced minicpm-2b, qwen3-moe-235b-a22b,
-    zamba2-2.7b and glm4-9b (3 fp32 steps against the unmeshed step, 1e-4;
-    every leaf a local shard of its spec's shape), the trainer's state of
+    zamba2-2.7b, glm4-9b and dbrx-132b (3 fp32 steps against the unmeshed
+    step, 1e-4; every leaf a local shard of its spec's shape), the gathers of
+    one remat step of minicpm-2b, zamba2-2.7b and dbrx-132b leaf by leaf
+    (``expected_gathers``: each layer's ZeRO-3 leaves twice, in the forward
+    and the recompute), the trainer's state of
     reduced glm4-9b made in its layout (bit for bit ``model.init`` gathered,
     its losses within 1e-6 of the whole-tree init's, a save's host copy on
     rank 0 alone, the restore bit for bit), the seq-sharded decode (1e-4 against
     the unsharded decode, the seq-sharded branch taken; with 2 KV heads the
-    head-sharded decode), zamba2's, the xLSTM's and Whisper's decodes (1e-4
+    head-sharded decode), zamba2's, the xLSTM's, Whisper's and dbrx-132b's decodes (1e-4
     against their unmeshed decodes, every cache leaf in its
     ``cache_shardings`` layout after the steps), the GPipe pipeline
     (S = 4, m = 8: forward 1e-5 and gradient 1e-4 against the stages applied
@@ -2586,6 +2615,14 @@ def mesh_host_phase(device_type: str = "cpu") -> None:
                 if case["mesh_launches"] != case["plain_launches"] or \
                         not {"rmsnorm", "rmsnorm_bwd"} <= set(used):
                     failures.append((key, case["mesh_launches"], case["plain_launches"]))
+    for arch in world.GATHER_ARCHS:   # ZeRO-3 at use: each layer's leaves twice under remat
+        case = got[f"gathers|{arch}"]
+        diff = max(abs(a - b) for a, b in zip(case["mesh"], case["plain"]))
+        report[f"gathers|{arch}"] = {"leaves_gathered": len(case["gathers"]),
+                                     "gathers": sum(case["gathers"].values()),
+                                     "max_abs_loss_diff": diff}
+        if case["gathers"] != world.expected_gathers(case) or not diff <= 1e-4:
+            failures.append((f"gathers|{arch}", case["gathers"]))
     tr = got["trainer"]   # reduced glm4-9b's state made laid out, trained, saved, restored
     report["trainer"] = {k: tr[k] for k in ("sharded_init", "whole_init", "host_copies_by_rank",
                                             "restored_step")}
@@ -2601,13 +2638,12 @@ def mesh_host_phase(device_type: str = "cpu") -> None:
                        "seq_sharded": dec["seq_sharded"], "cache_spec": dec["cache_spec"]}
         if not (dec["seq_sharded"] == seq and report[key]["max_abs_logit_diff"] <= 1e-4):
             failures.append((key, report[key]))
-    for arch in world.DECODE_ARCHS:   # zamba2's, the xLSTM's and Whisper's meshed decodes
-        dec = got[f"decode|{arch}"]
+    for key in [f"decode|{a}" for a in world.DECODE_ARCHS] + ["decode_1x4|dbrx-132b"]:
+        dec = got[key]   # zamba2's, the xLSTM's, Whisper's and dbrx's; dbrx's on (1, 4) too
         diff = float(np.abs(dec["mesh"] - dec["plain"]).max())
-        report[f"decode|{arch}"] = {"max_abs_logit_diff": diff,
-                                    "wrong_layouts": dec["wrong_layouts"]}
+        report[key] = {"max_abs_logit_diff": diff, "wrong_layouts": dec["wrong_layouts"]}
         if not (diff <= 1e-4 and not dec["wrong_layouts"]):
-            failures.append((arch, report[f"decode|{arch}"]))
+            failures.append((key, report[key]))
     pp = got["pipeline"]
     W = torch.from_numpy(inputs["pp_W"]).requires_grad_(True)
     y = torch.from_numpy(inputs["pp_x"])
@@ -2639,7 +2675,8 @@ GLM4_CARDS_ARGV = ("--arch", "glm4-9b", "--full", "--devices", "4", "--mesh-shap
                    "--arnold", "--global-batch", str(GLM4_CARDS_BATCH), "--seq-len", str(TRAIN_SEQ),
                    "--lr", str(TRAIN_LR), "--log-every", "1", "--ckpt-every", str(GLM4_CARDS_STEPS))
 GLM4_CARDS_LOSS_RULE = 1e-2      # step 1's loss against an unmeshed bf16 forward's
-GLM4_CARDS_INIT_SLACK = 0.05     # a rank's peak before step 1 over its shards + the largest leaf
+GLM4_CARDS_INIT_SLACK = 0.05     # a rank's peak before step 1 over its shards + the largest leaf,
+                                 # and over the steps over the dry run's count of the cell
 STEP_LINE = re.compile(r"^step\s+(\d+)\s+loss (\S+)\s+gnorm (\S+)\s+(\d+) ms$", re.M)
 RANK_LINE = re.compile(r"rank (\d+) on (cuda:\d+): ")
 #: NCCL's kernels by the collective kinds of ``launch.roofline.CollectiveBytes``
@@ -2701,22 +2738,24 @@ def host_memory() -> dict:
     return {k: int(info[k].split()[0]) * 1024 for k in ("MemTotal", "MemAvailable")}
 
 
-def glm4_dryrun_cell() -> dict:
-    """The dry run's count of the four-card cell (glm4-9b, 8 x 1024 tokens, the
-    launcher's recipe) on a (2, 2) fake world: rank 0's peak bytes, its
-    arguments' bytes and the collectives' bytes by kind.  A host process:
-    meta tensors, no card."""
+def cards_dryrun_cell(arch: str = "glm4-9b", layers: int = 0) -> dict:
+    """The dry run's count of a four-card train cell (``arch`` at full width,
+    ``layers`` deep or its own depth; 8 x 1024 tokens, the launcher's recipe)
+    on a (2, 2) fake world: rank 0's peak bytes, its arguments' bytes and the
+    collectives' bytes by kind.  A host process: meta tensors, no card."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import dryrun
 
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers)
     opts = ModelOptions(param_dtype="float32", compute_dtype="bfloat16", remat=True)
     t0 = time.perf_counter()
     with dryrun.fake_world(4):
         mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
-        trace = dryrun._trace(get_config("glm4-9b"),
-                              ShapeSpec("cards", TRAIN_SEQ, GLM4_CARDS_BATCH, "train"), mesh, opts, 1)
+        trace = dryrun._trace(cfg, ShapeSpec("cards", TRAIN_SEQ, GLM4_CARDS_BATCH, "train"),
+                              mesh, opts, 1)
     return {"peak_bytes": trace.peak_bytes, "argument_bytes": trace.argument_bytes,
             "collective_bytes": trace.counts.bytes, "collective_calls": trace.counts.counts,
             "trace_s": time.perf_counter() - t0}
@@ -2726,9 +2765,11 @@ def glm4_step_rank(rank: int) -> dict | None:
     """One rank of the four-card world that measures glm4-9b's meshed step
     (the launcher's recipe, its state made laid out from seed 0, the naive
     (2, 2) mesh: on one host Arnold's order is the same): a warm-up step, a
-    step under ``CollectiveBytes`` (bytes by kind, on every rank) and one under
-    torch.profiler on rank 0 (NCCL's kernels by kind, device ms).  Rank 0's
-    report; None elsewhere."""
+    step under ``CollectiveBytes`` (bytes by kind, on every rank), one under
+    torch.profiler on rank 0 (NCCL's kernels by kind, device ms), one timed
+    alone and one with each ``DTensor.redistribute`` call timed on the host
+    (``host_redistribute``: the ZeRO-3 gathers, shard to replica, apart from
+    the rest).  Rank 0's report; None elsewhere."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.profiler import ProfilerActivity, profile
 
@@ -2758,6 +2799,17 @@ def glm4_step_rank(rank: int) -> dict | None:
         float(metrics["loss"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    params, state, metrics = step(params, state, data.batch(3))
+    float(metrics["loss"])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    with host_redistribute() as host:
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, data.batch(4))
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        host["step_ms"] = (time.perf_counter() - t0) * 1e3
     if rank != 0:
         return None
     busy = 0.0
@@ -2777,9 +2829,41 @@ def glm4_step_rank(rank: int) -> dict | None:
                 nccl[kind]["ms"] += ms
                 nccl[kind]["kernels"] += 1
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "device_idle_share": 1 - busy / wall_ms,
+            "unprofiled_ms": plain_ms, "host_redistribute": host,
             "nccl": nccl, "nccl_other_ms": other_nccl,
             "collective_bytes": counted.bytes, "collective_calls": counted.counts,
             "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+
+
+@contextlib.contextmanager
+def host_redistribute():
+    """Under it each ``DTensor.redistribute`` call is timed on the host (the
+    call's own time, until it returns: the dispatch of its collective, not
+    the collective on the card).  Yields a dict that it fills at the end:
+    ``gathers`` (calls that take some mesh dimension from a shard to a
+    replica -- ZeRO-3's gathers at use) and ``others``, each {"calls", "ms"}."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    real, out = DTensor.redistribute, {}
+    tally = {"gathers": [0, 0.0], "others": [0, 0.0]}
+
+    def timed(self, *args, **kwargs):
+        to = kwargs.get("placements", args[1] if len(args) > 1 else None) or self.placements
+        kind = "gathers" if any(isinstance(a, Shard) and isinstance(b, Replicate)
+                                for a, b in zip(self.placements, to)) else "others"
+        t0 = time.perf_counter()
+        try:
+            return real(self, *args, **kwargs)
+        finally:
+            tally[kind][0] += 1
+            tally[kind][1] += (time.perf_counter() - t0) * 1e3
+
+    DTensor.redistribute = timed
+    try:
+        yield out
+    finally:
+        DTensor.redistribute = real
+        out.update({k: {"calls": n, "ms": ms} for k, (n, ms) in tally.items()})
 
 
 @torch.no_grad()
@@ -2802,12 +2886,14 @@ def mesh_cards_glm4_phase(card: str) -> dict[str, int]:
     vocab 151 552) trained through the launcher on the four cards' (2, 2)
     Arnold mesh: 8 steps (falling loss, rc 0, a checkpoint at step 8), then
     ``--steps 9`` on the same directory (step 8 restored into the layout, step
-    9 logged); each rank's peak before step 1 at most its shards + the largest
-    leaf + 5 %, its launches each step ``train_launches``'; step 1's loss
-    within 1e-2 of an unmeshed bf16 forward's on one card (same init, same
-    batch); then one step of a world of its own measured (``glm4_step_rank``)
-    beside Eq. 1's volumes of the job and the dry run's count of the cell.
-    Returns the kernels' launches over every rank and step of both runs."""
+    9 logged); in both runs each rank's peak before its first step (the init,
+    or the restore) at most its shards + the largest leaf + 5 %, its peak over
+    the steps and the save at most the dry run's count of the cell + 5 %, its
+    launches each step ``train_launches``'; step 1's loss within 1e-2 of an
+    unmeshed bf16 forward's on one card (same init, same batch); then one step
+    of a world of its own measured (``glm4_step_rank``) beside Eq. 1's volumes
+    of the job and the dry run's count of the cell.  Returns the kernels'
+    launches over every rank and step of both runs."""
     cfg = get_config("glm4-9b")
     opts = ModelOptions("float32", "bfloat16", remat=True)
     n = sum(t.numel() for t in tree_leaves(build_model(cfg, opts, "meta").init()))
@@ -2816,7 +2902,7 @@ def mesh_cards_glm4_phase(card: str) -> dict[str, int]:
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
     dry = subprocess.Popen(   # a host process beside the cards' work
         [sys.executable, "-c", "import json, chip_smoke; "
-         "print(json.dumps(chip_smoke.glm4_dryrun_cell()))"],
+         "print(json.dumps(chip_smoke.cards_dryrun_cell('glm4-9b')))"],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
     atexit.register(_stop, {"glm4_dryrun": dry})
     report = {"phase": "mesh_cards_glm4", "card": card, "parameters": n, "state_bytes": state,
@@ -2855,6 +2941,7 @@ def mesh_cards_glm4_phase(card: str) -> dict[str, int]:
         [*GLM4_CARDS_ARGV, "--steps", str(GLM4_CARDS_STEPS)]))
     job = build_comm_matrix(job)
     expected = train_launches(cfg, remat=True)
+    dry_cell = json.loads(dry_out.strip().splitlines()[-1])
     failures = []
     for name, run in (("first", first), ("restart", second)):
         if sorted(run["ranks"]) != [0, 1, 2, 3]:
@@ -2864,9 +2951,12 @@ def mesh_cards_glm4_phase(card: str) -> dict[str, int]:
             steps = sum(n for n, _ in rep["launches"])
             if steps != len(run["steps"]) or any(c != expected for _, c in rep["launches"]):
                 failures.append((name, r, "launches", rep["launches"][:2]))
-            if name == "first" and rep["init_peak_bytes"] > \
+            if rep["init_peak_bytes"] > \
                     (rep["state_bytes"] + largest) * (1 + GLM4_CARDS_INIT_SLACK):
                 failures.append((name, r, "init peak", rep["init_peak_bytes"], rep["state_bytes"]))
+            if rep["step_peak_bytes"] > dry_cell["peak_bytes"] * (1 + GLM4_CARDS_INIT_SLACK):
+                failures.append((name, r, "step peak", rep["step_peak_bytes"],
+                                 dry_cell["peak_bytes"]))
     losses = [first["steps"][s]["loss"] for s in sorted(first["steps"])]
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         failures.append(("losses", losses))
@@ -2887,13 +2977,406 @@ def mesh_cards_glm4_phase(card: str) -> dict[str, int]:
                   for name, run in (("first", first), ("restart", second))},
         "launches_a_step": expected, "measured_step": measured,
         "eq1": {"v_w": job.v_w, "v_d": job.v_d, "v_p": job.v_p, "shape": list(job.shape)},
-        "dryrun": json.loads(dry_out.strip().splitlines()[-1]),
+        "dryrun": dry_cell,
     })
     emit(report)
     if failures:
         raise AssertionError(f"mesh_cards_glm4: {failures}")
     runs = [rep["launches"] for run in (first, second) for rep in run["ranks"].values()]
     return {k: sum(n * c[k] for steps in runs for n, c in steps) for k in expected}
+
+
+# ------------------------------------- four cards: dbrx-132b through the meshed steps
+DBRX_CARDS_LANES, DBRX_CARDS_CACHE, DBRX_CARDS_SERVE_STEPS = 8, 512, 32
+DBRX_CARDS_MESHES = ((1, 4), (2, 2))     # (data, model): EP/TP 4; TP/EP 2 with ZeRO-3 2
+DBRX_CARDS_CHECK_LAYERS, DBRX_CARDS_CHECK_STEPS = 4, 16
+DBRX_CARDS_TRAIN_LAYERS, DBRX_CARDS_TRAIN_STEPS = 5, 4
+DBRX_CARDS_LOGIT_RULE = 2e-2      # x the largest |logit|: mesh_serve's and parity's bf16 rule
+DBRX_CARDS_FP32_RULE = 1e-4       # x the largest |logit|: the meshes' step 1 in fp32 compute
+# the meshes' step 1 in bf16, routes pinned: twice the gap read on 4 x H100 80GB
+# HBM3 (0.1016 of a largest |logit| of 4.38, PERF.md); the two tensor-parallel
+# orders round apart through 40 layers, past mesh_serve's 2e-2 of the largest
+DBRX_CARDS_BF16_GAP = 2 * 0.1016
+DBRX_CARDS_TOKEN_FLIPS = 16       # of the one-card check's 16 x 8 tokens (12.5 %)
+DBRX_CARDS_LOSS_RULE = 1e-2       # step 1's loss against an unmeshed bf16 forward's
+DBRX_CARDS_PEAK_SLACK = 0.05      # a rank's step peak over the dry run's count of the cell
+CARD_BYTES = 80 * 2**30
+
+
+def _peak(dev: torch.device) -> int:
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def _reset_peak(dev: torch.device) -> None:
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _routes(mode):
+    """(log, patch) for ``moe_route`` calls: ``"record"`` appends each call's
+    choices to ``log`` (``recorded_routes``), a log pins each call to that
+    log's choices and ``log`` gathers the flips (``pinned_routes``), None
+    leaves the routes alone."""
+    if mode is None:
+        return [], contextlib.nullcontext()
+    return recorded_routes() if mode == "record" else pinned_routes(mode)
+
+
+@torch.no_grad()
+def dbrx_decode(model, mesh, dev: torch.device, first: torch.Tensor, steps: int,
+                forced: torch.Tensor | None = None, routes=None, again=None,
+                every_logits: bool = False) -> dict:
+    """``steps`` decode steps of ``model`` from seed 0's weights at
+    DBRX_CARDS_LANES lanes from an empty cache of DBRX_CARDS_CACHE positions:
+    through ``make_serve_step`` on ``mesh`` (the weights made laid out,
+    ``init_laid_out``), or the unmeshed ``decode_step`` where ``mesh`` is None
+    (the weights made whole).  Greedy from ``first``, or fed ``forced``'s
+    tokens, the routes as ``routes`` says (``_routes``).  Each step's argmax
+    over the real vocabulary, the logits (every step's with ``every_logits``,
+    else step 1's), whether all were finite, the ms of each step, the rank's
+    peak bytes while the weights are made and over the steps, the NCCL bytes
+    of step 2 by kind (``CollectiveBytes``) and the kernels' launches; the
+    routes' log.  ``again``: (routes, model of the same weights) pairs; for
+    each, step 1 once more from an empty cache through that model on
+    ``mesh``, its routes as ``routes`` says: its logits and routes' log
+    (comparison only)."""
+    from repro_torch.models.transformer import init_laid_out
+
+    _reset_peak(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if mesh is None:
+        step, params = model.decode_step, model.init(gen)
+    else:
+        step = make_serve_step(model, mesh)
+        params = init_laid_out(model, gen, lambda t: shd.param_shardings(t, mesh))
+    init_peak = _peak(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def run(m, step_fn, n, mode, counted=None):
+        nonlocal params
+        cache = m.init_cache(DBRX_CARDS_LANES, DBRX_CARDS_CACHE)
+        if mesh is not None:
+            params, cache = step_fn.lay_out(params, cache)
+        tokens, chosen, logits_kept, ms, finite = first, [], [], [], True
+        log, patch = _routes(mode)
+        with patch:
+            for i in range(n):
+                t0 = time.perf_counter()
+                with counted if i == 1 and counted is not None else contextlib.nullcontext():
+                    logits, cache = step_fn(params, cache, tokens)
+                logits = shd.full_tensor(logits)[:, -1, :m.cfg.vocab].float()
+                finite = finite and bool(torch.isfinite(logits).all())
+                chosen.append(logits.argmax(-1, keepdim=True).to(torch.int32))
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0 or every_logits:
+                    logits_kept.append(logits.cpu())
+                tokens = chosen[-1] if forced is None else forced[:, i:i + 1]
+        log = [tuple(t.cpu() for t in entry) if isinstance(entry, tuple) else int(entry)
+               for entry in log]
+        return torch.cat(chosen, 1).cpu(), torch.stack(logits_kept), finite, ms, log
+
+    counted = rf.CollectiveBytes()
+    ops.reset_launch_counts()
+    tokens, logits, finite, ms, log = run(model, step, steps, routes, counted)
+    out = {"tokens": tokens, "logits": logits, "finite": finite, "ms": ms,
+           "init_peak_bytes": init_peak, "peak_bytes": _peak(dev),
+           "launches": ops.launch_counts(), "collective_bytes": counted.bytes,
+           "collective_calls": counted.counts, "routes": log}
+    out["again"] = []
+    for mode, other in again or ():
+        _, logits, finite, _, log = run(other, make_serve_step(other, mesh), 1, mode)
+        out["again"].append({"logits": logits[0], "finite": finite, "routes": log})
+    del params
+    _reset_peak(dev)
+    return out
+
+
+def dbrx_train(cfg, mesh, dev: torch.device, steps: int) -> dict:
+    """``cfg``'s meshed train step on ``mesh``, the launcher's recipe (fp32
+    masters made laid out from seed 0, bf16 compute, remat, 8 x 1024 tokens
+    a step, peak lr 1e-4): each step's loss and ms, the kernels' launches of
+    each step, the rank's peak before step 1 and over the steps, and step
+    2's collective bytes by kind."""
+    from repro_torch.models.transformer import init_laid_out
+
+    model = build_model(cfg, ModelOptions("float32", "bfloat16", remat=True), dev)
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_LR), mesh=mesh)
+    _reset_peak(dev)
+    params = init_laid_out(model, torch.Generator(dev).manual_seed(0),
+                           lambda t: step.state_shardings(t)["params"])
+    state = init_opt_state(params, step.state_shardings(params)["opt"]["m"])
+    init_peak = _peak(dev)
+    data = SyntheticDataset(cfg.vocab, TRAIN_SEQ, GLM4_CARDS_BATCH, seed=0)
+    losses, ms, launches, counted = [], [], [], rf.CollectiveBytes()
+    for i in range(steps):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with counted if i == 1 else contextlib.nullcontext():
+            params, state, metrics = step(params, state, data.batch(i))
+            losses.append(float(metrics["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(ops.launch_counts())
+    out = {"losses": losses, "ms": ms, "launches": launches, "init_peak_bytes": init_peak,
+           "peak_bytes": _peak(dev), "collective_bytes": counted.bytes,
+           "collective_calls": counted.counts}
+    del params, state, metrics
+    _reset_peak(dev)
+    return out
+
+
+@torch.no_grad()
+def dbrx_unmeshed_loss(cfg, dev: torch.device) -> float:
+    """The bf16 forward loss of ``cfg`` on one card, unmeshed: the weights of
+    ``dbrx_train``'s init (seed 0) made in bf16 -- its fp32 masters as its
+    forward casts them -- and its first batch."""
+    model = build_model(cfg, ModelOptions("bfloat16", "bfloat16", remat=False), dev)
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    batch = batch_to_device(SyntheticDataset(cfg.vocab, TRAIN_SEQ, GLM4_CARDS_BATCH,
+                                             seed=0).batch(0), dev)
+    loss = float(model.loss(params, batch)[0])
+    del params
+    _reset_peak(dev)
+    return loss
+
+
+def dbrx_cards_rank(rank: int, device_type: str = "cuda", reduced: bool = False) -> dict:
+    """One rank of the four-card world of ``mesh_cards_dbrx`` (``reduced``: the
+    reduced config, a rehearsal on 4 gloo ranks): the one-card check at
+    DBRX_CARDS_CHECK_LAYERS (rank 0's unmeshed greedy decode, its routes
+    recorded; then both meshes fed its tokens, their routes pinned to its
+    routes), the greedy decode at full depth on both meshes, each followed by
+    step 1 again in fp32 compute from the same bf16 weights and again in bf16
+    ((1, 4)'s routes recorded, (2, 2)'s pinned to them), then
+    rank 0's unmeshed bf16 forward loss and the meshed train step at
+    DBRX_CARDS_TRAIN_LAYERS on (2, 2).  Each rank's report; the logits are
+    rank 0's alone."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    cfg = get_config("dbrx-132b")
+    cfg = cfg.reduced() if reduced else cfg
+    dev = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
+    if device_type == "cuda":   # fp32 products stay full fp32, as on one card
+        torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(6)
+    first = torch.randint(0, cfg.vocab, (DBRX_CARDS_LANES, 1), device=dev, generator=gen,
+                          dtype=torch.int32)
+    meshes = {shape: init_device_mesh(device_type, shape, mesh_dim_names=("data", "model"))
+              for shape in DBRX_CARDS_MESHES}
+    serve_opts = ModelOptions("bfloat16", "bfloat16", remat=False)
+    out: dict = {"rank": rank, "device": str(dev), "check": {}, "serve": {}}
+    on_dev = lambda log: [tuple(t.to(dev) for t in entry) for entry in log]  # noqa: E731
+
+    def keep(run):   # the logits go back from rank 0 alone
+        if rank:
+            run["logits"] = None
+            for again in run["again"]:
+                again.pop("logits")
+        return run
+
+    check = build_model(dataclasses.replace(cfg, n_layers=DBRX_CARDS_CHECK_LAYERS), serve_opts, dev)
+    shared = [None, None]
+    if rank == 0:
+        out["check"]["one_card"] = dbrx_decode(check, None, dev, first, DBRX_CARDS_CHECK_STEPS,
+                                               routes="record", every_logits=True)
+        shared = [out["check"]["one_card"]["tokens"], out["check"]["one_card"]["routes"]]
+    dist.broadcast_object_list(shared, src=0)   # rank 0's tokens and routes feed each mesh
+    forced, pinned = shared[0].to(dev), on_dev(shared[1])
+    for shape, mesh in meshes.items():
+        out["check"][shape] = keep(dbrx_decode(check, mesh, dev, first, DBRX_CARDS_CHECK_STEPS,
+                                               forced, pinned, every_logits=True))
+    del check
+    serve = build_model(cfg, serve_opts, dev)
+    serve32 = build_model(cfg, ModelOptions("bfloat16", "float32", remat=False), dev)
+    step1_routes = ("record", "record")   # fp32 compute, bf16
+    for shape, mesh in meshes.items():
+        run = dbrx_decode(serve, mesh, dev, first, DBRX_CARDS_SERVE_STEPS,
+                          again=tuple(zip(step1_routes, (serve32, serve))))
+        if step1_routes[0] == "record":
+            step1_routes = tuple(on_dev(a["routes"]) for a in run["again"])
+        out["serve"][shape] = keep(run)
+    del serve, serve32
+    tcfg = dataclasses.replace(cfg, n_layers=DBRX_CARDS_TRAIN_LAYERS)
+    if rank == 0:
+        out["unmeshed_bf16_loss"] = dbrx_unmeshed_loss(tcfg, dev)
+    dist.barrier()
+    out["train"] = dbrx_train(tcfg, meshes[(2, 2)], dev, DBRX_CARDS_TRAIN_STEPS)
+    return out
+
+
+def mesh_cards_dbrx_phase(card: str) -> dict[str, int]:
+    """dbrx-132b at its published widths (d 6144, 48 q / 8 kv heads of 128, 16
+    experts of 10752, top-4, vocab 100 352) on the four cards through the
+    meshed steps (``dbrx_cards_rank``'s world, NCCL): 32 greedy decode steps
+    at 8 lanes of the 40-layer model on the (1, 4) mesh (EP and TP 4) and on
+    (2, 2) (TP/EP 2, ZeRO-3 2: each layer's weights gathered at its use); at 4
+    layers both meshes against rank 0's unmeshed decode of the same init; and
+    4 train steps at 5 of 40 layers on (2, 2), the depth four cards hold.
+    Rules: on every rank and mesh the same tokens and finite logits, peak
+    under 80 GiB; step 1's logits of the two meshes at 40 layers in fp32
+    compute from the same bf16 weights (routes pinned) within 1e-4 of the
+    largest |logit|, and in bf16 (routes pinned) within DBRX_CARDS_BF16_GAP
+    (more than 2e-2 of the largest: rounding through 40 layers; each mesh's
+    own routes reported), and at 4 layers each mesh's bf16 logits
+    against one card's within 2e-2 of the largest; at most
+    DBRX_CARDS_TOKEN_FLIPS of the one card's 128 greedy tokens differ from a
+    mesh's argmax fed the same tokens (bf16 routes flip); the decodes launch
+    RMSNorm; the train steps' losses finite, step 1's within 1e-2 of the
+    unmeshed bf16 forward's, each step's launches ``train_launches``', a
+    rank's step peak at most the dry run's count of the cell + 5 % and under
+    80 GiB, the NCCL bytes of a step by kind the dry run's to the byte.
+    Returns the kernels' launches over every rank and run."""
+    from repro_torch.launch.mesh import spawn
+
+    cfg = get_config("dbrx-132b")
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    dry = subprocess.Popen(   # a host process beside the cards' work
+        [sys.executable, "-c", "import json, chip_smoke; print(json.dumps("
+         f"chip_smoke.cards_dryrun_cell('dbrx-132b', {DBRX_CARDS_TRAIN_LAYERS})))"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    atexit.register(_stop, {"dbrx_dryrun": dry})
+    t0 = time.perf_counter()
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"   # the ranks' allocator
+    try:
+        ranks = spawn(dbrx_cards_rank, 4, "cuda")
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    world_s = time.perf_counter() - t0
+    dry_out, _ = dry.communicate(timeout=600)
+    if dry.returncode != 0:
+        raise AssertionError(f"the dbrx-132b dry-run cell failed ({dry.returncode})")
+    report = {"phase": "mesh_cards_dbrx", "card": card, "world_s": world_s,
+              "dryrun": json.loads(dry_out.strip().splitlines()[-1])}
+    report.update(dbrx_cards_rules(cfg, ranks, report["dryrun"]))
+    emit(report)
+    if report["failures"]:
+        raise AssertionError(f"mesh_cards_dbrx: {report['failures']}")
+    return report["launches"]
+
+
+def _logit_diff(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
+    """(max |a - b|, the rule's bound: 2e-2 of the largest |b|)."""
+    return float((a - b).abs().max()), DBRX_CARDS_LOGIT_RULE * float(b.abs().max())
+
+
+def _median_after_first(ms: list[float]) -> float:
+    return float(np.median(ms[1:]))
+
+
+def dbrx_cards_rules(cfg, ranks: list[dict], dry: dict | None, card_bytes: int = CARD_BYTES
+                     ) -> dict:
+    """``mesh_cards_dbrx``'s rules on its ranks' reports (``dry``: the dry
+    run's count of the train cell, None to leave its rules out, as a rehearsal
+    on the host does): the figures it reports and its failures."""
+    failures = []
+    rank0 = ranks[0]
+    rep: dict = {"serve": {}, "check": {}}
+    expected = train_launches(dataclasses.replace(cfg, n_layers=DBRX_CARDS_TRAIN_LAYERS),
+                              remat=True)
+    launches = dict.fromkeys(expected, 0)
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts.get(k, 0)
+
+    for name, depth, runs in (("serve", cfg.n_layers, "serve"), ("check", DBRX_CARDS_CHECK_LAYERS,
+                                                                   "check")):
+        for shape in DBRX_CARDS_MESHES:
+            per_rank = [r[runs][shape] for r in ranks]
+            key = "x".join(map(str, shape))
+            rep[name][key] = {
+                "n_layers": depth, "median_step_ms": _median_after_first(per_rank[0]["ms"]),
+                "init_peak_bytes": [r["init_peak_bytes"] for r in per_rank],
+                "peak_bytes": [r["peak_bytes"] for r in per_rank],
+                "collective_bytes_a_step": per_rank[0]["collective_bytes"],
+                "collective_calls_a_step": per_rank[0]["collective_calls"],
+                "launches": per_rank[0]["launches"]}
+            for r in per_rank:
+                add(r["launches"])
+                if not torch.equal(r["tokens"], per_rank[0]["tokens"]) or not r["finite"] \
+                        or max(r["peak_bytes"], r["init_peak_bytes"]) >= card_bytes \
+                        or r["launches"].get("rmsnorm", 0) <= 0:
+                    failures.append((name, key, "rank", r is per_rank[0], r["finite"],
+                                     r["peak_bytes"], r["launches"]))
+    # step 1 again on each mesh in fp32 compute and in bf16 from the same
+    # bf16 weights, (2, 2)'s routes pinned to (1, 4)'s; the bf16 runs' own
+    # step 1 (each mesh its own routes) reported
+    (a, a16), (b, b16) = (rank0["serve"][s]["again"] for s in DBRX_CARDS_MESHES)
+    diff = float((b["logits"] - a["logits"]).abs().max())
+    tol = DBRX_CARDS_FP32_RULE * float(a["logits"].abs().max())
+    pinned16 = float((b16["logits"] - a16["logits"]).abs().max())
+    bf16, bf16_tol = _logit_diff(rank0["serve"][(2, 2)]["logits"][0],
+                                 rank0["serve"][(1, 4)]["logits"][0])
+    rep["serve"]["step1_logits_2x2_vs_1x4"] = {
+        "fp32_compute_max_abs_diff": diff, "tol": tol,
+        "routes": sum(i.numel() for i, _ in a["routes"]), "routes_2x2_would_flip": sum(b["routes"]),
+        "bf16_pinned_max_abs_diff": pinned16, "bf16_pinned_limit": DBRX_CARDS_BF16_GAP,
+        "bf16_routes_2x2_would_flip": sum(b16["routes"]),
+        "bf16_own_routes_max_abs_diff": bf16, "bf16_rule": bf16_tol}
+    if not (diff <= tol and a["finite"] and b["finite"]):
+        failures.append(("serve: step 1's logits across the meshes", diff, tol))
+    if not (pinned16 <= DBRX_CARDS_BF16_GAP and a16["finite"] and b16["finite"]):
+        failures.append(("serve: step 1's bf16 logits across the meshes", pinned16,
+                         DBRX_CARDS_BF16_GAP))
+    one = rank0["check"]["one_card"]
+    add(one["launches"])
+    rep["check"]["one_card"] = {"median_step_ms": _median_after_first(one["ms"]),
+                                "init_peak_bytes": one["init_peak_bytes"],
+                                "peak_bytes": one["peak_bytes"],
+                                "routes": sum(i.numel() for i, _ in one["routes"])}
+    for shape in DBRX_CARDS_MESHES:   # fed the one card's tokens, pinned to its routes
+        key = "x".join(map(str, shape))
+        got = rank0["check"][shape]
+        diff, tol = _logit_diff(got["logits"], one["logits"])
+        step1, _ = _logit_diff(got["logits"][0], one["logits"][0])
+        flips = int((got["tokens"] != one["tokens"]).sum())
+        rep["check"][key].update({"max_abs_diff": diff, "step1_max_abs_diff": step1, "tol": tol,
+                                  "routes_would_flip": sum(got["routes"]),
+                                  "tokens_differing": flips, "tokens": one["tokens"].numel(),
+                                  "tokens_differing_allowed": DBRX_CARDS_TOKEN_FLIPS})
+        if not (diff <= tol and flips <= DBRX_CARDS_TOKEN_FLIPS):
+            failures.append(("check at 4 layers", key, diff, tol, flips))
+    train = [r["train"] for r in ranks]
+    losses = train[0]["losses"]
+    step_ms = _median_after_first(train[0]["ms"])
+    tcfg = dataclasses.replace(cfg, n_layers=DBRX_CARDS_TRAIN_LAYERS)
+    tokens = GLM4_CARDS_BATCH * TRAIN_SEQ
+    attn_fwd = 4 * GLM4_CARDS_BATCH * cfg.n_heads * (TRAIN_SEQ * (TRAIN_SEQ + 1) // 2) * \
+        cfg.resolved_head_dim * tcfg.n_layers
+    model_flops = 6 * tcfg.active_param_count() * tokens + 3 * attn_fwd
+    rep["train"] = {
+        "n_layers": tcfg.n_layers, "full_depth": cfg.n_layers, "params": tcfg.param_count(),
+        "active_params": tcfg.active_param_count(), "batch": [GLM4_CARDS_BATCH, TRAIN_SEQ],
+        "losses": losses, "step_ms": train[0]["ms"], "median_step_ms_after_first": step_ms,
+        "tokens_per_s": tokens / step_ms * 1e3, "model_tflops": model_flops / step_ms / 1e9,
+        "unmeshed_bf16_loss": rank0["unmeshed_bf16_loss"],
+        "init_peak_bytes": [t["init_peak_bytes"] for t in train],
+        "step_peak_bytes": [t["peak_bytes"] for t in train],
+        "collective_bytes_a_step": [t["collective_bytes"] for t in train],
+        "collective_calls_a_step": train[0]["collective_calls"], "launches_a_step": expected}
+    step1 = abs(losses[0] - rank0["unmeshed_bf16_loss"])
+    rep["train"]["step1_abs_diff"] = step1
+    if not (all(math.isfinite(v) for v in losses) and step1 <= DBRX_CARDS_LOSS_RULE):
+        failures.append(("train losses", losses, rank0["unmeshed_bf16_loss"]))
+    for r, t in enumerate(train):
+        for counts in t["launches"]:
+            add(counts)
+        if any(c != expected for c in t["launches"]) or t["peak_bytes"] >= card_bytes:
+            failures.append(("train rank", r, t["launches"][:1], t["peak_bytes"]))
+        if dry is not None and (t["peak_bytes"] > dry["peak_bytes"] * (1 + DBRX_CARDS_PEAK_SLACK)
+                                or t["collective_bytes"] != dry["collective_bytes"]):
+            failures.append(("train rank against the dry run", r, t["peak_bytes"],
+                             t["collective_bytes"]))
+    rep["launches"], rep["failures"] = launches, failures
+    return rep
 
 
 # ------------------------------------------- remat policy, roofline, dry run
@@ -3938,8 +4421,9 @@ def main() -> None:
                         help="print each kernel's registers and shared memory from the build")
     parser.add_argument("--cards", type=int, default=1, choices=(1, 4),
                         help="4: instead of every phase, only mesh_host's world on NCCL over "
-                             "4 cards (the phase mesh_cards), the launcher on them and glm4-9b "
-                             "trained through it (mesh_cards_glm4)")
+                             "4 cards (the phase mesh_cards), dbrx-132b served and trained "
+                             "through the meshed steps (mesh_cards_dbrx), the launcher on them "
+                             "and glm4-9b trained through it (mesh_cards_glm4)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -3967,6 +4451,7 @@ def main() -> None:
         if torch.cuda.device_count() < 4:
             raise SystemExit(f"--cards 4 needs 4 CUDA devices, found {torch.cuda.device_count()}")
         mesh_host_phase("cuda")
+        mesh_cards_dbrx_phase(card)
         with tempfile.TemporaryDirectory() as tmp:   # the launcher's 4 NCCL ranks
             t0 = time.perf_counter()
             rc = launch_train.main(

@@ -41,7 +41,11 @@ most that the storages the step creates hold at once (``StepCounts``'s own
 account: a storage's bytes from the op that creates it until its last tensor
 dies, a view or an in-place result never, a DTensor by its local shard); their
 sum is ``peak_bytes_per_device``.  The trace takes the plain attention, so the
-figure holds its s x s scores, which the flash kernel never allocates.
+figure holds its s x s scores, which the flash kernel never allocates.  No
+step gathers the whole parameter tree: each layer gathers its ZeRO-3 weights
+at its use (``parallel.sharding.gather_at_use``, inside its checkpoint, so the
+recompute gathers them again), and the peak holds one layer's gathered
+weights at a time.
 
 As in the reference, the analysis counts run at one microbatch (the true
 count with ``analysis_true_microbatches``) and, above 48 layers or 2
@@ -84,7 +88,6 @@ from repro_torch.optim import AdamWConfig, init_opt_state
 from repro_torch.parallel import sharding as shd
 from repro_torch.train.train_step import (
     batch_sharding,
-    gather_fsdp,
     make_serve_step,
     make_train_step,
     shard_batch,
@@ -247,8 +250,7 @@ def _cell_step(cfg, shape, mesh, opts: ModelOptions, microbatches: int, rules=No
     if shape.kind == "prefill":
         def prefill(params, batch):
             with shd.activate(mesh, rules), torch.no_grad():
-                logits, _ = model.forward(gather_fsdp(params, mesh, rules),
-                                          shard_batch(batch, mesh, rules))
+                logits, _ = model.forward(params, shard_batch(batch, mesh, rules))
             return logits
 
         held = shard_batch(specs, mesh, rules)

@@ -9,7 +9,10 @@ tensors.  Layers are a Python list walked by a Python loop (the reference
 stacks them on a leading axis for ``lax.scan``), each under
 ``torch.utils.checkpoint`` when ``remat`` is on and autograd is recording (the
 reference's per-layer ``jax.checkpoint``), with the ``remat_policy`` of the
-options.  KV caches and page pools are updated in place and returned.
+options.  On a mesh each layer gathers its ZeRO-3 weights inside that body
+(``parallel.sharding.gather_at_use``), as the reference's scan body gathers
+its layer's slice: a rank holds one layer's gathered weights at a time.  KV
+caches and page pools are updated in place and returned.
 
 ``remat_policy="save_tp_outputs"`` is the reference's
 ``save_only_these_names("attn_out", "mlp_out")``, built on selective
@@ -42,7 +45,7 @@ from torch.utils.checkpoint import (
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.parallel.sharding import lshard
+from repro_torch.parallel.sharding import gather_at_use, lshard
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 REMAT_POLICIES = ("full", "save_tp_outputs")
@@ -281,12 +284,13 @@ class DecoderLM:
     # --------------------------------------------------------------- pieces
     def embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         # F.embedding: its CUDA backward sums a row's gradients in a fixed order
-        x = F.embedding(tokens.long(), params["embed"]["tokens"].to(self.opts.cdt))
+        x = F.embedding(tokens.long(), gather_at_use(params["embed"]["tokens"]).to(self.opts.cdt))
         return lshard(x, "batch", "seq", "embed")
 
     def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         cfg, cdt = self.cfg, self.opts.cdt
-        head = params["embed"]["tokens"].T if cfg.tie_embeddings else params["lm_head"]
+        head = (gather_at_use(params["embed"]["tokens"]).T if cfg.tie_embeddings
+                else gather_at_use(params["lm_head"]))
         out = x @ head.to(cdt)
         if cfg.padded_vocab != cfg.vocab:
             # mask padding entries so argmax / softmax ignore them
@@ -300,8 +304,11 @@ class DecoderLM:
         """One pre-norm block; ``attn(attn_params, normed_x) -> h``.  Returns
         (x, the MoE's aux loss where ``return_aux`` and the family has one,
         else None).  ``tag``: the attention's and the MLP's outputs go through
-        :func:`tp_output` (the ``save_tp_outputs`` policy)."""
+        :func:`tp_output` (the ``save_tp_outputs`` policy).  The layer's
+        ZeRO-3 weights are gathered here, inside the checkpoint
+        (``gather_at_use``)."""
         cfg = self.cfg
+        lp = gather_at_use(lp)
         named = (lambda h: tp_output(h, "batch", "seq_sp", "embed")) if tag else (lambda h: h)
         x = x + named(attn(lp["attn"], L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)))
         x = lshard(x, "batch", "seq_sp", "embed")
@@ -324,7 +331,7 @@ class DecoderLM:
         x = self.embed(params, batch["tokens"])
         if cfg.family == "vlm":
             cdt = self.opts.cdt
-            prefix = batch["patches"].to(cdt) @ params["patch_proj"].to(cdt)
+            prefix = batch["patches"].to(cdt) @ gather_at_use(params["patch_proj"]).to(cdt)
             x = lshard(torch.cat([prefix, x], dim=1), "batch", "seq", "embed")
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         attn = lambda ap, normed: L.attention_fwd(ap, normed, positions, causal=True,
@@ -343,7 +350,7 @@ class DecoderLM:
                 x, layer_aux = self._layer(lp, x, attn, True)
             if layer_aux is not None:
                 aux = aux + layer_aux.float()
-        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        x = L.rmsnorm(gather_at_use(params["final_norm"]), x, cfg.norm_eps)
         if cfg.family == "vlm":
             x = x[:, cfg.n_patches:]   # score only the token positions
         return self.logits(params, x), aux
@@ -364,7 +371,7 @@ class DecoderLM:
         for i, lp in enumerate(params["layers"]):
             layer_cache = {name: t[i] for name, t in caches.items()}
             x, _ = self._layer(lp, x, lambda ap, normed: attn_fn(ap, normed, layer_cache)[0])
-        x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        x = L.rmsnorm(gather_at_use(params["final_norm"]), x, self.cfg.norm_eps)
         return self.logits(params, x)
 
     def _attn_kwargs(self) -> dict:

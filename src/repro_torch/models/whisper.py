@@ -30,7 +30,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import ModelOptions, init_on_meta, resolve_device
 from repro_torch.models.xlstm import _mask_padded_vocab
-from repro_torch.parallel.sharding import lshard
+from repro_torch.parallel.sharding import gather_at_use, lshard
 
 N_FRAMES = 1500  # whisper's 30 s window after the conv stack
 
@@ -119,8 +119,9 @@ class WhisperLM:
         return x
 
     def _logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
-        logits = _mask_padded_vocab(x @ params["embed"]["tokens"].T.to(self.opts.cdt), self.cfg)
+        x = L.rmsnorm(gather_at_use(params["final_norm"]), x, self.cfg.norm_eps)
+        head = gather_at_use(params["embed"]["tokens"]).T
+        logits = _mask_padded_vocab(x @ head.to(self.opts.cdt), self.cfg)
         return lshard(logits, "batch", "seq", "vocab")
 
     def _embed(self, params: dict, tokens: torch.Tensor, offset: int = 0) -> torch.Tensor:
@@ -128,7 +129,7 @@ class WhisperLM:
         out at once: a vocab-sharded table's lookup is a masked partial sum,
         which DTensor can reduce only once."""
         cfg, cd = self.cfg, self.opts.cdt
-        x = lshard(F.embedding(tokens.long(), params["embed"]["tokens"].to(cd)),
+        x = lshard(F.embedding(tokens.long(), gather_at_use(params["embed"]["tokens"]).to(cd)),
                    "batch", "seq", "embed")
         return x + sinusoid_pos(tokens.shape[1], cfg.d_model, offset=offset,
                                 device=x.device).to(cd)[None]
@@ -136,6 +137,7 @@ class WhisperLM:
     # --------------------------------------------------------------- encoder
     def _enc_layer(self, lp: dict, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         eps = self.cfg.norm_eps
+        lp = gather_at_use(lp)   # inside the checkpoint: the recompute gathers again
         x = x + L.attention_fwd(lp["attn"], L.rmsnorm(lp["attn_norm"], x, eps), positions,
                                 causal=False, **self._attn_kwargs())
         return x + gelu_mlp_fwd(lp, L.rmsnorm(lp["ffn_norm"], x, eps))
@@ -143,12 +145,12 @@ class WhisperLM:
     def encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
         """frames (b, n_frames, d_model) -> the encoder's output, normed."""
         cfg, cd = self.cfg, self.opts.cdt
-        x = frames.to(cd) @ params["frame_proj"].to(cd)
+        x = frames.to(cd) @ gather_at_use(params["frame_proj"]).to(cd)
         x = x + sinusoid_pos(x.shape[1], cfg.d_model, device=x.device).to(cd)[None]
         x = lshard(x, "batch", "seq", "embed")
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         x = self._stack(self._enc_layer, params["enc_layers"], x, positions)
-        return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+        return L.rmsnorm(gather_at_use(params["enc_norm"]), x, cfg.norm_eps)
 
     # --------------------------------------------------------------- decoder
     def _cross_kv(self, lp: dict, enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -156,12 +158,14 @@ class WhisperLM:
         each (b, n_frames, K, hd), contiguous."""
         cfg, cd = self.cfg, self.opts.cdt
         K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        lp = gather_at_use(lp)
         return (L._split_heads(enc_out @ lp["xattn"]["wk"].to(cd), K, hd),
                 L._split_heads(enc_out @ lp["xattn"]["wv"].to(cd), K, hd))
 
     def _dec_layer(self, lp: dict, x: torch.Tensor, positions: torch.Tensor,
                    enc_out: torch.Tensor) -> torch.Tensor:
         eps = self.cfg.norm_eps
+        lp = gather_at_use(lp)   # inside the checkpoint: the recompute gathers again
         x = x + L.attention_fwd(lp["attn"], L.rmsnorm(lp["attn_norm"], x, eps), positions,
                                 causal=True, **self._attn_kwargs())
         x = x + L.attention_fwd(lp["xattn"], L.rmsnorm(lp["xattn_norm"], x, eps), positions,
@@ -228,6 +232,7 @@ class WhisperLM:
         index = cache["index"]
         x = self._embed(params, tokens, offset=index)
         for i, lp in enumerate(params["dec_layers"]):
+            lp = gather_at_use(lp)
             kvc = {n: t[i] for n, t in cache["kv"].items()}
             h, _ = L.attention_decode(lp["attn"], L.rmsnorm(lp["attn_norm"], x, eps), kvc, index,
                                       **self._attn_kwargs())

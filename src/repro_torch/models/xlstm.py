@@ -45,7 +45,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import ModelOptions, init_on_meta, resolve_device
 from repro_torch.parallel import sharding as shd
-from repro_torch.parallel.sharding import lshard
+from repro_torch.parallel.sharding import gather_at_use, lshard
 
 SEG_LEN = 128   # steps between the backward's saved carries (segmented_scan)
 
@@ -314,12 +314,13 @@ class XLSTMLM:
         # F.embedding: its CUDA backward sums a row's gradients in a fixed order.
         # Laid out at once: a vocab-sharded table's lookup is a masked partial
         # sum, which DTensor can reduce only once
-        x = F.embedding(tokens.long(), params["embed"]["tokens"].to(self.opts.cdt))
+        x = F.embedding(tokens.long(), gather_at_use(params["embed"]["tokens"]).to(self.opts.cdt))
         return lshard(x, "batch", "seq", "embed")
 
     def _logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
-        logits = _mask_padded_vocab(x @ params["lm_head"].to(self.opts.cdt), self.cfg)
+        x = L.rmsnorm(gather_at_use(params["final_norm"]), x, self.cfg.norm_eps)
+        logits = _mask_padded_vocab(x @ gather_at_use(params["lm_head"]).to(self.opts.cdt),
+                                    self.cfg)
         return lshard(logits, "batch", "seq", "vocab")
 
     def _zero_state(self, batch: int) -> tuple[list[dict], dict]:
@@ -328,8 +329,11 @@ class XLSTMLM:
                 slstm_state(batch, H, self.dh, self.device))
 
     def _unit_fwd(self, up: dict, x: torch.Tensor, m_states: list[dict], s_state: dict):
-        """One unit over (b, s, d): (x, its mLSTM states, its sLSTM state)."""
+        """One unit over (b, s, d): (x, its mLSTM states, its sLSTM state).
+        The unit's ZeRO-3 weights are gathered here, inside the checkpoint
+        (``gather_at_use``)."""
         eps = self.cfg.norm_eps
+        up = gather_at_use(up)
         new_m = []
         for lp, st in zip(up["mlstm"], m_states):
             y, st = mlstm_fwd(lp, x, st, eps)

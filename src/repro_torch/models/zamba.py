@@ -35,7 +35,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.transformer import ModelOptions, init_on_meta, resolve_device
 from repro_torch.models.xlstm import _mask_padded_vocab
 from repro_torch.parallel import sharding as shd
-from repro_torch.parallel.sharding import lshard
+from repro_torch.parallel.sharding import gather_at_use, lshard
 
 CONV_K = 4  # depthwise conv window (mamba2 default)
 CHUNK = 128  # SSD chunk length of the forward
@@ -238,12 +238,13 @@ class ZambaLM:
 
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         # F.embedding: its CUDA backward sums a row's gradients in a fixed order
-        x = F.embedding(tokens.long(), params["embed"]["tokens"].to(self.opts.cdt))
+        x = F.embedding(tokens.long(), gather_at_use(params["embed"]["tokens"]).to(self.opts.cdt))
         return lshard(x, "batch", "seq", "embed")
 
     def _logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
-        logits = _mask_padded_vocab(x @ params["lm_head"].to(self.opts.cdt), self.cfg)
+        x = L.rmsnorm(gather_at_use(params["final_norm"]), x, self.cfg.norm_eps)
+        logits = _mask_padded_vocab(x @ gather_at_use(params["lm_head"]).to(self.opts.cdt),
+                                    self.cfg)
         return lshard(logits, "batch", "seq", "vocab")
 
     def _units(self, params: dict):
@@ -264,12 +265,16 @@ class ZambaLM:
         return x + L.mlp_fwd(sp["mlp"], L.rmsnorm(sp["mlp_norm"], x, cfg.norm_eps))
 
     def _mamba_layer(self, lp: dict, x: torch.Tensor) -> torch.Tensor:
-        return x + mamba2_fwd(lp, x, self.cfg.norm_eps)
+        return x + mamba2_fwd(gather_at_use(lp), x, self.cfg.norm_eps)
 
     def forward(self, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """batch["tokens"] (b, s) -> (logits (b, s, padded_vocab), aux: a zero
-        fp32 scalar, as the reference's)."""
+        fp32 scalar, as the reference's).  Under remat each Mamba2 layer is
+        checkpointed.  The shared block's weights are gathered once, as the
+        embedding's and the head's: one copy that every use and the backward
+        share."""
         x = self._embed(params, batch["tokens"])
+        shared = gather_at_use(params["shared"])
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         remat = self.opts.remat and torch.is_grad_enabled()
         for _, layers in self._units(params):
@@ -280,8 +285,7 @@ class ZambaLM:
                                    preserve_rng_state=False)
                 else:
                     x = self._mamba_layer(lp, x)
-            x = lshard(self._shared_attn_fwd(params["shared"], x, positions),
-                       "batch", "seq", "embed")
+            x = lshard(self._shared_attn_fwd(shared, x, positions), "batch", "seq", "embed")
         return self._logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
     def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
@@ -360,12 +364,14 @@ class ZambaLM:
         cfg = self.cfg
         x = self._embed(params, tokens)
         index = cache["index"]
+        shared = gather_at_use(params["shared"])
         for u, layers in self._units(params):
             for i, lp in layers:
-                y, S, tail = mamba2_step(lp, x, cache["S"][i], cache["conv"][i], cfg.norm_eps)
+                y, S, tail = mamba2_step(gather_at_use(lp), x, cache["S"][i], cache["conv"][i],
+                                         cfg.norm_eps)
                 L.write_leading(cache["S"], (i,), S)
                 L.write_leading(cache["conv"], (i,), tail)
                 x = x + y
             kvc = {n: t[u] for n, t in cache["kv"].items()}
-            x = self._shared_attn_step(params["shared"], x, kvc, cache["kv_pos"][u], index)
+            x = self._shared_attn_step(shared, x, kvc, cache["kv_pos"][u], index)
         return self._logits(params, x), {**cache, "index": index + 1}

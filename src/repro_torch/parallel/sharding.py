@@ -37,7 +37,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-import threading
 from typing import Mapping, Optional, Sequence
 
 import torch
@@ -87,7 +86,12 @@ def _device_mesh_shape(mesh) -> tuple:
     return tuple((name, mesh.size(i)) for i, name in enumerate(mesh.mesh_dim_names))
 
 
-class _Ctx(threading.local):
+class _Ctx:
+    """The active mesh and rules, for every thread of the process: a CUDA
+    backward, and with it each remat recompute (where a layer gathers its
+    ZeRO-3 weights and lays its activations out again), runs on autograd's
+    device thread, not on the thread that entered :func:`activate`."""
+
     mesh = None
     rules: Optional[dict] = None
 
@@ -100,9 +104,14 @@ def activate(mesh, rules: Optional[dict] = None, sequence_parallel: bool = False
     """Make ``mesh`` (a DeviceMesh) the active mesh of model code run in this
     context: :func:`lshard` and :func:`pshard` then lay DTensors out by it,
     and a plain tensor meeting a DTensor in an op counts as replicated (the
-    positions, masks and constants the models make on the fly)."""
+    positions, masks and constants the models make on the fly).  The active
+    mesh is the whole process's (autograd's device thread reads it too), so
+    one mesh may be active at a time: entering with another mesh while one is
+    active raises, rather than lay out the other's tensors by it."""
     from torch.distributed.tensor.experimental import implicit_replication
 
+    if _CTX.mesh is not None and _CTX.mesh is not mesh:
+        raise RuntimeError("another mesh is active in this process: one mesh at a time")
     prev = (_CTX.mesh, _CTX.rules)
     _CTX.mesh = mesh
     _CTX.rules = rules or default_rules(tuple(mesh_shape(mesh)), sequence_parallel)
@@ -469,3 +478,44 @@ def lay_out_tree(tree, shardings):
 def full_tensor(x):
     """A DTensor gathered whole on every rank; anything else as it is."""
     return x.full_tensor() if is_dtensor(x) else x
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-3: weights gathered where they are used.
+# ---------------------------------------------------------------------------
+
+def _fsdp_dims() -> list[int]:
+    """The active mesh's dimensions that the rules' ``fsdp`` names and that
+    hold more than one rank."""
+    mesh, rules = _CTX.mesh, _CTX.rules
+    if mesh is None:
+        return []
+    fsdp = set(_entry_names(rules.get("fsdp") or None))
+    return [i for i, (n, size) in enumerate(mesh_shape(mesh).items()) if n in fsdp and size > 1]
+
+
+def gather_at_use(tree):
+    """``tree`` (a tensor, or a dict/list tree of them) as the model computes
+    with it: each DTensor leaf redistributed to ``Replicate()`` over the
+    rules' ``fsdp`` dimensions -- ZeRO-3's all-gather at use, whose backward
+    reduce-scatters the gradient into the leaf's layout.  The models call it
+    at the top of each layer's body, inside the function that the layer's
+    checkpoint wraps, and on the leaves outside the layers where each is used:
+    a rank holds one layer's gathered weights at a time, the recompute gathers
+    them again, and each layer's gradient is reduce-scattered as its backward
+    ends.  The identity off a mesh, where ``fsdp`` is empty, and on a plain
+    tensor."""
+    dims = _fsdp_dims()
+    if not dims:
+        return tree
+    from torch.distributed.tensor import Replicate
+
+    mesh = _CTX.mesh
+
+    def one(_, p):
+        if not is_dtensor(p):
+            return p
+        pl = tuple(Replicate() if i in dims else q for i, q in enumerate(p.placements))
+        return p if pl == tuple(p.placements) else p.redistribute(mesh, pl)
+
+    return map_with_path(one, tree)

@@ -13,9 +13,12 @@ parameters are laid out by ``parallel.sharding.param_shardings`` (TP/EP over
 ``model``, ZeRO-3 over the data dimensions), the moments by
 ``opt_shardings`` (ZeRO-1), the step counter is a Python int on every rank,
 and each microbatch is sharded over the data dimensions where its first
-dimension divides them.  For each microbatch the ZeRO-3 weights are gathered
-over the data dimensions (a differentiable ``redistribute``), so the backward
-reduce-scatters every gradient into its parameter's layout.  Plain tensors
+dimension divides them.  No step gathers the whole tree: the models gather
+each layer's ZeRO-3 weights over the data dimensions at their use
+(``parallel.sharding.gather_at_use``, a differentiable ``redistribute``,
+inside the layer's checkpoint, so that the recompute gathers them again), and
+the backward reduce-scatters each layer's gradients into their parameters'
+layout as that layer's backward ends.  Plain tensors
 (every rank holding the whole tree, as ``model.init`` on a common seed gives
 them) are accepted on the first call, as ``jit``'s ``in_shardings`` accept
 host arrays, and laid out; the step returns DTensors.
@@ -56,8 +59,8 @@ def loss_and_grads(model, params, batch: dict, microbatches: int = 1, layout=Non
     every leaf of a model takes part in its loss, so a missing gradient means
     an op returned a tensor that autograd did not record.  ``layout(params,
     microbatch) -> (params, microbatch)``: what the loss sees of each
-    microbatch (the meshed step's gather of the ZeRO-3 weights and sharding
-    of the microbatch); None is the identity."""
+    microbatch (the meshed step's sharding of the microbatch); None is the
+    identity."""
     layout = layout or (lambda p, b: (p, b))
     leaves = tree_leaves(params)
     for p in leaves:
@@ -133,7 +136,7 @@ def make_train_step(model, opt_cfg: AdamWConfig, mesh=None, microbatches: int = 
         return layouts[key]
 
     def layout(params, mbatch):
-        return gather_fsdp(params, mesh, rules), shard_batch(mbatch, mesh, rules)
+        return params, shard_batch(mbatch, mesh, rules)
 
     def train_step(params, opt_state, batch):
         batch = batch_to_device(batch, model.device)
@@ -159,26 +162,6 @@ def _shapes(tree) -> tuple:
     return tuple(tuple(t.shape) for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
 
 
-def gather_fsdp(params, mesh, rules: dict | None = None):
-    """The parameters as the model computes with them: each DTensor leaf
-    redistributed to be replicated over the ZeRO-3 dimensions, the rules'
-    ``fsdp`` (the data dimensions by default: ZeRO-3's all-gather at use; its
-    backward reduce-scatters the gradient)."""
-    from torch.distributed.tensor import Replicate
-
-    rules = rules or shd.default_rules(mesh.mesh_dim_names)
-    fsdp = tuple(rules.get("fsdp") or ())
-    data = [i for i, n in enumerate(mesh.mesh_dim_names) if n in fsdp]
-
-    def one(p):
-        if not shd.is_dtensor(p):
-            return p
-        pl = [Replicate() if i in data else q for i, q in enumerate(p.placements)]
-        return p.redistribute(mesh, pl) if pl != list(p.placements) else p
-
-    return tree_map(one, params)
-
-
 def batch_sharding(leaf, mesh, rules: dict | None = None) -> "shd.NamedSharding":
     """A batch leaf's layout: its first dimension over the data dimensions
     where it divides them (the rules' ``batch``), else replicated."""
@@ -196,9 +179,10 @@ def make_serve_step(model, mesh=None, rules: dict | None = None):
     decode (the cache is updated in place, as the reference donates it).
     With a ``mesh`` the parameters are laid out by ``param_shardings`` and the
     cache by :func:`cache_shardings` (on the first call; ``serve_step.lay_out
-    (params, cache)`` does it ahead), the tokens replicated, the ZeRO-3
-    weights gathered for the decode; the logits come back as a DTensor.
-    ``rules`` as in :func:`make_train_step`."""
+    (params, cache)`` does it ahead), the tokens replicated; the decode
+    gathers each layer's ZeRO-3 weights as it reaches the layer
+    (``parallel.sharding.gather_at_use``) and frees them after it; the logits
+    come back as a DTensor.  ``rules`` as in :func:`make_train_step`."""
     if mesh is None:
         def serve_step(params, cache, tokens):
             return model.decode_step(params, cache, tokens)
@@ -219,7 +203,7 @@ def make_serve_step(model, mesh=None, rules: dict | None = None):
         params, cache = lay_out(params, cache)
         tokens = shd.lay_out(shd.full_tensor(tokens), shd.NamedSharding(mesh, (None,) * tokens.ndim))
         with shd.activate(mesh, rules):
-            return model.decode_step(gather_fsdp(params, mesh, rules), cache, tokens)
+            return model.decode_step(params, cache, tokens)
 
     serve_step.lay_out = lay_out
     return serve_step

@@ -5,7 +5,7 @@ Writes ``OUT_DIR/inputs.npz`` first (the reduced models' initial parameters,
 the pipeline's and the compressed mean's inputs, Whisper's frames; the port's
 ranks start from them), then ``OUT_DIR/oracle.npz``: the reference's meshed
 train step (3 steps, fp32, on a (2, 2) ``data x model`` mesh) per model, its
-seq-sharded decode, the meshed decodes of zamba2, the xLSTM and Whisper,
+seq-sharded decode, the meshed decodes of zamba2, the xLSTM, Whisper and dbrx-132b,
 its GPipe forward and ``jax.grad`` of the pipelined loss, ``compressed_psum_mean``
 over 4 devices, and the Arnold placement the launcher prints for
 ``--devices 4 --mesh-shape 2x2 --arnold --scheduler mip``.
@@ -31,10 +31,10 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from jax.sharding import AxisType, PartitionSpec as P  # noqa: E402
 
-TRAIN_ARCHS = ("minicpm-2b", "qwen3-moe-235b-a22b", "zamba2-2.7b", "glm4-9b")
+TRAIN_ARCHS = ("minicpm-2b", "qwen3-moe-235b-a22b", "zamba2-2.7b", "glm4-9b", "dbrx-132b")
 SEQ, BATCH, STEPS, LR = 16, 8, 3, 1e-3
 DECODE_B, DECODE_L, DECODE_TOKENS = 4, 32, 5
-DECODE_ARCHS = ("zamba2-2.7b", "xlstm-350m", "whisper-tiny")
+DECODE_ARCHS = ("zamba2-2.7b", "xlstm-350m", "whisper-tiny", "dbrx-132b")
 DECODE_FRAMES = 24
 S, M, MB, D = 4, 8, 2, 16          # the pipeline test's stages, microbatches, rows, width
 
@@ -154,7 +154,7 @@ def main(out_dir: str) -> None:
 
 
 def family_decode(cfg, model, params, mesh, frames):
-    """The reference's meshed decode of a reduced zamba2, xLSTM or Whisper
+    """The reference's meshed decode of a reduced zamba2, xLSTM, Whisper or dbrx-132b
     (after ``prefill_cross`` of ``frames``): DECODE_TOKENS steps' logits."""
     from repro.parallel import sharding as shd
     from repro.train.train_step import cache_shardings

@@ -474,6 +474,7 @@ PLAN_FLASH = [
     (1, 4, 4, 150, 150, 96, "bfloat16", False, 1),       # and unaligned bf16
     (1, 64, 4, 1024, 1024, 128, "bfloat16", True, 0),    # qwen3-moe's prefill, GQA 16:1
     (4, 16, 1, 1024, 1024, 128, "bfloat16", True, 0),    # glm4-9b's step, a rank's shards on (2, 2)
+    (4, 24, 4, 1024, 1024, 128, "bfloat16", True, 0),    # dbrx-132b's step, a rank's shards on (2, 2)
     (4, 6, 6, 1500, 1500, 64, "bfloat16", True, 0),      # whisper-tiny's encoder, 1500 frames
     (4, 6, 6, 1500, 1500, 64, "float32", True, 0),       # and in the launcher's fp32
     (4, 6, 6, 448, 1500, 64, "bfloat16", True, 0),       # its cross-attention, 448 over 1500
@@ -505,6 +506,9 @@ PLAN_RMS = [
     ((4, 1500, 384), "bfloat16"),   # whisper-tiny's encoder
     ((4, 448, 384), "bfloat16"),    # and its decoder
     ((8, 1, 384), "bfloat16"),      # and its decode
+    ((4, 1024, 6144), "bfloat16"),  # dbrx-132b's step, a rank's rows on (2, 2)
+    ((8, 1, 6144), "bfloat16"),     # its decode: 8 lanes a rank on (1, 4) and one card
+    ((4, 1, 6144), "bfloat16"),     # and 4 a rank on (2, 2)
 ]
 
 
@@ -930,6 +934,7 @@ PLAN_FLASH_BWD = [
     (1, 4, 4, 150, 150, 96, "bfloat16", False, 1),       # hd 96 unaligned, ragged
     (1, 64, 4, 1024, 1024, 128, "bfloat16", True, 0),    # qwen3-moe's training step, GQA 16:1
     (4, 16, 1, 1024, 1024, 128, "bfloat16", True, 0),    # glm4-9b's step, a rank's shards on (2, 2)
+    (4, 24, 4, 1024, 1024, 128, "bfloat16", True, 0),    # dbrx-132b's step, a rank's shards on (2, 2)
     (4, 6, 6, 1500, 1500, 64, "bfloat16", True, 0),      # whisper-tiny's encoder, non-causal
     (4, 6, 6, 1500, 1500, 64, "float32", True, 0),       # and in the launcher's fp32
     (4, 6, 6, 448, 1500, 64, "bfloat16", True, 0),       # its cross-attention, 448 over 1500
@@ -958,6 +963,7 @@ PLAN_RMS_BWD = [
     ((4, 256, 1024), "bfloat16"),   # xlstm-350m's training step
     ((4, 1500, 384), "bfloat16"),   # whisper-tiny's encoder
     ((4, 448, 384), "bfloat16"),    # and its decoder
+    ((4, 1024, 6144), "bfloat16"),  # dbrx-132b's step, a rank's rows on (2, 2)
 ]
 
 

@@ -44,8 +44,8 @@ from repro_torch.parallel.sharding import param_spec
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TESTS = ROOT / "tests"
-TRAIN_ARCHS = ("minicpm-2b", "qwen3-moe-235b-a22b", "zamba2-2.7b", "glm4-9b")
-DECODE_ARCHS = ("zamba2-2.7b", "xlstm-350m", "whisper-tiny")
+TRAIN_ARCHS = ("minicpm-2b", "qwen3-moe-235b-a22b", "zamba2-2.7b", "glm4-9b", "dbrx-132b")
+DECODE_ARCHS = ("zamba2-2.7b", "xlstm-350m", "whisper-tiny", "dbrx-132b")
 LAUNCH = ["-m", "repro_torch.launch.train", "--device", "cpu", "--devices", "4",
           "--mesh-shape", "2x2", "--arnold", "--scheduler", "mip", "--steps", "4",
           "--ckpt-every", "2", "--log-every", "1"]
@@ -197,20 +197,22 @@ def test_meshed_launcher_places_and_restarts(runs):
     assert "done: first logged loss" in first
 
 
-#: a recurrent or encoder-decoder cache leaf of each family and its layout on
-#: the (2, 2) mesh: batch over ``data``, the state's or the KV's heads over
+#: a recurrent, encoder-decoder or MoE cache leaf of each family and its layout
+#: on the (2, 2) mesh: batch over ``data``, the state's or the KV's heads over
 #: ``model`` (every reduced config has 4 of them)
 FAMILY_CACHE_SPECS = {
     "zamba2-2.7b": ("S", (None, "data", "model", None, None)),
     "xlstm-350m": ("states/mlstm/C", (None, None, "data", "model", None, None)),
     "whisper-tiny": ("kv/k", (None, "data", None, "model", None)),
+    "dbrx-132b": ("kv/k", (None, "data", None, "model", None)),
 }
 
 
 @pytest.mark.parametrize("arch", DECODE_ARCHS)
 def test_family_meshed_decode_matches_unmeshed_and_reference(runs, arch):
-    """zamba2's ring cache and Mamba2 states, the xLSTM's states and
-    Whisper's self- and cross-attention caches through ``make_serve_step``:
+    """zamba2's ring cache and Mamba2 states, the xLSTM's states,
+    Whisper's self- and cross-attention caches and dbrx-132b's KV cache (its
+    experts over ``model``, ZeRO-3 over ``data``) through ``make_serve_step``:
     5 steps within 1e-4 of the unmeshed decode and of the reference's meshed
     decode, and every cache leaf still in its ``cache_shardings`` layout
     after the in-place writes."""
@@ -220,3 +222,33 @@ def test_family_meshed_decode_matches_unmeshed_and_reference(runs, arch):
     assert got["wrong_layouts"] == []
     leaf, spec = FAMILY_CACHE_SPECS[arch]
     assert got["cache_specs"][leaf] == spec
+
+
+@pytest.mark.parametrize("arch", ("minicpm-2b", "zamba2-2.7b", "dbrx-132b"))
+def test_a_remat_step_gathers_each_layer_at_its_use(runs, arch):
+    """ZeRO-3 gathers where the weights are used: in one meshed train step
+    under remat each layer's leaves sharded over ``data`` are gathered twice,
+    in the forward and in the recompute of the layer's checkpoint; the
+    hybrid's shared block once, at the top of the forward; the embedding and
+    the head once at each use (a tied table at the lookup and at the logits);
+    a leaf not sharded over ``data`` never (``expected_gathers``).  No step
+    gathers the whole tree.  Two such steps give the unmeshed remat step's
+    losses within 1e-4 (the train step's rule above)."""
+    from torch_parallel_world import expected_gathers
+
+    got = runs["port"][f"gathers|{arch}"]
+    assert any(p.startswith("layers/") for p in got["data_sharded"])
+    assert got["gathers"] == expected_gathers(got)
+    np.testing.assert_allclose(got["mesh"], got["plain"], rtol=0, atol=1e-4)
+
+
+def test_moe_decode_on_a_1x4_mesh(runs):
+    """dbrx-132b's decode with its experts and heads over a 4-way ``model``
+    dimension (EP and TP 4, ``data`` of one: nothing gathered): 5 steps
+    within 1e-4 of the unmeshed decode and of the reference's (2, 2) meshed
+    decode, the KV cache's heads over ``model``."""
+    got = runs["port"]["decode_1x4|dbrx-132b"]
+    np.testing.assert_allclose(got["mesh"], got["plain"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got["mesh"], runs["ref"]["decode|dbrx-132b"], rtol=0, atol=1e-4)
+    assert got["wrong_layouts"] == []
+    assert got["cache_specs"]["kv/k"] == (None, None, None, "model", None)

@@ -122,12 +122,31 @@ class _BackwardCollectives(CollectiveBytes):
         return super().__torch_dispatch__(func, types, args, kwargs)
 
 
+def _zero3_layer_leaves(cfg) -> int:
+    """The layer leaves that ZeRO-3 shards over ``data`` on the (2, 2) mesh."""
+    from repro_torch.parallel.sharding import map_with_path, param_spec
+
+    found = []
+
+    def leaf(path, t):
+        spec = param_spec(path, t.shape, {"data": 2, "model": 2})
+        names = [n for e in spec if e for n in (e if isinstance(e, tuple) else (e,))]
+        if path.startswith("layers/") and "data" in names:
+            found.append(path)
+
+    map_with_path(leaf, build_model(cfg, fp32("full"), "meta").init())
+    return len(found)
+
+
 def test_recompute_issues_no_collective_on_a_mesh():
     """Reduced minicpm-2b, one meshed train step on a (2, 2) fake world on
     meta tensors: the backward of ``save_tp_outputs`` issues exactly the
-    collectives of a step without remat; ``full`` replays each layer's
-    attention all-reduce (its MLP's is past the last tensor the recompute
-    needs); the FLOPs of both policies are equal."""
+    collectives of a step without remat and, under both policies, the
+    recompute's gathers of each layer's ZeRO-3 leaves (each layer gathers its
+    weights inside its checkpoint, as the reference's rematerialised scan
+    body does): no tensor-parallel collective is replayed; ``full`` replays
+    each layer's attention all-reduce too (its MLP's is past the last tensor
+    the recompute needs); the FLOPs of both policies are equal."""
     from torch.distributed.device_mesh import init_device_mesh
 
     cfg = get_config("minicpm-2b").reduced()
@@ -145,6 +164,9 @@ def test_recompute_issues_no_collective_on_a_mesh():
                 with _BackwardCollectives() as backward:
                     step(*args)
         out[name] = (backward.counts, counts.flops)
-    assert out["save_tp"][0] == out["none"][0]
+    regathers = _zero3_layer_leaves(cfg)
+    assert regathers == 7 * cfg.n_layers
+    assert out["save_tp"][0] == {**out["none"][0], "all-gather": regathers}
     assert out["full"][0]["all-reduce"] == out["none"][0]["all-reduce"] + cfg.n_layers
+    assert out["full"][0]["all-gather"] == regathers
     assert out["save_tp"][1] == out["full"][1] > out["none"][1]

@@ -236,3 +236,37 @@ def test_lshard_is_a_no_op_without_a_mesh():
     assert shd.lshard(x, "batch", "seq", "embed") is x
     assert shd.pshard(x, "data", None, "model") is x
     assert re.match(r"\(\)", str(shd.data_axis_names()))
+
+
+def test_the_active_mesh_reaches_autograd_s_device_thread():
+    """A CUDA backward -- and with it each remat recompute, where the layers
+    gather their ZeRO-3 weights and lay their activations out again -- runs
+    on autograd's device thread, not on the thread that entered ``activate``:
+    the mesh and rules are seen there too, and gone once the context ends."""
+    import threading
+
+    mesh, seen = {"data": 2, "model": 2}, []
+    with shd.activate(mesh):
+        probe = threading.Thread(target=lambda: seen.append(
+            (shd.active_mesh(), shd._fsdp_dims(), shd.data_axis_names())))
+        probe.start()
+        probe.join()
+    assert seen == [(mesh, [0], ("data",))]
+    assert shd.active_mesh() is None and shd._fsdp_dims() == []
+
+
+def test_one_mesh_is_active_at_a_time():
+    """The active mesh is the process's: the same mesh may be entered again
+    inside its own context, another mesh raises there, and both are free to
+    enter once the context has ended."""
+    first, other = {"data": 2, "model": 2}, {"data": 1, "model": 4}
+    with shd.activate(first):
+        with shd.activate(first):
+            assert shd.active_mesh() is first
+        with pytest.raises(RuntimeError, match="another mesh is active"):
+            with shd.activate(other):
+                pass
+        assert shd.active_mesh() is first
+    with shd.activate(other):
+        assert shd.active_mesh() is other
+    assert shd.active_mesh() is None

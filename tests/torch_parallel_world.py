@@ -4,8 +4,9 @@ INPUTS_NPZ OUT_PKL [cpu|cuda]``.
 
 Every rank starts from the reference's parameters and inputs in
 ``INPUTS_NPZ`` (written by ``tests/jax_parallel_oracle.py``) and runs every
-case -- the meshed train steps, the dense decodes, zamba2's, the xLSTM's and
-Whisper's decodes -- on a (2, 2) ``data x model`` DeviceMesh (the pipeline and the
+case -- the meshed train steps, the dense decodes, zamba2's, the xLSTM's,
+Whisper's and dbrx-132b's (the MoE's) decodes, and dbrx-132b's also on a
+(1, 4) mesh -- on a (2, 2) ``data x model`` DeviceMesh (the pipeline and the
 compressed mean on the world's 4 ranks); rank 0's results go to ``OUT_PKL``.
 The world is gloo on the CPU (the default) or NCCL on 4 cards, rank r on
 ``cuda:r``, where the meshed step's kernels run on the local shards and the
@@ -20,12 +21,12 @@ import sys
 import numpy as np
 import torch
 
-TRAIN_ARCHS = ("minicpm-2b", "qwen3-moe-235b-a22b", "zamba2-2.7b", "glm4-9b")
+TRAIN_ARCHS = ("minicpm-2b", "qwen3-moe-235b-a22b", "zamba2-2.7b", "glm4-9b", "dbrx-132b")
 SEQ, BATCH, STEPS, LR = 16, 8, 3, 1e-3
 DECODE_B, DECODE_L, DECODE_TOKENS = 4, 32, 5
-# the recurrent and encoder-decoder families' meshed decodes (Whisper's over
+# the recurrent, encoder-decoder and MoE families' meshed decodes (Whisper's over
 # DECODE_FRAMES encoder frames)
-DECODE_ARCHS = ("zamba2-2.7b", "xlstm-350m", "whisper-tiny")
+DECODE_ARCHS = ("zamba2-2.7b", "xlstm-350m", "whisper-tiny", "dbrx-132b")
 DECODE_FRAMES = 24
 
 
@@ -114,6 +115,86 @@ def train_case(inputs, arch, mesh, dev) -> dict:
     leaf = first["attn"]["wq"] if "attn" in first else first["ssm"]["w_in"]
     out["first_leaf"] = (tuple(leaf.shape), tuple(leaf.to_local().shape))
     return out
+
+
+#: the models whose gathers of one remat train step are counted leaf by leaf:
+#: tied embeddings, the hybrid's shared block, the MoE's expert stacks
+GATHER_ARCHS = ("minicpm-2b", "zamba2-2.7b", "dbrx-132b")
+
+
+def gather_case(arch, mesh, dev) -> dict:
+    """Two meshed train steps of a reduced model under remat (fp32, the port's
+    init, laid out by the first step) and two unmeshed ones from the same init:
+    both runs' losses; in the second meshed step, how many times each
+    parameter leaf is gathered (``DTensor.redistribute`` of the leaf itself
+    from a shard to a replica on some mesh dimension, which only
+    ``parallel.sharding.gather_at_use`` does: AdamW's update cuts a replicated
+    leaf to its moments' shards), and which leaves are sharded over
+    ``data``."""
+    from collections import Counter
+
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.models import ModelOptions, build_model
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import make_train_step
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, ModelOptions(param_dtype="float32", compute_dtype="float32",
+                                          remat=True), device=dev)
+    ds = SyntheticDataset(cfg.vocab, SEQ, BATCH)
+    losses = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        params = model.init(torch.Generator(dev).manual_seed(0))
+        step = make_train_step(model, AdamWConfig(lr=LR), mesh=m)
+        params, state, metrics = step(params, init_opt_state(params), ds.batch(0))
+        losses[name] = [float(metrics["loss"])]
+        if m is None:
+            losses[name].append(float(step(params, state, ds.batch(1))[2]["loss"]))
+    leaves = dict(_flat(params))
+    paths = {id(t): path for path, t in leaves.items()}
+    gathered: Counter = Counter()
+    redistribute = DTensor.redistribute
+
+    def counting(self, *args, **kwargs):
+        to = kwargs.get("placements", args[1] if len(args) > 1 else None) or self.placements
+        if id(self) in paths and any(isinstance(a, Shard) and isinstance(b, Replicate)
+                                     for a, b in zip(self.placements, to)):
+            gathered[paths[id(self)]] += 1
+        return redistribute(self, *args, **kwargs)
+
+    DTensor.redistribute = counting
+    try:
+        losses["mesh"].append(float(step(params, state, ds.batch(1))[2]["loss"]))
+    finally:
+        DTensor.redistribute = redistribute
+    data = list(shd.mesh_shape(mesh)).index("data")
+    return {**losses, "gathers": dict(gathered), "leaves": sorted(leaves),
+            "data_sharded": sorted(p for p, t in leaves.items()
+                                   if isinstance(t.placements[data], Shard)),
+            "tied": cfg.tie_embeddings}
+
+
+def expected_gathers(case: dict) -> dict:
+    """The gathers ``gather_case`` must count, leaf by leaf: a layer's leaves
+    sharded over ``data`` twice (the forward and the recompute of the layer's
+    checkpoint), the hybrid's shared block once (gathered at the top of the
+    forward, outside the checkpoints), the embedding and the head once at each
+    use (a tied table at the lookup and at the logits), a leaf not sharded
+    over ``data`` never."""
+    sharded = set(case["data_sharded"])
+
+    def times(path: str) -> int:
+        if path not in sharded:
+            return 0
+        if path.startswith("layers/"):
+            return 2
+        return 2 if path == "embed/tokens" and case["tied"] else 1
+
+    return {p: times(p) for p in case["leaves"] if times(p)}
 
 
 def trainer_case(mesh, dev, ckpt_dir: str) -> dict:
@@ -254,7 +335,7 @@ def decode_case(inputs, mesh, dev, n_kv_heads: int = 3) -> dict:
 
 
 def family_decode_case(inputs, arch, mesh, dev) -> dict:
-    """zamba2's, the xLSTM's and Whisper's decode (reduced configs, fp32, the
+    """zamba2's, the xLSTM's, Whisper's and dbrx-132b's decode (reduced configs, fp32, the
     inputs' weights), unmeshed and through ``make_serve_step``: the logits of
     DECODE_TOKENS steps, and the leaves of the meshed cache whose layout is not
     ``cache_shardings``' (the recurrent states written back on every rank's
@@ -357,12 +438,17 @@ def world(rank: int, inputs_path: str, device_type: str = "cpu"):
     inputs = np.load(inputs_path)
     mesh = init_device_mesh(device_type, (2, 2), mesh_dim_names=("data", "model"))
     out = {f"train|{arch}": train_case(inputs, arch, mesh, dev) for arch in TRAIN_ARCHS}
+    for arch in GATHER_ARCHS:
+        out[f"gathers|{arch}"] = gather_case(arch, mesh, dev)
     out["trainer"] = trainer_case(mesh, dev, os.path.join(os.path.dirname(inputs_path),
                                                           "trainer_ckpt"))
     out["decode"] = decode_case(inputs, mesh, dev)
     out["decode_heads"] = decode_case(inputs, mesh, dev, n_kv_heads=2)
     for arch in DECODE_ARCHS:
         out[f"decode|{arch}"] = family_decode_case(inputs, arch, mesh, dev)
+    # the MoE's experts and heads over a 4-way model dimension, nothing gathered
+    wide = init_device_mesh(device_type, (1, 4), mesh_dim_names=("data", "model"))
+    out["decode_1x4|dbrx-132b"] = family_decode_case(inputs, "dbrx-132b", wide, dev)
     out["pipeline"] = pipeline_case(inputs, dev)
     out["collectives"] = collectives_case(inputs, mesh, dev)
     return out if rank == 0 else None
